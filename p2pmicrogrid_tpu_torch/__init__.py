@@ -1,0 +1,9 @@
+"""p2pmicrogrid_tpu_torch — the PyTorch/CUDA port of p2pmicrogrid_tpu.
+
+The port runs on an NVIDIA H100 and mirrors the JAX package's layout and
+names. It imports torch and numpy only. Ported so far: the shared-scenario
+tabular training path with the factored market (``parallel/scenarios.py``),
+whose merged min pass is the hand-written CUDA kernel ``csrc/merged_min.cu``.
+Entry points default to ``device="cuda"`` and raise without a card unless the
+caller passes ``device="cpu"``.
+"""

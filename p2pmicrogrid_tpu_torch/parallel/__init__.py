@@ -1,0 +1,21 @@
+"""Scenario-batched training."""
+
+from p2pmicrogrid_tpu_torch.parallel.scenarios import (
+    EpisodeDraws,
+    init_shared_pol_state,
+    init_shared_state,
+    make_scenario_traces,
+    make_shared_episode_fn,
+    stack_scenario_arrays,
+    train_scenarios_shared,
+)
+
+__all__ = [
+    "EpisodeDraws",
+    "init_shared_pol_state",
+    "init_shared_state",
+    "make_scenario_traces",
+    "make_shared_episode_fn",
+    "stack_scenario_arrays",
+    "train_scenarios_shared",
+]

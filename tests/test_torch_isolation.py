@@ -1,0 +1,85 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and its
+entry points never carry on quietly on the CPU."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import p2pmicrogrid_tpu_torch
+from p2pmicrogrid_tpu_torch import config as tcfg
+from p2pmicrogrid_tpu_torch.envs import community as tcom
+from p2pmicrogrid_tpu_torch.models.tabular import tabular_init
+from p2pmicrogrid_tpu_torch.parallel import scenarios as tsc
+from p2pmicrogrid_tpu_torch.train.policies import init_policy_state, make_policy
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(p2pmicrogrid_tpu_torch.__file__)))
+
+
+def test_every_module_imports_without_jax():
+    """In a fresh interpreter where ``import jax`` and ``import
+    p2pmicrogrid_tpu`` fail, every module of the port imports, and no module
+    of the JAX package was loaded."""
+    script = textwrap.dedent(
+        """
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["p2pmicrogrid_tpu"] = None
+        import p2pmicrogrid_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        leaked = sorted(
+            n for n, m in sys.modules.items()
+            if m is not None and (n == "jax" or n.startswith(("jax.", "jaxlib", "flax", "optax"))
+                                  or n == "p2pmicrogrid_tpu" or n.startswith("p2pmicrogrid_tpu."))
+        )
+        assert not leaked, leaked
+        print(len(names))
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True, env=env, cwd=REPO,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 15  # every module was walked
+
+
+def _cfg():
+    return tcfg.default_config(sim=tcfg.SimConfig(n_agents=4, n_scenarios=2))
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda cfg: tsc.init_shared_state(cfg),
+        lambda cfg: init_policy_state(cfg),
+        lambda cfg: tabular_init(cfg.qlearning, 4),
+        lambda cfg: tcom.init_physical(cfg, batch_shape=(2,), normals=torch.zeros(2, 2, 4)),
+        lambda cfg: tcom.ratings_to(tcom.make_ratings(cfg, np.random.default_rng(0))),
+        lambda cfg: tsc.stack_scenario_arrays(
+            cfg, tsc.make_scenario_traces(cfg), tcom.make_ratings(cfg, np.random.default_rng(0))
+        ),
+    ],
+    ids=["init_shared_state", "init_policy_state", "tabular_init", "init_physical",
+         "ratings_to", "stack_scenario_arrays"],
+)
+def test_entry_points_default_to_cuda(monkeypatch, call):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call(_cfg())
+
+
+def test_unported_learners_raise():
+    for impl in ("dqn", "ddpg"):
+        cfg = tcfg.default_config(train=tcfg.TrainConfig(implementation=impl))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_policy(cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            init_policy_state(cfg, device="cpu")
