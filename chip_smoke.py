@@ -7,17 +7,22 @@ Run from the root of a checkout, with one CUDA device:
 Phases (each failure exits non-zero):
 
 1. Device and build: the card's name and power limit, the torch and CUDA
-   versions, then every kernel of the path built from ``csrc/`` (one ``nvcc``
-   per source, all started together).
+   versions, then every kernel built from ``csrc/`` (one ``nvcc`` per
+   source, all started together).
 2. Each kernel against its plain PyTorch version on the card, at the main
-   path's shapes and edge cases; a repeat launch must be bit-identical; the
-   kernel and the plain version timed with CUDA events.
+   paths' shapes and edge cases; a repeat launch must be bit-identical; the
+   kernel and the plain version timed with CUDA events. K1 (merged min), then
+   K5, K4, K6 (the matrix path) and K3, K2 (same source, no main path).
 3. Small-path parity: the A=6, S=3 shared tabular episode with fixed draws on
-   the card against the port on the CPU (rewards, every slot's actions).
-4. The main path at full width: ``train_scenarios_shared`` (tabular, battery
-   on, rounds=1, market "auto" -> factored with bf16 pre-rounding) at
-   A=1000, S=64 and at A=50, S=256, two episodes each. Every kernel launch
-   counter is set to 0 just before each run and read just after.
+   the card against the port on the CPU (rewards, every slot's actions), for
+   the factored market (rounds=1) and the matrix negotiation (rounds=2).
+4. The main paths at full width: ``train_scenarios_shared`` (tabular,
+   battery on, market "auto") at rounds=1 (-> factored with bf16
+   pre-rounding, K1) and at rounds=2 (-> matrix, K5, K4, K6, bf16 storage at
+   A >= 256), each at A=1000, S=64 and at A=50, S=256, two episodes each and
+   one more under the profiler. Every kernel launch counter is set to 0
+   just before each run and read just after; each episode must launch each
+   of its path's kernels once per slot and no other kernel.
 5. One JSON line with every kernel's numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -144,10 +149,13 @@ def phase_device_and_build():
         f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}"
     )
-    from p2pmicrogrid_tpu_torch.ops import merged_min
+    from p2pmicrogrid_tpu_torch.ops import matrix_market, merged_min
 
     start = time.perf_counter()
-    builds = {"merged_min": merged_min.start_build(("-Xptxas", "-v"))}
+    builds = {
+        mod.LIBRARY.name: mod.LIBRARY.start_build(("-Xptxas", "-v"))
+        for mod in (merged_min, matrix_market)
+    }
     for name, proc in builds.items():
         try:
             report = proc()
@@ -266,12 +274,172 @@ def phase_kernels():
     }
 
 
+def matrix_inputs(S, A, dtype, gen):
+    """Proposals ~1e3 W with the edge cases of tests/test_pallas.py (a zero
+    row, an all-same-sign scenario, a zero out_power), a tied scenario
+    (p = -p^T) and an all-zero round-0 vector."""
+    import torch
+
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda") * 1e3
+    p2p, out, prev = randn(S, A, A), randn(S, A), randn(S, A)
+    p2p[0, 0, :] = 0.0
+    out[-1, 0] = 0.0
+    if S > 1:
+        p2p[1] = p2p[1].abs()
+        p2p[-1] = p2p[-1] - p2p[-1].t()
+        prev[1] = 0.0
+    return p2p.to(dtype).contiguous(), out, prev
+
+
+def matrix_kernel_specs():
+    """K5, K4, K6, K3, K2: wrapper, plain version, arguments, what each
+    output is (a matrix or a sum over A terms), and the function's work: the
+    float32 operations per matrix entry and the bytes it must move (each
+    input read once, each output written once)."""
+    from p2pmicrogrid_tpu_torch.ops import matrix_market as mm
+
+    vec = lambda S, A: 4.0 * S * A
+    mat = lambda S, A, es: float(es) * S * A * A
+    # Per entry: powers (negate/scale, mask), filtered (two signs, compare,
+    # select), the row total (add), the split (abs, multiply, divide,
+    # select), the column mean (mask, add): 12; without the mean 10. Clearing:
+    # two signs, compare, two abs, min, sign product, subtract, two adds: 10.
+    return [
+        dict(name="divide_rank1_fused", fn=mm.divide_rank1_fused,
+             plain=mm.divide_rank1_fused_plain,
+             args=lambda p2p, out, prev, dt: (prev, out, dt), outputs=("matrix", "mean"),
+             replaces="p2pmicrogrid_tpu/ops/pallas_market.py:254", ops=12,
+             nbytes=lambda S, A, es: 2 * vec(S, A) + mat(S, A, es) + vec(S, A)),
+        dict(name="divide_power_fused_with_mean", fn=mm.divide_power_fused_with_mean,
+             plain=mm.divide_power_fused_with_mean_plain,
+             args=lambda p2p, out, prev, dt: (p2p, out), outputs=("matrix", "mean"),
+             replaces="p2pmicrogrid_tpu/ops/pallas_market.py:227", ops=12,
+             nbytes=lambda S, A, es: 2 * mat(S, A, es) + 2 * vec(S, A)),
+        dict(name="clear_market_fused", fn=mm.clear_market_fused,
+             plain=mm.clear_market_fused_plain,
+             args=lambda p2p, out, prev, dt: (p2p,), outputs=("rowsum", "rowsum"),
+             replaces="p2pmicrogrid_tpu/ops/pallas_market.py:282", ops=10,
+             nbytes=lambda S, A, es: mat(S, A, es) + 2 * vec(S, A)),
+        dict(name="divide_power_fused", fn=mm.divide_power_fused,
+             plain=mm.divide_power_fused_plain,
+             args=lambda p2p, out, prev, dt: (p2p, out), outputs=("matrix",),
+             replaces="p2pmicrogrid_tpu/ops/pallas_market.py:211", ops=10,
+             nbytes=lambda S, A, es: 2 * mat(S, A, es) + vec(S, A)),
+        dict(name="prep_mean", fn=mm.prep_mean, plain=mm.prep_mean_plain,
+             args=lambda p2p, out, prev, dt: (p2p,), outputs=("colsum",),
+             replaces="p2pmicrogrid_tpu/ops/pallas_market.py:194", ops=2,
+             nbytes=lambda S, A, es: mat(S, A, es) + vec(S, A)),
+    ]
+
+
+def check_matrix_output(label, kind, got, ref, terms):
+    """The kernel's output against the plain version's; returns the largest
+    absolute difference. Matrices: float32 rtol=1e-5, atol=1e-3
+    (tests/test_pallas.py:55-98), bfloat16 one ulp (rtol=8e-3, the unrounded
+    values may differ in their last bits). Sums of A terms in another order
+    than torch.sum's: rtol=1e-5, atol=1e-6 times the largest sum of
+    magnitudes (results may cancel to 0)."""
+    import torch
+
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        fail(f"{label}: {got.dtype}{tuple(got.shape)} vs plain {ref.dtype}{tuple(ref.shape)}")
+    g, r = got.float(), ref.float()
+    if not torch.isfinite(g).all():
+        fail(f"{label}: non-finite output")
+    if kind == "matrix":
+        rtol, atol = (1e-5 if got.dtype == torch.float32 else 8e-3), 1e-3
+    else:
+        rtol, atol = 1e-5, 1e-6 * float(terms.abs().sum(dim=-1).max())
+    err = float((g - r).abs().max())
+    if not torch.allclose(g, r, rtol=rtol, atol=atol):
+        fail(f"{label}: max abs err {err} (rtol {rtol}, atol {atol})")
+    return err
+
+
+def phase_matrix_kernels():
+    """K5, K4, K6, K3 and K2 against their plain versions; returns their
+    records, K5, K4, K6 (the matrix path) first."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        (64, 1000, bf16), (64, 1000, f32), (256, 50, f32),
+        (5, 257, bf16), (5, 257, f32), (3, 7, f32), (3, 7, bf16), (1, 50, f32), (2, 1, f32),
+    ]
+    timed = {(64, 1000, bf16): "main", (64, 1000, f32): "at_64x1000_f32", (256, 50, f32): "at_256x50"}
+    specs = matrix_kernel_specs()
+    records = {
+        sp["name"]: {
+            "name": sp["name"], "route": "cuda",
+            "source": "p2pmicrogrid_tpu_torch/csrc/matrix_market.cu",
+            "replaces": sp["replaces"], "launches": None, "max_abs_err": 0.0,
+            "library_ms": None,  # no single PyTorch call computes this pass
+            "bf16_entries_differ": 0,
+        }
+        for sp in specs
+    }
+    for S, A, dt in cases:
+        p2p, out, prev = matrix_inputs(S, A, dt, gen)
+        terms = {
+            "rowsum": p2p.float(),
+            "colsum": p2p.float().transpose(-1, -2) / A,
+        }
+        for sp in specs:
+            rec = records[sp["name"]]
+            args = sp["args"](p2p, out, prev, dt)
+            got, again = sp["fn"](*args), sp["fn"](*args)
+            torch.cuda.synchronize()
+            ref = sp["plain"](*args)
+            got, again, ref = (x if isinstance(x, tuple) else (x,) for x in (got, again, ref))
+            label = f"{sp['name']} [{S},{A}] {str(dt)[6:]}"
+            for g, a in zip(got, again):
+                if not torch.equal(g, a):
+                    fail(f"{label}: repeat launch not bit-identical")
+            for kind, g, r in zip(sp["outputs"], got, ref):
+                if kind == "mean":
+                    t = ref[0].float().transpose(-1, -2) / A
+                else:
+                    t = terms.get(kind)
+                err = check_matrix_output(label, kind, g, r, t)
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                if kind == "matrix" and g.dtype == bf16:
+                    rec["bf16_entries_differ"] += int((g != r).sum())
+            where = timed.get((S, A, dt))
+            if where is not None:
+                k_ms = cuda_time_ms(lambda: sp["fn"](*args))
+                p_ms = cuda_time_ms(lambda: sp["plain"](*args), iters=10)
+                es = torch.finfo(dt).bits // 8
+                bound_ops = sp["ops"] * S * A * A / PEAK_F32_FLOPS * 1e3
+                bound_bytes = sp["nbytes"](S, A, es) / PEAK_BYTES_PER_S * 1e3
+                t = dict(
+                    ms=k_ms, plain_ms=p_ms, bound_ms=max(bound_ops, bound_bytes),
+                    bound_by="operations" if bound_ops >= bound_bytes else "bytes",
+                )
+                if where == "main":
+                    rec.update(t, shape=[S, A], dtype="bfloat16")
+                else:
+                    rec[where] = t
+                log(
+                    f"{sp['name']} [{S},{A}] {str(dt)[6:]} kernel {k_ms:.6f} ms  "
+                    f"plain {p_ms:.6f} ms  bound {t['bound_ms']:.6f} ms ({t['bound_by']})"
+                )
+        log(f"matrix kernels [{S},{A}] {str(dt)[6:]} ok, bit-identical repeats")
+    for rec in records.values():
+        log(
+            f"{rec['name']}: max abs err {rec['max_abs_err']:.3e}, bf16 matrix "
+            f"entries that differ from the plain version {rec['bf16_entries_differ']}"
+        )
+    return [records[sp["name"]] for sp in specs]
+
+
 # --- phase 3 ---------------------------------------------------------------
 
 
-def small_config(tc, A, S):
+def small_config(tc, A, S, rounds, market_impl):
     return tc.default_config(
-        sim=tc.SimConfig(n_agents=A, n_scenarios=S, rounds=1, market_impl="factored"),
+        sim=tc.SimConfig(n_agents=A, n_scenarios=S, rounds=rounds, market_impl=market_impl),
         battery=tc.BatteryConfig(enabled=True),
         train=tc.TrainConfig(implementation="tabular"),
     )
@@ -321,36 +489,81 @@ def phase_small_parity():
     from p2pmicrogrid_tpu_torch.envs.community import make_ratings
 
     A, S, E, T = 6, 3, 2, 96
-    cfg = small_config(tc, A, S)
-    rng = np.random.default_rng(0)
-    draws = [
-        (
-            rng.uniform(size=(T, 2, S, A)).astype(np.float32),
-            rng.integers(0, 3, (T, 2, S, A)).astype(np.int64),
-            rng.standard_normal((S, 2, A)).astype(np.float32),
+    for rounds, market_impl in ((1, "factored"), (2, "matrix")):
+        cfg = small_config(tc, A, S, rounds, market_impl)
+        R = rounds + 1
+        rng = np.random.default_rng(0)
+        draws = [
+            (
+                rng.uniform(size=(T, R, S, A)).astype(np.float32),
+                rng.integers(0, 3, (T, R, S, A)).astype(np.int64),
+                rng.standard_normal((S, 2, A)).astype(np.float32),
+            )
+            for _ in range(E)
+        ]
+        ratings = make_ratings(cfg, np.random.default_rng(0))
+        act_g, rew_g, q_g = run_slots(cfg, "cuda", draws, ratings, E)
+        act_c, rew_c, q_c = run_slots(cfg, "cpu", draws, ratings, E)
+        what = f"small path ({market_impl}, rounds={rounds})"
+        if not np.isfinite(rew_g).all():
+            fail(f"{what}: non-finite rewards on the card")
+        if not np.array_equal(act_g, act_c):
+            fail(f"{what}: {int((act_g != act_c).sum())} actions differ card vs CPU")
+        if not np.allclose(rew_g, rew_c, rtol=2e-4, atol=0.0):
+            fail(f"{what}: rewards differ card vs CPU: {rew_g} vs {rew_c}")
+        if not np.allclose(q_g, q_c, rtol=1e-3, atol=1e-4):
+            fail(f"{what}: Q-tables differ card vs CPU")
+        rel = float(np.abs((rew_g - rew_c) / rew_c).max())
+        log(
+            f"phase 3: {what} A={A} S={S} card vs CPU: actions equal, max reward "
+            f"rel err {rel:.3e}"
         )
-        for _ in range(E)
-    ]
-    ratings = make_ratings(cfg, np.random.default_rng(0))
-    act_g, rew_g, q_g = run_slots(cfg, "cuda", draws, ratings, E)
-    act_c, rew_c, q_c = run_slots(cfg, "cpu", draws, ratings, E)
-    if not np.isfinite(rew_g).all():
-        fail("small path: non-finite rewards on the card")
-    if not np.array_equal(act_g, act_c):
-        fail(f"small path: {int((act_g != act_c).sum())} actions differ card vs CPU")
-    if not np.allclose(rew_g, rew_c, rtol=2e-4, atol=0.0):
-        fail(f"small path: rewards differ card vs CPU: {rew_g} vs {rew_c}")
-    if not np.allclose(q_g, q_c, rtol=1e-3, atol=1e-4):
-        fail("small path: Q-tables differ card vs CPU")
-    rel = float(np.abs((rew_g - rew_c) / rew_c).max())
-    log(f"phase 3: A={A} S={S} card vs CPU: actions equal, max reward rel err {rel:.3e}")
 
 
 # --- phase 4 ---------------------------------------------------------------
 
 
+# (market, A, S, rounds, the kernels each slot launches once): the shipped
+# default (rounds=1 -> factored, K1) and the reference's rounds comparison
+# at rounds=2 (-> matrix: K5, K4, K6), at the north-star community size with
+# BASELINE config 4's scenario count and at BASELINE config 3's shape.
+MATRIX_PATH = ("divide_rank1_fused", "divide_power_fused_with_mean", "clear_market_fused")
+MAIN_RUNS = (
+    ("factored", 1000, 64, 1, ("merged_min_sums",)),
+    ("factored", 50, 256, 1, ("merged_min_sums",)),
+    ("matrix", 1000, 64, 2, MATRIX_PATH),
+    ("matrix", 50, 256, 2, MATRIX_PATH),
+)
+
+
+def profiled_kernel_ms(kernels, T):
+    """Device ms per call of each path kernel in one profiled episode of T
+    slots. K5 and K4 each launch the column-mean reduce once per call, so
+    each is charged one reduce per call."""
+    def per_call(match):
+        hits = [v for k, v in kernels.items() if match(k)]
+        n = sum(c for c, _ in hits)
+        return (sum(ms for _, ms in hits) / n if n else 0.0), n
+
+    reduce_ms, _ = per_call(lambda k: "column_mean_kernel" in k)
+    rank1 = lambda k: "true" in k or "(bool)1" in k  # K5's template flag
+    k5, n5 = per_call(lambda k: "split_kernel" in k and rank1(k))
+    k4, n4 = per_call(lambda k: "split_kernel" in k and not rank1(k))
+    k6, n6 = per_call(lambda k: "clear_kernel" in k)
+    k1 = sum(ms for k, (_, ms) in kernels.items() if "merged_min" in k) / T
+    out = {"merged_min_sums": k1}  # both passes, one call per slot
+    if n5:
+        out["divide_rank1_fused"] = k5 + reduce_ms
+    if n4:
+        out["divide_power_fused_with_mean"] = k4 + reduce_ms
+    if n6:
+        out["clear_market_fused"] = k6
+    return out
+
+
 def phase_main_path(counters):
-    """train_scenarios_shared at full width; returns total K1 launches."""
+    """train_scenarios_shared at full width; returns each kernel's launches
+    summed over the runs, and {kernel: {(S, A): device ms per call}}."""
     import numpy as np
     import torch
 
@@ -369,15 +582,18 @@ def phase_main_path(counters):
     from p2pmicrogrid_tpu_torch.train import make_policy
 
     totals = {name: 0 for name in counters}
-    profiled = {}  # (S, A) -> K1 device ms per call from the profiler
-    for A, S in ((1000, 64), (50, 256)):
+    profiled = {name: {} for name in counters}
+    for market, A, S, rounds, path_kernels in MAIN_RUNS:
         cfg = tc.default_config(
-            sim=tc.SimConfig(n_agents=A, n_scenarios=S),
+            sim=tc.SimConfig(n_agents=A, n_scenarios=S, rounds=rounds),
             battery=tc.BatteryConfig(enabled=True),
             train=tc.TrainConfig(implementation="tabular"),
         )
         impl = resolve_market_impl(cfg, "cuda")
         mdt = resolve_market_dtype(cfg, "cuda")
+        what = f"main path {impl} rounds={rounds} A={A} S={S}"
+        if impl != market:
+            fail(f"{what}: market 'auto' resolved to {impl}, expected {market}")
         ratings = make_ratings(cfg, np.random.default_rng(cfg.train.seed))
         traces = make_scenario_traces(cfg, seed=cfg.train.seed)
         arrays = stack_scenario_arrays(cfg, traces, ratings, device="cuda")
@@ -400,24 +616,25 @@ def phase_main_path(counters):
         T = arrays.time.shape[1]
         rewards = np.concatenate([rew0, rew1])
         if rewards.shape != (2, S) or not np.isfinite(rewards).all():
-            fail(f"main path A={A} S={S}: rewards {rewards.shape} not finite")
+            fail(f"{what}: rewards {rewards.shape} not finite")
         if not np.isfinite(loss1).all() or not torch.isfinite(pol.q_table).all():
-            fail(f"main path A={A} S={S}: non-finite loss or Q-table")
+            fail(f"{what}: non-finite loss or Q-table")
         expect_eps = cfg.qlearning.epsilon * cfg.qlearning.epsilon_decay
         if abs(float(pol.epsilon) - expect_eps) > 1e-6:
-            fail(f"main path A={A} S={S}: epsilon {float(pol.epsilon)} != {expect_eps}")
-        if impl != "factored" or launches["merged_min_sums"] != 2 * T:
-            fail(
-                f"main path A={A} S={S}: market {impl}, K1 launched "
-                f"{launches['merged_min_sums']} times, expected {2 * T}"
-            )
+            fail(f"{what}: epsilon {float(pol.epsilon)} != {expect_eps}")
+        # Two episodes: each kernel of the path once per slot, no other.
+        expect = {name: (2 * T if name in path_kernels else 0) for name in counters}
+        if launches != expect:
+            fail(f"{what}: launches {launches}, expected {expect}")
+        if market == "matrix" and mdt != ("bfloat16" if A >= 256 else "float32"):
+            fail(f"{what}: market dtype {mdt}")
         for name, n in launches.items():
             totals[name] += n
         log(
-            f"phase 4: A={A} S={S} market={impl} dtype={mdt} "
-            f"env-steps/s {S * T / s1:.1f} (timed episode {s1:.4f} s, first "
+            f"phase 4: {what} dtype={mdt} env-steps/s {S * T / s1:.1f} (timed "
+            f"episode {s1:.4f} s, {s1 / T * 1e3:.3f} ms per slot, first episode "
             f"{s0:.4f} s) mean episode reward {rewards.mean(axis=1).tolist()} "
-            f"K1 launches {launches['merged_min_sums']} "
+            f"launches {({k: v for k, v in launches.items() if v})} "
             f"peak device memory {peak / 2**30:.3f} GiB"
         )
         # A third episode, after the counts were read, under the profiler.
@@ -429,10 +646,10 @@ def phase_main_path(counters):
             s1,
         )
         if kernels is not None:
-            k1 = [v for k, v in kernels.items() if "merged_min" in k]
-            k1_ms = sum(ms for _, ms in k1) / T
-            profiled[(S, A)] = k1_ms
-            log(f"  profile: K1 device time per call {k1_ms * 1e3:.3f} us (both passes)")
+            per_call = profiled_kernel_ms(kernels, T)
+            for name in path_kernels:
+                profiled[name][(S, A)] = per_call.get(name)
+                log(f"  profile: {name} device time per call {per_call.get(name, 0) * 1e3:.3f} us")
         del pol, scen, arrays
         torch.cuda.empty_cache()
     return totals, profiled
@@ -446,24 +663,37 @@ def main() -> None:
     import_port()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from p2pmicrogrid_tpu_torch.ops import matrix_market as mm
     from p2pmicrogrid_tpu_torch.ops.merged_min import merged_min_sums
 
-    counters = {"merged_min_sums": merged_min_sums}
+    counters = {
+        "merged_min_sums": merged_min_sums,
+        "divide_rank1_fused": mm.divide_rank1_fused,
+        "divide_power_fused_with_mean": mm.divide_power_fused_with_mean,
+        "clear_market_fused": mm.clear_market_fused,
+        "divide_power_fused": mm.divide_power_fused,
+        "prep_mean": mm.prep_mean,
+    }
     start = time.perf_counter()
     phase_device_and_build()
-    record = phase_kernels()
+    records = [phase_kernels()] + phase_matrix_kernels()
     log(f"phase 2: kernels match their plain versions ({time.perf_counter() - start:.1f} s)")
     phase_small_parity()
     launches, profiled = phase_main_path(counters)
-    for name, n in launches.items():
-        if n <= 0:
+    on_path = {name for run in MAIN_RUNS for name in run[4]}
+    for name in on_path:
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
-    record["launches"] = launches["merged_min_sums"]
-    # Device time per call from the main path's profiled episode (no host
-    # time in it), where the profiler saw the device.
-    record["profiled_ms"] = profiled.get((64, 1000))
-    record["at_256x50"]["profiled_ms"] = profiled.get((256, 50))
-    log(json.dumps({"kernels": [record]}))
+    for rec in records:
+        name = rec["name"]
+        rec["launches"] = launches[name]
+        rec["on_main_path"] = name in on_path
+        # Device time per call from the main path's profiled episode (no
+        # host time in it), where the profiler saw the device.
+        if name in on_path:
+            rec["profiled_ms"] = profiled[name].get((64, 1000))
+            rec["at_256x50"]["profiled_ms"] = profiled[name].get((256, 50))
+    log(json.dumps({"kernels": records}))
     log(f"total {time.perf_counter() - start:.1f} s")
     print(
         json.dumps(

@@ -2,8 +2,10 @@
 
 The port runs on an NVIDIA H100 and mirrors the JAX package's layout and
 names. It imports torch and numpy only. Ported so far: the shared-scenario
-tabular training path with the factored market (``parallel/scenarios.py``),
-whose merged min pass is the hand-written CUDA kernel ``csrc/merged_min.cu``.
+tabular training path (``parallel/scenarios.py``) with the factored market,
+whose merged min pass is the hand-written CUDA kernel ``csrc/merged_min.cu``,
+and with the multi-round matrix negotiation, whose split and clearing passes
+are the CUDA kernels of ``csrc/matrix_market.cu``.
 Entry points default to ``device="cuda"`` and raise without a card unless the
 caller passes ``device="cpu"``.
 """

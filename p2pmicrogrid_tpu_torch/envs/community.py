@@ -6,8 +6,8 @@ scenario and agent axes ``[S, A]``; an episode is a Python loop over slots
 (``parallel/scenarios.py``). Reference semantics kept (SURVEY.md section 7):
 
 * Within a negotiation round every agent sees the previous round's proposals
-  (community.py:75-86); the one-round negotiation's round-0 mean has a closed
-  form because round 0 splits against a zero matrix.
+  (community.py:75-86); round 0's mean has a closed form because round 0
+  splits against a zero matrix.
 * Reward = -(cost + 10 * comfort penalty), penalty offset +1, evaluated at the
   pre-step indoor temperature (agent.py:225-232).
 * The next-state observation reuses the stale (pre-step) indoor temperature
@@ -15,9 +15,9 @@ scenario and agent axes ``[S, A]``; an episode is a Python loop over slots
   ``SimConfig.stale_next_temp``.
 * Assets advance after the market settles (community.py:158-170).
 
-Only the factored and no-trading market branches are ported; the matrix
-branch (``rounds >= 2`` or ``market_impl="matrix"``) waits for the matrix
-kernels (ROADMAP.md, Queue 2: K3-K6).
+The market branches are the factored clearing (``rounds <= 1``, kernel K1),
+the matrix negotiation (any ``rounds``, kernels K5, K4 and K6 of
+``ops/matrix_market.py``) and the no-trading community.
 """
 
 from __future__ import annotations
@@ -36,6 +36,11 @@ from p2pmicrogrid_tpu_torch.ops.factored_market import (
     clear_factored_rounds1,
 )
 from p2pmicrogrid_tpu_torch.ops.market import compute_costs
+from p2pmicrogrid_tpu_torch.ops.matrix_market import (
+    clear_market_fused,
+    divide_power_fused_with_mean,
+    divide_rank1_fused,
+)
 from p2pmicrogrid_tpu_torch.ops.obs import make_observation
 from p2pmicrogrid_tpu_torch.ops.tariff import grid_prices, p2p_price as p2p_price_fn
 from p2pmicrogrid_tpu_torch.ops.thermal import (
@@ -226,9 +231,7 @@ def resolve_market_impl(cfg: ExperimentConfig, device) -> str:
 
     Auto takes the factored clearing on the card when trading with
     ``rounds <= 1``, and the matrix path elsewhere (on the CPU too, as the
-    JAX package does off the TPU). The matrix path is not ported yet, so CPU
-    callers pass ``market_impl="factored"`` explicitly, as the JAX package's
-    own CPU tests do.
+    JAX package does off the TPU).
     """
     mi = cfg.sim.market_impl
     if mi != "auto":
@@ -309,12 +312,43 @@ def slot_dynamics_batched(
             p_grid, p_p2p = clear_factored_rounds1(out0, out1, compute_dtype=f_dtype)
         hp_power_r = torch.stack(hp_power_l, dim=1)  # [S, rounds+1, A]
     elif market_impl is not None:
-        raise NotImplementedError(
-            f"market_impl={market_impl!r} (the [S, A, A] matrix negotiation) is "
-            "not ported yet: it needs kernels K3-K6 (ROADMAP.md, Queue 2). "
-            "Use rounds <= 1 with market_impl='factored' (the default on a "
-            "CUDA device)."
+        # The matrix negotiation, in the JAX package's Pallas structure
+        # (envs/community.py:656-704). Round 0 splits against a zero matrix,
+        # so its output is the rank-1 matrix out_0 / A and its mean has a
+        # closed form; round 1 rebuilds that matrix from the vector (K5);
+        # later rounds split the stored matrix and emit the next round's
+        # mean (K4); K6 clears the final matrix.
+        mdt = (
+            torch.bfloat16
+            if resolve_market_dtype(cfg, device) == "bfloat16"
+            else torch.float32
         )
+        S, A = load_w.shape
+        mean_raw = torch.zeros_like(balance_w)
+        hp_frac = phys_s.hp_frac
+        prev_vec = p2p = None
+        hp_power_l = []
+        for r in range(cfg.sim.rounds + 1):
+            obs, hp_frac, aux, q, out_power = round_obs_act(
+                mean_raw * inv_max_in, hp_frac, r
+            )
+            hp_power_l.append(hp_frac * th.hp_max_power)
+            if r == 0:
+                prev_vec = out_power
+                tot = out_power.sum(dim=-1, keepdim=True)
+                mean_raw = -(tot - out_power) * recip(A * A)
+            elif prev_vec is not None:
+                p2p, mean_raw = divide_rank1_fused(prev_vec, out_power, out_dtype=mdt)
+                prev_vec = None
+            else:
+                p2p, mean_raw = divide_power_fused_with_mean(p2p, out_power)
+        if p2p is None:
+            # rounds == 0: clear the rank-1 matrix of the single pass.
+            p2p = (
+                (prev_vec * recip(A))[:, :, None].expand(S, A, A).to(mdt).contiguous()
+            )
+        p_grid, p_p2p = clear_market_fused(p2p)
+        hp_power_r = torch.stack(hp_power_l, dim=1)  # [S, rounds+1, A]
     else:
         # No-com community: one decision pass, zero p2p signal, grid-only
         # settlement.

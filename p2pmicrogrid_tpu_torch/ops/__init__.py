@@ -1,2 +1,3 @@
 """Pure tensor operations of one slot: tariff, thermal, battery, observation,
-market clearing and the factored market with its merged-min kernel."""
+market clearing, the factored market with its merged-min kernel, and the
+matrix negotiation's kernels."""

@@ -10,8 +10,9 @@ exchange with agent j; a trade matches where ``p2p[i, j]`` and ``p2p[j, i]``
 have opposite signs.
 
 ``compute_costs`` is on the slot path. ``clear_market``, ``divide_power`` and
-``zero_diagonal`` are the plain matrix form of the negotiation, which the
-factored clearing reproduces; the matrix path itself is not ported yet.
+``zero_diagonal`` are the plain semantic oracle of the matrix negotiation:
+the factored clearing reproduces them, and the plain versions of the matrix
+kernels (``ops/matrix_market.py``) are built from them.
 """
 
 from __future__ import annotations

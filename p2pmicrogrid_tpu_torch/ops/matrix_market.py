@@ -1,0 +1,245 @@
+"""The matrix negotiation's fused passes (kernels K2-K6) and their plain
+versions.
+
+The counterpart of the JAX package's ``ops/pallas_market.py``, with its
+names, signatures and dtypes. Per scenario, on ``[S, A, A]`` proposal
+matrices (float32 or bfloat16 storage; all arithmetic float32):
+
+* ``prep_mean(p2p)`` (K2): ``-sum_{j != i} p2p[:, j, i] / A``, the mean-p2p
+  observation, ``[S, A]`` float32.
+* ``divide_power_fused(p2p, out_power)`` (K3): the proposal split
+  (``ops/market.py::divide_power``) against ``powers = -p2p^T`` with the
+  diagonal zeroed, in p2p's dtype.
+* ``divide_power_fused_with_mean(p2p, out_power)`` (K4): K3 and K2 of its
+  own float32 output, before that output is rounded to p2p's dtype.
+* ``divide_rank1_fused(prev_out, out_power, out_dtype)`` (K5): K4 against the
+  rank-1 matrix ``prev_out[i] / A`` (round 0's output), never built.
+* ``clear_market_fused(p2p)`` (K6): sign-opposition matching
+  (``ops/market.py::clear_market``), ``(p_grid, p_p2p)`` float32.
+
+Each wrapper launches its CUDA kernel (``csrc/matrix_market.cu``) for tensors
+on a CUDA device, counted in ``<wrapper>.launches``, and runs its ``*_plain``
+version for tensors on the CPU; there is no fallback from one to the other,
+and a failed build or launch raises. The plain versions reuse the semantic
+oracle of ``ops/market.py`` and round to bfloat16 at the same points as the
+kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from p2pmicrogrid_tpu_torch.ops._build import KernelLibrary, launch
+from p2pmicrogrid_tpu_torch.ops._f32 import recip
+from p2pmicrogrid_tpu_torch.ops.market import clear_market, divide_power
+
+_MATRIX_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.divide_rank1_launch.argtypes = [p] * 5 + [i, i, i, p]
+    lib.divide_power_launch.argtypes = [p] * 5 + [i, i, i, i, p]
+    lib.prep_mean_launch.argtypes = [p, p, i, i, i, p]
+    lib.clear_market_launch.argtypes = [p, p, p, i, i, i, p]
+    lib.matrix_market_stripe_rows.argtypes = []
+    for fn in (
+        lib.divide_rank1_launch,
+        lib.divide_power_launch,
+        lib.prep_mean_launch,
+        lib.clear_market_launch,
+        lib.matrix_market_stripe_rows,
+    ):
+        fn.restype = ctypes.c_int
+
+
+LIBRARY = KernelLibrary("matrix_market.cu", _configure)
+
+
+# --- plain versions ----------------------------------------------------------
+
+
+def _off_diagonal(a: int, device) -> torch.Tensor:
+    return 1.0 - torch.eye(a, dtype=torch.float32, device=device)
+
+
+def _column_mean(new: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``-sum_{i != j} new[:, i, j] / A``, [S, A]."""
+    return -(new * mask).sum(dim=-2) * recip(new.shape[-1])
+
+
+def _split(p2p: torch.Tensor, out_power: torch.Tensor):
+    mask = _off_diagonal(p2p.shape[-1], p2p.device)
+    powers = -(p2p.float() * mask).transpose(-1, -2)
+    return divide_power(out_power, powers), mask
+
+
+def prep_mean_plain(p2p: torch.Tensor) -> torch.Tensor:
+    return _column_mean(p2p.float(), _off_diagonal(p2p.shape[-1], p2p.device))
+
+
+def divide_power_fused_plain(p2p: torch.Tensor, out_power: torch.Tensor) -> torch.Tensor:
+    return _split(p2p, out_power)[0].to(p2p.dtype)
+
+
+def divide_power_fused_with_mean_plain(
+    p2p: torch.Tensor, out_power: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    new, mask = _split(p2p, out_power)
+    return new.to(p2p.dtype), _column_mean(new, mask)
+
+
+def divide_rank1_fused_plain(
+    prev_out: torch.Tensor, out_power: torch.Tensor, out_dtype=torch.float32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    a = prev_out.shape[-1]
+    mask = _off_diagonal(a, prev_out.device)
+    # powers[s, i, j] = -(prev[s, j] / A), indexed by j; 0 on the diagonal.
+    powers = (-prev_out[:, None, :] * recip(a)) * mask
+    new = divide_power(out_power, powers)
+    return new.to(out_dtype), _column_mean(new, mask)
+
+
+def clear_market_fused_plain(p2p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return clear_market(p2p.float())
+
+
+# --- kernel wrappers ---------------------------------------------------------
+
+
+def _check_vec(fn: str, name: str, x: torch.Tensor, shape, device) -> None:
+    if x.device != device or x.dtype != torch.float32:
+        raise ValueError(
+            f"{fn}: {name} must be float32 on {device}, got {x.dtype} on {x.device}"
+        )
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{fn}: {name} must have shape [S, A] = {tuple(shape)}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def _check_mat(fn: str, p2p: torch.Tensor) -> None:
+    if p2p.dtype not in _MATRIX_DTYPES:
+        raise ValueError(f"{fn}: p2p must be float32 or bfloat16, got {p2p.dtype}")
+    if p2p.dim() != 3 or p2p.shape[1] != p2p.shape[2] or p2p.numel() == 0:
+        raise ValueError(f"{fn}: p2p must have shape [S, A, A], got {tuple(p2p.shape)}")
+    if not p2p.is_contiguous():
+        raise ValueError(f"{fn}: p2p must be contiguous")
+
+
+def _col_partial(lib, s: int, a: int, device) -> torch.Tensor:
+    rows = lib.matrix_market_stripe_rows()
+    return torch.empty((s, -(-a // rows), a), dtype=torch.float32, device=device)
+
+
+def prep_mean(p2p: torch.Tensor) -> torch.Tensor:
+    """[S, A, A] -> [S, A] float32 (K2)."""
+    if p2p.device.type != "cuda":
+        return prep_mean_plain(p2p)
+    _check_mat("prep_mean", p2p)
+    s, a, _ = p2p.shape
+    mean = torch.empty((s, a), dtype=torch.float32, device=p2p.device)
+    launch(
+        "prep_mean", p2p.device, LIBRARY.load().prep_mean_launch, p2p.data_ptr(),
+        mean.data_ptr(), s, a, int(p2p.dtype == torch.bfloat16),
+    )
+    prep_mean.launches += 1
+    return mean
+
+
+def _divide(fn: str, p2p: torch.Tensor, out_power: torch.Tensor, with_mean: bool):
+    _check_mat(fn, p2p)
+    s, a, _ = p2p.shape
+    _check_vec(fn, "out_power", out_power, (s, a), p2p.device)
+    new = torch.empty_like(p2p)
+    lib = LIBRARY.load()
+    mean = partial = None
+    if with_mean:
+        mean = torch.empty((s, a), dtype=torch.float32, device=p2p.device)
+        partial = _col_partial(lib, s, a, p2p.device)
+    launch(
+        fn, p2p.device, lib.divide_power_launch, p2p.data_ptr(), out_power.data_ptr(),
+        new.data_ptr(), None if mean is None else mean.data_ptr(),
+        None if partial is None else partial.data_ptr(), s, a,
+        int(p2p.dtype == torch.bfloat16), int(with_mean),
+    )
+    return new, mean
+
+
+def divide_power_fused(p2p: torch.Tensor, out_power: torch.Tensor) -> torch.Tensor:
+    """[S, A, A], [S, A] -> [S, A, A] in p2p's dtype (K3)."""
+    if p2p.device.type != "cuda":
+        return divide_power_fused_plain(p2p, out_power)
+    new, _ = _divide("divide_power_fused", p2p, out_power, with_mean=False)
+    divide_power_fused.launches += 1
+    return new
+
+
+def divide_power_fused_with_mean(
+    p2p: torch.Tensor, out_power: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[S, A, A], [S, A] -> (new p2p [S, A, A] in p2p's dtype, its prep_mean
+    [S, A] float32 from the unrounded values) (K4)."""
+    if p2p.device.type != "cuda":
+        return divide_power_fused_with_mean_plain(p2p, out_power)
+    out = _divide("divide_power_fused_with_mean", p2p, out_power, with_mean=True)
+    divide_power_fused_with_mean.launches += 1
+    return out
+
+
+def divide_rank1_fused(
+    prev_out: torch.Tensor, out_power: torch.Tensor, out_dtype=torch.float32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[S, A] round-0 powers, [S, A] -> (new p2p [S, A, A] in ``out_dtype``,
+    its prep_mean [S, A] float32) (K5)."""
+    if prev_out.device.type != "cuda":
+        return divide_rank1_fused_plain(prev_out, out_power, out_dtype)
+    fn = "divide_rank1_fused"
+    if out_dtype not in _MATRIX_DTYPES:
+        raise ValueError(f"{fn}: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if prev_out.dim() != 2 or prev_out.numel() == 0:
+        raise ValueError(f"{fn}: prev_out must have shape [S, A], got {tuple(prev_out.shape)}")
+    s, a = prev_out.shape
+    _check_vec(fn, "prev_out", prev_out, (s, a), prev_out.device)
+    _check_vec(fn, "out_power", out_power, (s, a), prev_out.device)
+    new = torch.empty((s, a, a), dtype=out_dtype, device=prev_out.device)
+    mean = torch.empty((s, a), dtype=torch.float32, device=prev_out.device)
+    lib = LIBRARY.load()
+    partial = _col_partial(lib, s, a, prev_out.device)
+    launch(
+        fn, prev_out.device, lib.divide_rank1_launch, prev_out.data_ptr(),
+        out_power.data_ptr(), new.data_ptr(), mean.data_ptr(), partial.data_ptr(), s, a,
+        int(out_dtype == torch.bfloat16),
+    )
+    divide_rank1_fused.launches += 1
+    return new, mean
+
+
+def clear_market_fused(p2p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[S, A, A] -> (p_grid [S, A], p_p2p [S, A]) float32 (K6)."""
+    if p2p.device.type != "cuda":
+        return clear_market_fused_plain(p2p)
+    _check_mat("clear_market_fused", p2p)
+    s, a, _ = p2p.shape
+    grid = torch.empty((s, a), dtype=torch.float32, device=p2p.device)
+    peer = torch.empty_like(grid)
+    launch(
+        "clear_market_fused", p2p.device, LIBRARY.load().clear_market_launch,
+        p2p.data_ptr(), grid.data_ptr(), peer.data_ptr(), s, a,
+        int(p2p.dtype == torch.bfloat16),
+    )
+    clear_market_fused.launches += 1
+    return grid, peer
+
+
+for _wrapper in (
+    prep_mean,
+    divide_power_fused,
+    divide_power_fused_with_mean,
+    divide_rank1_fused,
+    clear_market_fused,
+):
+    _wrapper.launches = 0

@@ -13,88 +13,29 @@ of ``ops/factored_market.py::clear_factored_rounds1``).
 ``merged_min_sums`` launches the CUDA kernel (``csrc/merged_min.cu``) for
 tensors on a CUDA device and runs ``merged_min_sums_plain`` for tensors on
 the CPU; there is no fallback from one to the other. The kernel is built
-with ``nvcc`` for ``sm_90a`` at first use into ``_build/`` beside this
-package (a library named by the source's digest) and loaded with ``ctypes``.
+at first use (``ops/_build.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-from typing import Callable, Tuple
+from typing import Tuple
 
 import torch
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "merged_min.cu")
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
-
-_lib = None
-_lib_lock = threading.Lock()
+from p2pmicrogrid_tpu_torch.ops._build import KernelLibrary, launch
 
 
-def nvcc_path() -> str:
-    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else /usr/local/cuda's."""
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
+def _configure(lib: ctypes.CDLL) -> None:
+    lib.merged_min_sums_launch.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    lib.merged_min_sums_launch.restype = ctypes.c_int
 
 
-def _lib_path() -> str:
-    # Keyed by the source's digest, so an edited source is rebuilt.
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(_BUILD_DIR, f"libmerged_min-{digest}.so")
-
-
-def start_build(extra_flags: Tuple[str, ...] = ()) -> Callable[[], str]:
-    """Start ``nvcc`` on ``csrc/merged_min.cu`` and return a function that
-    waits for it: it returns the compiler's diagnostics (with
-    ``extra_flags=("-Xptxas", "-v")`` the register and shared-memory report)
-    and raises ``RuntimeError`` if the build failed. Several sources can
-    build at once this way."""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    lib = _lib_path()
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.Popen(
-        [nvcc_path(), *_NVCC_FLAGS, *extra_flags, "-o", tmp, _SOURCE],
-        stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE,
-        text=True,
-    )
-
-    def wait() -> str:
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {_SOURCE}:\n{err}")
-        os.replace(tmp, lib)
-        return out + err
-
-    return wait
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            path = _lib_path()
-            if not os.path.exists(path):
-                start_build()()
-            lib = ctypes.CDLL(path)
-            lib.merged_min_sums_launch.argtypes = [ctypes.c_void_p] * 8 + [
-                ctypes.c_int,
-                ctypes.c_int,
-                ctypes.c_void_p,
-            ]
-            lib.merged_min_sums_launch.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+LIBRARY = KernelLibrary("merged_min.cu", _configure)
 
 
 def merged_min_sums_plain(
@@ -156,19 +97,10 @@ def merged_min_sums(
     s, a = alpha.shape
     row = torch.empty_like(alpha)
     col = torch.empty_like(alpha)
-    lib = _load()
-    with torch.cuda.device(alpha.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.merged_min_sums_launch(
-            *(x.data_ptr() for x in args),
-            row.data_ptr(),
-            col.data_ptr(),
-            s,
-            a,
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"merged_min_sums kernel launch failed: CUDA error {err}")
+    launch(
+        "merged_min_sums", alpha.device, LIBRARY.load().merged_min_sums_launch,
+        *(x.data_ptr() for x in args), row.data_ptr(), col.data_ptr(), s, a,
+    )
     merged_min_sums.launches += 1
     return row, col
 

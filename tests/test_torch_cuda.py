@@ -1,4 +1,5 @@
-"""Kernel K1 on the card against its plain version.
+"""The port's CUDA kernels on the card against their plain versions: K1
+(``ops/merged_min.py``) and K2-K6 (``ops/matrix_market.py``).
 
 Marked ``cuda``: it skips without a CUDA device (a CUDA kernel has no CPU
 mode). This file imports neither JAX nor the JAX package, so it also runs on
@@ -8,13 +9,14 @@ a machine without them: ``python -m pytest --noconftest tests/test_torch_cuda.py
 import pytest
 import torch
 
+from p2pmicrogrid_tpu_torch.ops import matrix_market as mm
 from p2pmicrogrid_tpu_torch.ops.merged_min import merged_min_sums, merged_min_sums_plain
 
 
 @pytest.fixture
 def cuda_generator():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: K1 has no CPU mode")
+        pytest.skip("needs a CUDA device: a CUDA kernel has no CPU mode")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     return gen
@@ -53,3 +55,99 @@ def test_wrapper_rejects_bad_inputs(cuda_generator):
         merged_min_sums(*good[:5], x[:, :4].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         merged_min_sums(*good[:5], x.t().contiguous().t())
+
+
+def _matrix_inputs(S, A, dtype, gen):
+    """Proposals ~1e3 W with the edge cases of tests/test_pallas.py (a zero
+    row, an all-same-sign scenario, a zero out_power) and a tied scenario."""
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda") * 1e3
+    p2p, out, prev = randn(S, A, A), randn(S, A), randn(S, A)
+    p2p[0, 0, :] = 0.0
+    out[-1, 0] = 0.0
+    if S > 1:
+        p2p[1] = p2p[1].abs()
+        p2p[-1] = p2p[-1] - p2p[-1].t()
+        prev[1] = 0.0
+    return p2p.to(dtype).contiguous(), out, prev
+
+
+def _close_sums(got, ref, terms):
+    """Sums of A terms in another order than torch.sum's: rtol=1e-5, atol of
+    1e-6 times the largest sum of magnitudes (results may cancel to 0)."""
+    scale = float(terms.abs().sum(dim=-1).max())
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6 * scale)
+
+
+def _close_matrix(got, ref):
+    # float32: rtol=1e-5, atol=1e-3 (tests/test_pallas.py:55-98); bfloat16:
+    # one bfloat16 ulp, since the unrounded values may differ in the last bits.
+    assert got.dtype == ref.dtype
+    rtol = 1e-5 if got.dtype == torch.float32 else 8e-3
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,dtype",
+    [
+        ((64, 1000), torch.bfloat16),
+        ((64, 1000), torch.float32),
+        ((256, 50), torch.float32),
+        ((3, 7), torch.float32),
+        ((3, 7), torch.bfloat16),
+    ],
+)
+def test_matrix_kernels_match_plain(cuda_generator, shape, dtype):
+    """K5, K4, K3, K2 and K6 at the matrix path's shapes and a ragged small
+    one; each launch is counted once, and a repeat launch is bit-identical."""
+    S, A = shape
+    p2p, out, prev = _matrix_inputs(S, A, dtype, cuda_generator)
+    calls = {
+        mm.divide_rank1_fused: (prev, out, dtype),
+        mm.divide_power_fused_with_mean: (p2p, out),
+        mm.divide_power_fused: (p2p, out),
+        mm.prep_mean: (p2p,),
+        mm.clear_market_fused: (p2p,),
+    }
+    plain = {
+        mm.divide_rank1_fused: mm.divide_rank1_fused_plain,
+        mm.divide_power_fused_with_mean: mm.divide_power_fused_with_mean_plain,
+        mm.divide_power_fused: mm.divide_power_fused_plain,
+        mm.prep_mean: mm.prep_mean_plain,
+        mm.clear_market_fused: mm.clear_market_fused_plain,
+    }
+    for fn, args in calls.items():
+        before = fn.launches
+        got, again = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        ref = plain[fn](*args)
+        got, again, ref = (x if isinstance(x, tuple) else (x,) for x in (got, again, ref))
+        for g, a in zip(got, again):
+            assert torch.equal(g, a), fn.__name__
+        if fn is mm.clear_market_fused:
+            for g, r in zip(got, ref):
+                _close_sums(g, r, p2p.float())
+        elif fn is mm.prep_mean:
+            _close_sums(got[0], ref[0], p2p.float().transpose(-1, -2) / A)
+        else:
+            _close_matrix(got[0], ref[0])
+            if len(got) > 1:
+                _close_sums(got[1], ref[1], ref[0].float().transpose(-1, -2) / A)
+
+
+@pytest.mark.cuda
+def test_matrix_wrappers_reject_bad_inputs(cuda_generator):
+    p2p, out, prev = _matrix_inputs(4, 8, torch.float32, cuda_generator)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        mm.clear_market_fused(p2p.double())
+    with pytest.raises(ValueError, match="shape"):
+        mm.prep_mean(p2p[:, :, :4].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        mm.divide_power_fused(p2p.transpose(1, 2), out)
+    with pytest.raises(ValueError, match="float32"):
+        mm.divide_power_fused_with_mean(p2p, out.double())
+    with pytest.raises(ValueError, match="shape"):
+        mm.divide_rank1_fused(prev, out[:, :4].contiguous())
+    with pytest.raises(ValueError, match="out_dtype"):
+        mm.divide_rank1_fused(prev, out, torch.float16)

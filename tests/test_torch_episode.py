@@ -1,5 +1,6 @@
-"""The slice as a whole: shared-scenario tabular training with the factored
-market, the port against the JAX package on the CPU.
+"""The slices as a whole: shared-scenario tabular training with the factored
+market (rounds=1) and with the matrix negotiation (rounds=2, against the JAX
+package's Pallas path), the port against the JAX package on the CPU.
 
 Both start from identical state (``convert.state_from_jax``) and the port is
 fed the JAX package's own random draws, rebuilt here from its key chain:
@@ -29,10 +30,14 @@ from p2pmicrogrid_tpu.train import make_policy as j_make_policy
 from p2pmicrogrid_tpu_torch import config as tcfg
 from p2pmicrogrid_tpu_torch.convert import state_from_jax, state_to_numpy
 from p2pmicrogrid_tpu_torch.envs import community as tcom
+from p2pmicrogrid_tpu_torch.ops import matrix_market as tmm
 from p2pmicrogrid_tpu_torch.parallel import scenarios as tsc
 from p2pmicrogrid_tpu_torch.train import make_policy as t_make_policy
 
 S, A, E, T = 3, 6, 2, 96
+# The matrix negotiation at rounds=2 through the Pallas kernels, which run in
+# interpret mode on the CPU.
+MATRIX = dict(rounds=2, market_impl="matrix", use_pallas=True)
 
 
 def _cfg(mod, **sim):
@@ -90,11 +95,10 @@ def _to_draws(normals, u, r):
     )
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """Two JAX episodes of train_scenarios_shared (built once per module),
-    their draws, and every slot's actions from the same slot functions."""
-    cfg = _cfg(jcfg)
+def _jax_run(sim):
+    """Two JAX episodes of train_scenarios_shared, their draws, and every
+    slot's actions from the same slot functions."""
+    cfg = _cfg(jcfg, **sim)
     ratings = make_ratings(cfg, np.random.default_rng(0))
     policy = j_make_policy(cfg)
     arrays = jsc.stack_scenario_arrays(cfg, jsc.make_scenario_traces(cfg, seed=0), ratings)
@@ -146,8 +150,28 @@ def jax_run():
     )
 
 
+@pytest.fixture(scope="module")
+def jax_run():
+    return _jax_run({})
+
+
+@pytest.fixture(scope="module")
+def jax_run_matrix():
+    """The matrix path at rounds=2 through the JAX package's Pallas kernels
+    (interpret mode on the CPU)."""
+    return _jax_run(MATRIX)
+
+
 def test_shared_training_matches_jax(jax_run):
-    cfg = _cfg(tcfg)
+    _check_shared_training(jax_run, {})
+
+
+def test_matrix_shared_training_matches_jax(jax_run_matrix):
+    _check_shared_training(jax_run_matrix, MATRIX)
+
+
+def _check_shared_training(jax_run, sim):
+    cfg = _cfg(tcfg, **sim)
     pol0 = state_from_jax(jax_run["pol0"], device="cpu")
     arrays = state_from_jax(jax_run["arrays"], device="cpu")
     policy = t_make_policy(cfg)
@@ -163,7 +187,15 @@ def test_shared_training_matches_jax(jax_run):
 
 
 def test_every_slot_action_matches_jax(jax_run):
-    cfg = _cfg(tcfg)
+    _check_every_slot_action(jax_run, {})
+
+
+def test_matrix_every_slot_action_matches_jax(jax_run_matrix):
+    _check_every_slot_action(jax_run_matrix, MATRIX)
+
+
+def _check_every_slot_action(jax_run, sim):
+    cfg = _cfg(tcfg, **sim)
     policy = t_make_policy(cfg)
     pol = state_from_jax(jax_run["pol0"], device="cpu")
     arrays = state_from_jax(jax_run["arrays"], device="cpu")
@@ -187,6 +219,28 @@ def test_every_slot_action_matches_jax(jax_run):
 def test_single_slot_branches_match_jax(sim):
     """The rounds=0 factored branch and the no-trading branch, one slot from
     a non-zero Q-table."""
+    _check_single_slot(sim)
+
+
+@pytest.mark.parametrize(
+    "sim",
+    [
+        dict(MATRIX, rounds=0),
+        dict(MATRIX, rounds=1),
+        dict(MATRIX, rounds=3),
+        dict(MATRIX, market_dtype="bfloat16"),
+    ],
+    ids=["rounds0", "rounds1", "rounds3", "bf16_rounds2"],
+)
+def test_matrix_single_slot_matches_jax(sim):
+    """The matrix branch against the JAX Pallas path, one slot: rounds=0
+    clears the broadcast rank-1 matrix, rounds=1 runs K5 then K6, rounds=3
+    runs K4 twice; bfloat16 storage at rounds=2 rounds each stored matrix as
+    the JAX kernels do."""
+    _check_single_slot(sim)
+
+
+def _check_single_slot(sim):
     cfg_j, cfg_t = _cfg(jcfg, **sim), _cfg(tcfg, **sim)
     rng = np.random.default_rng(3)
     ratings = make_ratings(cfg_j, rng)
@@ -252,11 +306,38 @@ def test_generator_path_is_deterministic():
     assert float(a[0].epsilon) == pytest.approx(cfg.qlearning.epsilon * cfg.qlearning.epsilon_decay)
 
 
-def test_matrix_market_is_not_ported_yet():
-    cfg = _cfg(tcfg, market_impl="auto")  # auto -> matrix on the CPU
+def test_matrix_episode_matches_jax_jnp_path(jax_run_matrix):
+    """One episode at rounds=2 against the JAX package's jnp matrix path
+    (``use_pallas=False``: a scan over rounds on the full matrices), at the
+    Pallas-vs-jnp episode tolerance of tests/test_pallas.py:102-129."""
+    sim = dict(MATRIX, use_pallas=False)
+    cfg_j = _cfg(jcfg, **sim)
+    ratings = make_ratings(cfg_j, np.random.default_rng(0))
+    arrays = jsc.stack_scenario_arrays(cfg_j, jsc.make_scenario_traces(cfg_j, seed=0), ratings)
+    pol0, scen = jsc.init_shared_state(cfg_j, jax.random.PRNGKey(0))
+    _, _, rewards_j, _, _ = jsc.train_scenarios_shared(
+        cfg_j, j_make_policy(cfg_j), pol0, arrays, ratings, jax.random.PRNGKey(1),
+        n_episodes=1, replay_s=scen, pipeline=False,
+    )
+    cfg = _cfg(tcfg, **MATRIX)
+    _, _, rewards, _, _ = tsc.train_scenarios_shared(
+        cfg, t_make_policy(cfg), state_from_jax(jax_run_matrix["pol0"], device="cpu"),
+        state_from_jax(jax_run_matrix["arrays"], device="cpu"), jax_run_matrix["ratings"],
+        None, 1, draws=jax_run_matrix["draws"][:1],
+    )
+    np.testing.assert_allclose(rewards, rewards_j, rtol=1e-4)
+
+
+def test_auto_market_on_cpu_runs_the_matrix_path():
+    """On the CPU ``market_impl="auto"`` resolves to the matrix negotiation
+    (as the JAX package does off the TPU), which runs the plain versions of
+    K5 and K6 and launches no kernel."""
+    cfg = _cfg(tcfg, market_impl="auto")
+    assert tcom.resolve_market_impl(cfg, "cpu") == "matrix"
     ratings = tcom.make_ratings(cfg, np.random.default_rng(0))
     arrays = tsc.stack_scenario_arrays(cfg, tsc.make_scenario_traces(cfg, seed=0), ratings, device="cpu")
     episode = tsc.make_shared_episode_fn(cfg, t_make_policy(cfg), arrays, ratings)
-    pol = tsc.init_shared_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="K3-K6"):
-        episode(pol, torch.Generator().manual_seed(0))
+    before = (tmm.divide_rank1_fused.launches, tmm.clear_market_fused.launches)
+    _, (rewards, losses) = episode(tsc.init_shared_state(cfg, device="cpu"), torch.Generator().manual_seed(0))
+    assert rewards.shape == (S,) and torch.isfinite(rewards).all() and torch.isfinite(losses).all()
+    assert (tmm.divide_rank1_fused.launches, tmm.clear_market_fused.launches) == before
