@@ -12,17 +12,23 @@ Phases (each failure exits non-zero):
 2. Each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and edge cases; a repeat launch must be bit-identical; the
    kernel and the plain version timed with CUDA events. K1 (merged min), then
-   K5, K4, K6 (the matrix path) and K3, K2 (same source, no main path).
-3. Small-path parity: the A=6, S=3 shared tabular episode with fixed draws on
-   the card against the port on the CPU (rewards, every slot's actions), for
-   the factored market (rounds=1) and the matrix negotiation (rounds=2).
-4. The main paths at full width: ``train_scenarios_shared`` (tabular,
-   battery on, market "auto") at rounds=1 (-> factored with bf16
+   K5, K4, K6 (the matrix path) and K3, K2 (same source, no main path), then
+   K7 (the fused slot: tabular and DQN, factored, matrix and no-trading),
+   whose differing decisions are counted, each explained (a bin edge, a Q
+   near-tie, or a cascade from an earlier round), and held below 1e-4.
+3. Small-path parity: the A=6, S=3 shared episodes with fixed draws on the
+   card against the port on the CPU (rewards, every slot's actions): tabular
+   with the factored market (rounds=1) and the matrix negotiation
+   (rounds=2), and the fused slot for tabular and for DQN (one warmup pass).
+4. The main paths at full width: ``train_scenarios_shared`` (battery on,
+   market "auto") for tabular at rounds=1 (-> factored with bf16
    pre-rounding, K1) and at rounds=2 (-> matrix, K5, K4, K6, bf16 storage at
-   A >= 256), each at A=1000, S=64 and at A=50, S=256, two episodes each and
-   one more under the profiler. Every kernel launch counter is set to 0
-   just before each run and read just after; each episode must launch each
-   of its path's kernels once per slot and no other kernel.
+   A >= 256), and with ``fused=True`` (K7 alone), each at A=1000, S=64 and
+   at A=50, S=256; DQN at A=1000, S=64 with one warmup pass, fused and
+   unfused from the same seed. Two episodes each and one more under the
+   profiler. Every kernel launch counter is set to 0 just before each run
+   and read just after; each slot must launch each of its path's kernels
+   once and no other kernel.
 5. One JSON line with every kernel's numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -32,6 +38,7 @@ outside a checkout of the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -149,12 +156,12 @@ def phase_device_and_build():
         f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}"
     )
-    from p2pmicrogrid_tpu_torch.ops import matrix_market, merged_min
+    from p2pmicrogrid_tpu_torch.ops import matrix_market, merged_min, slot_fused
 
     start = time.perf_counter()
     builds = {
         mod.LIBRARY.name: mod.LIBRARY.start_build(("-Xptxas", "-v"))
-        for mod in (merged_min, matrix_market)
+        for mod in (merged_min, matrix_market, slot_fused)
     }
     for name, proc in builds.items():
         try:
@@ -434,51 +441,368 @@ def phase_matrix_kernels():
     return [records[sp["name"]] for sp in specs]
 
 
-# --- phase 3 ---------------------------------------------------------------
+def profiled_device_ms(fn, match: str, calls: int = 10):
+    """Device time per call of the kernels whose name contains ``match``,
+    over ``calls`` calls of ``fn`` under torch.profiler; None when the
+    profiler saw no such device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, n = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key:
+            us = getattr(e, "self_device_time_total", None)
+            total += e.self_cuda_time_total if us is None else us
+            n += e.count
+    return total / n / 1e3 if n else None
 
 
-def small_config(tc, A, S, rounds, market_impl):
+def slot_config(tc, impl, S, A, rounds, market):
+    """K7's configuration; ``market`` None is the no-trading community."""
     return tc.default_config(
-        sim=tc.SimConfig(n_agents=A, n_scenarios=S, rounds=rounds, market_impl=market_impl),
+        sim=tc.SimConfig(
+            n_agents=A, n_scenarios=S, rounds=rounds, trading=market is not None,
+            market_impl=market or "auto",
+        ),
         battery=tc.BatteryConfig(enabled=True),
-        train=tc.TrainConfig(implementation="tabular"),
+        train=tc.TrainConfig(implementation=impl),
     )
 
 
-def run_slots(cfg, device, draws_np, ratings, n_episodes):
-    """Per-slot actions and per-episode rewards of the port's slot loop."""
+def slot_inputs(cfg, gen, t=44, epsilon=0.3):
+    """One slot's inputs on the card: the path's traces and ratings at slot
+    ``t`` (11:00, when every agent's PV exceeds its load), a random Q-table
+    (tabular) or freshly initialised networks (DQN), random initial
+    temperatures and draws; epsilon 0.3, so that greedy and explored agents
+    both occur. Half of the batteries are full and the others anywhere in
+    [min_soc, max_soc]: a full battery cannot store the surplus, so its agent
+    sells unless its heat pump uses it, and the market is two-sided."""
     import numpy as np
     import torch
 
     from p2pmicrogrid_tpu_torch.envs import community as com
+    from p2pmicrogrid_tpu_torch.parallel import make_scenario_traces, stack_scenario_arrays
+    from p2pmicrogrid_tpu_torch.train import init_policy_state
+
+    S, A = cfg.sim.n_scenarios, cfg.sim.n_agents
+    ratings = com.make_ratings(cfg, np.random.default_rng(cfg.train.seed))
+    arrays = stack_scenario_arrays(cfg, make_scenario_traces(cfg, seed=cfg.train.seed), ratings, "cuda")
+    xs = tuple(x[:, t].contiguous() for x in arrays)
+    pol = init_policy_state(cfg, device="cuda", generator=gen)
+    if cfg.train.implementation == "tabular":
+        pol = pol._replace(q_table=torch.randn(pol.q_table.shape, generator=gen, device="cuda") * 0.1)
+    pol = pol._replace(epsilon=torch.tensor(epsilon, device="cuda"))
+    normals = torch.randn((S, 2, A), generator=gen, device="cuda")
+    phys = com.init_physical(cfg, normals, (S,), "cuda")
+    bat = cfg.battery
+    u = torch.rand((S, A), generator=gen, device="cuda")
+    phys = phys._replace(soc=torch.clamp(bat.min_soc + (bat.max_soc - bat.min_soc) * 2 * u, max=bat.max_soc))
+    R = cfg.sim.rounds + 1 if cfg.sim.trading else 1
+    draws = (
+        torch.rand((R, S, A), generator=gen, device="cuda"),
+        torch.randint(0, 3, (R, S, A), generator=gen, device="cuda"),
+    )
+    market = com.resolve_market_impl(cfg, "cuda") if cfg.sim.trading else None
+    f_dtype = (
+        torch.bfloat16
+        if market == "factored" and com.resolve_market_dtype(cfg, "cuda") == "bfloat16"
+        else None
+    )
+    return (pol, phys, xs, draws, com.ratings_to(ratings, "cuda"), True, market, f_dtype)
+
+
+def trading_share(what, ref):
+    """The share of agents that trade peer to peer in the plain version's
+    result; fails unless buyers and sellers both trade and at least 2% of
+    the agents do, so that the comparison runs the clearing on real work."""
+    p = ref.p_p2p
+    share = float((p != 0).float().mean())
+    if not (bool((p > 0).any()) and bool((p < 0).any())) or share < 0.02:
+        fail(f"{what}: a one-sided market ({share:.4f} of the agents trade): the inputs test nothing")
+    return share
+
+
+def p2p_bin(cfg, feat):
+    import torch
+
+    n = cfg.qlearning.num_p2p_states
+    return torch.clamp((((feat + 1.0) * 0.5) * n).to(torch.int32), 0, n - 1)
+
+
+def explain_flips(cfg, args, got, ref):
+    """Every decision the kernel and the plain version take differently, each
+    with its cause, or "unexplained": "cascade" (an earlier round of the same
+    scenario already differs, so its sums differ), "bin edge" (tabular: the
+    round's p2p feature, summed in another order, falls in another bin) or
+    "near tie" (DQN: the plain version's two Q-values differ by at most 1e-4
+    of their size, and the forwards sum in another order)."""
+    import torch
+
+    from p2pmicrogrid_tpu_torch.models.dqn import _q_all_actions
+    from p2pmicrogrid_tpu_torch.ops import slot_fused as sf
+
+    flips = (got.decisions != ref.decisions).nonzero().tolist()  # [s, r, a]
+    causes = {}
+    first_round = {}
+    for s, r, a in flips:
+        first_round[s] = min(first_round.get(s, r), r)
+    feats = {}
+
+    def round_features(r):
+        # The round-r features of both versions: the same slot cut to r
+        # rounds (and its first r + 1 rounds of draws), whose last feature is
+        # round r's.
+        if r not in feats:
+            cut = dataclasses.replace(cfg, sim=dataclasses.replace(cfg.sim, rounds=r))
+            u, rand = args[3]
+            cut_args = args[:3] + ((u[: r + 1].contiguous(), rand[: r + 1].contiguous()),) + args[4:]
+            feats[r] = (sf.slot_raw(cut, *cut_args), sf.slot_step_fused_plain(cut, *cut_args))
+        return feats[r]
+
+    for s, r, a in flips:
+        if first_round[s] < r:
+            cause = "cascade"
+        elif cfg.train.implementation == "tabular":
+            k, p = round_features(r) if r > 0 else (got, ref)
+            kf = k.f_p2p[s, a] if r > 0 else torch.zeros(())
+            pf = p.f_p2p[s, a] if r > 0 else torch.zeros(())
+            cause = "bin edge" if p2p_bin(cfg, kf) != p2p_bin(cfg, pf) else "unexplained"
+        else:
+            _, p = round_features(r) if r > 0 else (got, ref)
+            p2p = p.f_p2p[s] if r > 0 else torch.zeros_like(p.f_p2p[s])
+            obs = torch.stack([p.f_time[s], p.f_temp[s], p.f_bal[s], p2p], dim=-1)
+            with torch.no_grad():
+                q = _q_all_actions(cfg.dqn, args[0].online, obs[None])[0, a]
+            hp = float(cfg.thermal.hp_max_power)
+            ia = int(round(float(got.decisions[s, r, a]) / hp * 2))
+            ib = int(round(float(ref.decisions[s, r, a]) / hp * 2))
+            gap = abs(float(q[ia] - q[ib]))
+            cause = "near tie" if gap <= 1e-4 * float(q.abs().max()) else "unexplained"
+        causes[(s, r, a)] = cause
+    return causes
+
+
+# (label, implementation, S, A, rounds, market, timed): K7 at the main path's
+# shapes (tabular factored with bf16 pre-rounding at [64,1000], float32 at
+# [256,50], DQN factored at [64,1000]), the matrix negotiation at rounds=2,
+# and small ragged edge cases of every variant.
+SLOT_CASES = (
+    ("tabular factored bf16", "tabular", 64, 1000, 1, "factored", "main"),
+    ("tabular factored", "tabular", 256, 50, 1, "factored", "at_256x50"),
+    ("dqn factored bf16", "dqn", 64, 1000, 1, "factored", "dqn_64x1000"),
+    ("tabular matrix rounds=2", "tabular", 64, 1000, 2, "matrix", "matrix_r2_64x1000"),
+    ("dqn matrix rounds=2", "dqn", 4, 300, 2, "matrix", None),
+    ("tabular factored rounds=0", "tabular", 3, 257, 0, "factored", None),
+    ("dqn factored rounds=0", "dqn", 3, 37, 0, "factored", None),
+    ("tabular no trading", "tabular", 5, 33, 1, None, None),
+    ("dqn no trading", "dqn", 2, 7, 1, None, None),
+)
+
+
+def slot_bound(cfg, S, A, R, impl, market):
+    """K7's least time: each input read once and each output written once
+    (the Q-table rows this run reads, not the table; the DQN weights once),
+    against the float32 operations: the merged min (7 per entry of each
+    scenario's A x A), the matrix rounds (about 13 per entry and round after
+    the first, 1 for round 0's split, 10 for the clearing), the DQN forwards
+    (3 per agent and round, 2 * 4480 each)."""
+    vec = 4.0 * S * A
+    nbytes = 8 + 8 * S + 4 * A + 6 * vec + 12.0 * R * S * A + 14 * vec + R * vec
+    if impl == "tabular":
+        nbytes += 12.0 * R * S * A
+    else:
+        nbytes += 4.0 * A * (5 * 64 + 64 + 64 * 64 + 64 + 64 + 1)
+    ops = 0.0
+    if market == "factored":
+        ops += 7.0 * S * A * A
+    elif market == "matrix":
+        ops += (1 + 13 * (R - 1) + 10) * float(S) * A * A
+    if impl == "dqn":
+        ops += 3 * 2 * 4480.0 * R * S * A
+    bound_ops = ops / PEAK_F32_FLOPS * 1e3
+    bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(bound_ops, bound_bytes), ("operations" if bound_ops >= bound_bytes else "bytes")
+
+
+def phase_slot_kernel():
+    """K7 against its plain version on the same card inputs; returns its
+    record."""
+    import torch
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.ops import slot_fused as sf
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2468)
+    rec = {
+        "name": "slot_step_fused", "route": "cuda",
+        "source": "p2pmicrogrid_tpu_torch/csrc/slot_fused.cu",
+        "replaces": "p2pmicrogrid_tpu/ops/pallas_slot.py:380",
+        "launches": None, "max_abs_err": 0.0,
+        "library_ms": None,  # no single PyTorch call computes a whole slot
+        "decisions": 0, "decisions_differ": 0, "causes": {},
+    }
+    for label, impl, S, A, rounds, market, timed in SLOT_CASES:
+        cfg = slot_config(tc, impl, S, A, rounds, market)
+        args = slot_inputs(cfg, gen)
+        got = sf.slot_raw(cfg, *args)
+        again = sf.slot_raw(cfg, *args)
+        torch.cuda.synchronize()
+        ref = sf.slot_step_fused_plain(cfg, *args)
+        what = f"K7 {label} [{S},{A}]"
+        traded = "no market" if market is None else f"{trading_share(what, ref):.4f} of the agents trade"
+        for name, g, a, r in zip(sf.SlotRaw._fields, got, again, ref):
+            if not torch.equal(g, a):
+                fail(f"{what}: {name}: repeat launch not bit-identical")
+            if g.shape != r.shape or not torch.isfinite(g).all():
+                fail(f"{what}: {name}: shape {tuple(g.shape)} vs {tuple(r.shape)} or non-finite")
+        causes = explain_flips(cfg, args, got, ref)
+        bad = [k for k, c in causes.items() if c == "unexplained"]
+        if bad:
+            fail(f"{what}: {len(bad)} decisions differ without a bin edge, near tie or cascade: {bad[:5]}")
+        n_dec = got.decisions.numel()
+        rec["decisions"] += n_dec
+        rec["decisions_differ"] += len(causes)
+        for c in causes.values():
+            rec["causes"][c] = rec["causes"].get(c, 0) + 1
+        # Continuous outputs where every decision of the scenario agrees:
+        # rtol=1e-5, atol=1e-3 (the JAX fused kernel's contract); sums over
+        # agents and the DQN forward run in another order.
+        same = ~(got.decisions != ref.decisions).any(dim=(1, 2))
+        err = 0.0
+        for name in sf.SlotRaw._fields:
+            g, r = getattr(got, name)[same], getattr(ref, name)[same]
+            if name in ("aux", "hp_frac", "decisions") and not torch.equal(g, r):
+                fail(f"{what}: {name} differs in a scenario whose decisions agree")
+            if not torch.allclose(g, r, rtol=1e-5, atol=1e-3):
+                fail(f"{what}: {name}: max abs err {float((g - r).abs().max())}")
+            if g.numel():
+                err = max(err, float((g - r).abs().max()))
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        log(
+            f"{what}: bit-identical repeat, {len(causes)} of {n_dec} decisions differ "
+            f"from the plain version ({sorted(causes.values())}), max abs err {err:.3e} "
+            f"in the {int(same.sum())} of {S} scenarios whose decisions agree; {traded}"
+        )
+        if timed:
+            R = got.decisions.shape[1]
+            k_ms = cuda_time_ms(lambda: sf.slot_raw(cfg, *args))
+            p_ms = cuda_time_ms(lambda: sf.slot_step_fused_plain(cfg, *args), warmup=2, iters=5, reps=3)
+            dev_ms = profiled_device_ms(lambda: sf.slot_raw(cfg, *args), "slot_fused_kernel")
+            bound, by = slot_bound(cfg, S, A, R, impl, market)
+            t = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, profiled_ms=dev_ms,
+                     shape=[S, A], config=label)
+            if timed == "main":
+                rec.update(t)
+            else:
+                rec[timed] = t
+            dev = "not measured" if dev_ms is None else f"{dev_ms:.6f} ms"
+            log(
+                f"{what}: kernel {k_ms:.6f} ms (events, 50 calls), device {dev}, plain "
+                f"{p_ms:.6f} ms, bound {bound:.6f} ms ({by})"
+            )
+        del args, got, again, ref
+        torch.cuda.empty_cache()
+    share = rec["decisions_differ"] / rec["decisions"]
+    if share >= 1e-4:
+        fail(f"K7: {rec['decisions_differ']} of {rec['decisions']} decisions differ (share {share:.2e} >= 1e-4)")
+    rec["decisions_differ_share"] = share
+    log(f"K7: {rec['decisions_differ']} of {rec['decisions']} decisions differ, share {share:.3e}")
+    return rec
+
+
+# --- phase 3 ---------------------------------------------------------------
+
+
+def small_config(tc, A, S, rounds, market_impl, impl="tabular"):
+    # DQN explores with epsilon 0.5 from the start, so greedy actions occur.
+    return tc.default_config(
+        sim=tc.SimConfig(n_agents=A, n_scenarios=S, rounds=rounds, market_impl=market_impl),
+        battery=tc.BatteryConfig(enabled=True),
+        train=tc.TrainConfig(implementation=impl),
+        dqn=tc.DQNConfig(warmup_passes=1, epsilon=0.5),
+    )
+
+
+def small_draws(cfg, n_passes, T, seed=0):
+    """Numpy draws for ``n_passes`` passes of T slots: per pass (uniform,
+    randint, normals, replay indices [T, B] in the ring's filled region)."""
+    import numpy as np
+
+    S, A, R = cfg.sim.n_scenarios, cfg.sim.n_agents, cfg.sim.rounds + 1
+    rng = np.random.default_rng(seed)
+    out = []
+    for e in range(n_passes):
+        counts = [min(e * T + t + 1, cfg.dqn.buffer_size) for t in range(T)]
+        out.append((
+            rng.uniform(size=(T, R, S, A)).astype(np.float32),
+            rng.integers(0, 3, (T, R, S, A)).astype(np.int64),
+            rng.standard_normal((S, 2, A)).astype(np.float32),
+            np.stack([rng.integers(0, c, cfg.dqn.batch_size) for c in counts]),
+        ))
+    return out
+
+
+def run_slots(cfg, device, draws_np, ratings, n_episodes, fused=False):
+    """Per-slot actions, per-episode rewards and the final learner state (the
+    Q-table, or DQN's online parameters) of the port's slot loop; DQN runs
+    one record-only warmup pass first, on the first of ``draws_np``."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch.convert import state_from_jax, state_to_numpy
+    from p2pmicrogrid_tpu_torch.envs import community as com
+    from p2pmicrogrid_tpu_torch.models.dqn import dqn_initialize_target
     from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
     from p2pmicrogrid_tpu_torch.train import make_policy
 
     S, A = cfg.sim.n_scenarios, cfg.sim.n_agents
+    dqn = cfg.train.implementation == "dqn"
     policy = make_policy(cfg)
-    pol, _ = sc.init_shared_state(cfg, device=device)
+    # The same initial weights on both devices: drawn on the CPU, copied.
+    gen = torch.Generator().manual_seed(5)
+    pol, scen = sc.init_shared_state(cfg, device="cpu", generator=gen)
+    if device != "cpu":
+        move = lambda st: state_from_jax(state_to_numpy(st), device=device, cfg=cfg.dqn)
+        pol, scen = move(pol), (None if scen is None else move(scen))
     arrays = sc.stack_scenario_arrays(cfg, sc.make_scenario_traces(cfg, seed=0), ratings, device)
-    xs = [x.transpose(0, 1) for x in arrays]
+    xs = [x.transpose(0, 1).contiguous() for x in arrays]
     ratings_d = com.ratings_to(ratings, device)
     actions, rewards = [], []
-    for e in range(n_episodes):
-        u, r, z = (torch.from_numpy(x).to(device) for x in draws_np[e])
+    passes = ["warmup"] * dqn + ["learn"] * n_episodes
+    for e, mode in enumerate(passes):
+        u, r, z, idx = (torch.from_numpy(x).to(device) for x in draws_np[e])
         phys = com.init_physical(cfg, z, (S,), device=device)
         rew = torch.zeros(S, device=device)
         for t in range(xs[0].shape[0]):
             phys, _, out, tr = com.slot_dynamics_batched(
                 cfg, policy, pol, phys, tuple(x[t] for x in xs), (u[t], r[t]),
-                ratings_d, explore=True,
+                ratings_d, explore=True, fused=fused,
             )
-            pol, _ = sc._tabular_update_shared(cfg, pol, tr)
+            if not dqn:
+                pol, _ = sc._tabular_update_shared(cfg, pol, tr)
+            elif mode == "warmup":
+                scen = sc._record_shared(scen, tr)
+            else:
+                pol, scen, _ = sc._dqn_update_shared(cfg, pol, scen, tr, idx[t])
             actions.append(tr.aux)
             rew += out.reward.mean(dim=-1)
-        rewards.append(rew)
-        pol = policy.decay(pol)
+        if mode == "warmup":
+            pol = dqn_initialize_target(pol)
+        else:
+            rewards.append(rew)
+            pol = policy.decay(pol)
+    final = pol.online.Dense_0.kernel if dqn else pol.q_table
     return (
         torch.stack(actions).cpu().numpy(),
         torch.stack(rewards).cpu().numpy(),
-        pol.q_table.cpu().numpy(),
+        final.detach().cpu().numpy(),
     )
 
 
@@ -489,50 +813,56 @@ def phase_small_parity():
     from p2pmicrogrid_tpu_torch.envs.community import make_ratings
 
     A, S, E, T = 6, 3, 2, 96
-    for rounds, market_impl in ((1, "factored"), (2, "matrix")):
-        cfg = small_config(tc, A, S, rounds, market_impl)
-        R = rounds + 1
-        rng = np.random.default_rng(0)
-        draws = [
-            (
-                rng.uniform(size=(T, R, S, A)).astype(np.float32),
-                rng.integers(0, 3, (T, R, S, A)).astype(np.int64),
-                rng.standard_normal((S, 2, A)).astype(np.float32),
-            )
-            for _ in range(E)
-        ]
+    cases = (
+        ("tabular", 1, "factored", False),
+        ("tabular", 2, "matrix", False),
+        ("tabular", 1, "factored", True),
+        ("dqn", 1, "factored", True),
+    )
+    for impl, rounds, market_impl, fused in cases:
+        cfg = small_config(tc, A, S, rounds, market_impl, impl)
+        draws = small_draws(cfg, E + 1, T)
         ratings = make_ratings(cfg, np.random.default_rng(0))
-        act_g, rew_g, q_g = run_slots(cfg, "cuda", draws, ratings, E)
-        act_c, rew_c, q_c = run_slots(cfg, "cpu", draws, ratings, E)
-        what = f"small path ({market_impl}, rounds={rounds})"
+        act_g, rew_g, q_g = run_slots(cfg, "cuda", draws, ratings, E, fused)
+        act_c, rew_c, q_c = run_slots(cfg, "cpu", draws, ratings, E, fused)
+        what = f"small path ({impl}, {market_impl}, rounds={rounds}, fused={fused})"
         if not np.isfinite(rew_g).all():
             fail(f"{what}: non-finite rewards on the card")
         if not np.array_equal(act_g, act_c):
             fail(f"{what}: {int((act_g != act_c).sum())} actions differ card vs CPU")
         if not np.allclose(rew_g, rew_c, rtol=2e-4, atol=0.0):
             fail(f"{what}: rewards differ card vs CPU: {rew_g} vs {rew_c}")
+        # Q-tables as tests/test_factored_market.py:203-214; DQN's first
+        # layer after 192 Adam steps, whose sums run in another order.
         if not np.allclose(q_g, q_c, rtol=1e-3, atol=1e-4):
-            fail(f"{what}: Q-tables differ card vs CPU")
+            fail(f"{what}: learner state differs card vs CPU: max abs {np.abs(q_g - q_c).max()}")
         rel = float(np.abs((rew_g - rew_c) / rew_c).max())
         log(
-            f"phase 3: {what} A={A} S={S} card vs CPU: actions equal, max reward "
-            f"rel err {rel:.3e}"
+            f"phase 3: {what} A={A} S={S} card vs CPU: {act_g.size} actions equal, max "
+            f"reward rel err {rel:.3e}, learner state max abs diff {np.abs(q_g - q_c).max():.3e}"
         )
 
 
 # --- phase 4 ---------------------------------------------------------------
 
 
-# (market, A, S, rounds, the kernels each slot launches once): the shipped
-# default (rounds=1 -> factored, K1) and the reference's rounds comparison
-# at rounds=2 (-> matrix: K5, K4, K6), at the north-star community size with
-# BASELINE config 4's scenario count and at BASELINE config 3's shape.
+# (label, implementation, market, A, S, rounds, fused, the kernels each slot
+# launches once): the shipped default (rounds=1 -> factored, K1) and the
+# reference's rounds comparison at rounds=2 (-> matrix: K5, K4, K6), the fused
+# slot (K7 alone) for tabular and DQN, and DQN unfused from the same seed, at
+# the north-star community size with BASELINE config 4's scenario count and
+# at BASELINE config 3's shape. DQN runs one warmup pass (a cut of depth).
 MATRIX_PATH = ("divide_rank1_fused", "divide_power_fused_with_mean", "clear_market_fused")
+FUSED_PATH = ("slot_step_fused",)
 MAIN_RUNS = (
-    ("factored", 1000, 64, 1, ("merged_min_sums",)),
-    ("factored", 50, 256, 1, ("merged_min_sums",)),
-    ("matrix", 1000, 64, 2, MATRIX_PATH),
-    ("matrix", 50, 256, 2, MATRIX_PATH),
+    ("tabular", "tabular", "factored", 1000, 64, 1, False, ("merged_min_sums",)),
+    ("tabular", "tabular", "factored", 50, 256, 1, False, ("merged_min_sums",)),
+    ("tabular", "tabular", "matrix", 1000, 64, 2, False, MATRIX_PATH),
+    ("tabular", "tabular", "matrix", 50, 256, 2, False, MATRIX_PATH),
+    ("fused tabular", "tabular", "factored", 1000, 64, 1, True, FUSED_PATH),
+    ("fused tabular", "tabular", "factored", 50, 256, 1, True, FUSED_PATH),
+    ("fused dqn", "dqn", "factored", 1000, 64, 1, True, FUSED_PATH),
+    ("dqn", "dqn", "factored", 1000, 64, 1, False, ("merged_min_sums",)),
 )
 
 
@@ -550,6 +880,7 @@ def profiled_kernel_ms(kernels, T):
     k5, n5 = per_call(lambda k: "split_kernel" in k and rank1(k))
     k4, n4 = per_call(lambda k: "split_kernel" in k and not rank1(k))
     k6, n6 = per_call(lambda k: "clear_kernel" in k)
+    k7, n7 = per_call(lambda k: "slot_fused_kernel" in k)
     k1 = sum(ms for k, (_, ms) in kernels.items() if "merged_min" in k) / T
     out = {"merged_min_sums": k1}  # both passes, one call per slot
     if n5:
@@ -558,6 +889,8 @@ def profiled_kernel_ms(kernels, T):
         out["divide_power_fused_with_mean"] = k4 + reduce_ms
     if n6:
         out["clear_market_fused"] = k6
+    if n7:
+        out["slot_step_fused"] = k7
     return out
 
 
@@ -578,38 +911,47 @@ def phase_main_path(counters):
         make_scenario_traces,
         stack_scenario_arrays,
         train_scenarios_shared,
+        warmup_shared_dqn,
     )
     from p2pmicrogrid_tpu_torch.train import make_policy
 
     totals = {name: 0 for name in counters}
     profiled = {name: {} for name in counters}
-    for market, A, S, rounds, path_kernels in MAIN_RUNS:
+    episode_rewards = {}
+    for label, impl, market, A, S, rounds, fused, path_kernels in MAIN_RUNS:
         cfg = tc.default_config(
             sim=tc.SimConfig(n_agents=A, n_scenarios=S, rounds=rounds),
             battery=tc.BatteryConfig(enabled=True),
-            train=tc.TrainConfig(implementation="tabular"),
+            train=tc.TrainConfig(implementation=impl),
+            dqn=tc.DQNConfig(warmup_passes=1),
         )
-        impl = resolve_market_impl(cfg, "cuda")
+        resolved = resolve_market_impl(cfg, "cuda")
         mdt = resolve_market_dtype(cfg, "cuda")
-        what = f"main path {impl} rounds={rounds} A={A} S={S}"
-        if impl != market:
-            fail(f"{what}: market 'auto' resolved to {impl}, expected {market}")
+        what = f"main path {label} {resolved} rounds={rounds} A={A} S={S}"
+        if resolved != market:
+            fail(f"{what}: market 'auto' resolved to {resolved}, expected {market}")
         ratings = make_ratings(cfg, np.random.default_rng(cfg.train.seed))
         traces = make_scenario_traces(cfg, seed=cfg.train.seed)
         arrays = stack_scenario_arrays(cfg, traces, ratings, device="cuda")
         policy = make_policy(cfg)
-        pol, scen = init_shared_state(cfg, device="cuda")
         gen = torch.Generator(device="cuda")
         gen.manual_seed(cfg.train.seed)
+        pol, scen = init_shared_state(cfg, device="cuda", generator=gen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
+        passes = 2
+        if impl == "dqn":
+            pol, scen = warmup_shared_dqn(
+                cfg, policy, pol, scen, arrays, ratings, gen, fused=fused
+            )
+            passes += cfg.dqn.warmup_passes
         pol, scen, rew0, _, s0 = train_scenarios_shared(
-            cfg, policy, pol, arrays, ratings, gen, 1, replay_s=scen, episode0=0
+            cfg, policy, pol, arrays, ratings, gen, 1, replay_s=scen, episode0=0, fused=fused
         )
         pol, scen, rew1, loss1, s1 = train_scenarios_shared(
-            cfg, policy, pol, arrays, ratings, gen, 1, replay_s=scen, episode0=1
+            cfg, policy, pol, arrays, ratings, gen, 1, replay_s=scen, episode0=1, fused=fused
         )
         launches = {name: fn.launches for name, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated()
@@ -617,19 +959,23 @@ def phase_main_path(counters):
         rewards = np.concatenate([rew0, rew1])
         if rewards.shape != (2, S) or not np.isfinite(rewards).all():
             fail(f"{what}: rewards {rewards.shape} not finite")
-        if not np.isfinite(loss1).all() or not torch.isfinite(pol.q_table).all():
-            fail(f"{what}: non-finite loss or Q-table")
-        expect_eps = cfg.qlearning.epsilon * cfg.qlearning.epsilon_decay
+        learned = pol.q_table if impl == "tabular" else pol.online.Dense_0.kernel
+        if not np.isfinite(loss1).all() or not torch.isfinite(learned).all():
+            fail(f"{what}: non-finite loss or learner state")
+        sched = cfg.qlearning if impl == "tabular" else cfg.dqn
+        expect_eps = sched.epsilon * sched.epsilon_decay
         if abs(float(pol.epsilon) - expect_eps) > 1e-6:
             fail(f"{what}: epsilon {float(pol.epsilon)} != {expect_eps}")
-        # Two episodes: each kernel of the path once per slot, no other.
-        expect = {name: (2 * T if name in path_kernels else 0) for name in counters}
+        # Each kernel of the path once per slot of every pass, no other.
+        expect = {name: (passes * T if name in path_kernels else 0) for name in counters}
         if launches != expect:
             fail(f"{what}: launches {launches}, expected {expect}")
         if market == "matrix" and mdt != ("bfloat16" if A >= 256 else "float32"):
             fail(f"{what}: market dtype {mdt}")
         for name, n in launches.items():
             totals[name] += n
+        if market == "factored":
+            episode_rewards[(impl, A, S, fused)] = rewards
         log(
             f"phase 4: {what} dtype={mdt} env-steps/s {S * T / s1:.1f} (timed "
             f"episode {s1:.4f} s, {s1 / T * 1e3:.3f} ms per slot, first episode "
@@ -640,7 +986,8 @@ def phase_main_path(counters):
         # A third episode, after the counts were read, under the profiler.
         kernels = profile_episode(
             lambda: train_scenarios_shared(
-                cfg, policy, pol, arrays, ratings, gen, 1, replay_s=scen, episode0=2
+                cfg, policy, pol, arrays, ratings, gen, 1, replay_s=scen, episode0=2,
+                fused=fused,
             ),
             T,
             s1,
@@ -648,10 +995,21 @@ def phase_main_path(counters):
         if kernels is not None:
             per_call = profiled_kernel_ms(kernels, T)
             for name in path_kernels:
-                profiled[name][(S, A)] = per_call.get(name)
+                profiled[name][(S, A, impl)] = per_call.get(name)
                 log(f"  profile: {name} device time per call {per_call.get(name, 0) * 1e3:.3f} us")
-        del pol, scen, arrays
+        del pol, scen, arrays, learned
         torch.cuda.empty_cache()
+    # Fused and unfused from one seed draw the same numbers in the same order;
+    # the two differ only where a decision flips (phase 2). Episode rewards:
+    # rtol=2e-4 (tests/test_golden.py:74-81).
+    for (impl, A, S, fused), fused_rew in episode_rewards.items():
+        if not fused:
+            continue
+        plain_rew = episode_rewards[(impl, A, S, False)]
+        rel = np.abs(fused_rew - plain_rew) / np.abs(plain_rew)
+        log(f"phase 4: {impl} A={A} S={S} fused vs unfused, same seed: max episode reward rel diff {rel.max():.3e}")
+        if not np.allclose(fused_rew, plain_rew, rtol=2e-4, atol=0.0):
+            fail(f"{impl} A={A} S={S}: fused vs unfused rewards differ by {rel.max():.3e} (rtol 2e-4)")
     return totals, profiled
 
 
@@ -665,6 +1023,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     from p2pmicrogrid_tpu_torch.ops import matrix_market as mm
     from p2pmicrogrid_tpu_torch.ops.merged_min import merged_min_sums
+    from p2pmicrogrid_tpu_torch.ops.slot_fused import slot_step_fused
 
     counters = {
         "merged_min_sums": merged_min_sums,
@@ -673,14 +1032,16 @@ def main() -> None:
         "clear_market_fused": mm.clear_market_fused,
         "divide_power_fused": mm.divide_power_fused,
         "prep_mean": mm.prep_mean,
+        "slot_step_fused": slot_step_fused,
     }
     start = time.perf_counter()
     phase_device_and_build()
-    records = [phase_kernels()] + phase_matrix_kernels()
+    records = [phase_kernels()] + phase_matrix_kernels() + [phase_slot_kernel()]
     log(f"phase 2: kernels match their plain versions ({time.perf_counter() - start:.1f} s)")
     phase_small_parity()
+    log(f"phase 3 done ({time.perf_counter() - start:.1f} s)")
     launches, profiled = phase_main_path(counters)
-    on_path = {name for run in MAIN_RUNS for name in run[4]}
+    on_path = {name for run in MAIN_RUNS for name in run[7]}
     for name in on_path:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
@@ -688,11 +1049,15 @@ def main() -> None:
         name = rec["name"]
         rec["launches"] = launches[name]
         rec["on_main_path"] = name in on_path
-        # Device time per call from the main path's profiled episode (no
-        # host time in it), where the profiler saw the device.
+        # Device time per call from the main path's profiled tabular episode
+        # (no host time in it), where the profiler saw the device; K7 keeps
+        # its phase-2 profile under profiled_ms.
         if name in on_path:
-            rec["profiled_ms"] = profiled[name].get((64, 1000))
-            rec["at_256x50"]["profiled_ms"] = profiled[name].get((256, 50))
+            key = "main_path_profiled_ms" if name == "slot_step_fused" else "profiled_ms"
+            rec[key] = profiled[name].get((64, 1000, "tabular"))
+            rec["at_256x50"][key] = profiled[name].get((256, 50, "tabular"))
+            if name == "slot_step_fused":
+                rec["dqn_64x1000"][key] = profiled[name].get((64, 1000, "dqn"))
     log(json.dumps({"kernels": records}))
     log(f"total {time.perf_counter() - start:.1f} s")
     print(

@@ -1,11 +1,13 @@
 """p2pmicrogrid_tpu_torch — the PyTorch/CUDA port of p2pmicrogrid_tpu.
 
 The port runs on an NVIDIA H100 and mirrors the JAX package's layout and
-names. It imports torch and numpy only. Ported so far: the shared-scenario
-tabular training path (``parallel/scenarios.py``) with the factored market,
-whose merged min pass is the hand-written CUDA kernel ``csrc/merged_min.cu``,
-and with the multi-round matrix negotiation, whose split and clearing passes
-are the CUDA kernels of ``csrc/matrix_market.cu``.
+names. It imports torch and numpy only. Ported so far: shared-scenario
+training (``parallel/scenarios.py``) of the tabular and DQN learners, with
+the factored market, whose merged min pass is the hand-written CUDA kernel
+``csrc/merged_min.cu``, with the multi-round matrix negotiation, whose split
+and clearing passes are the CUDA kernels of ``csrc/matrix_market.cu``, and
+with the fused slot, the whole slot as the one CUDA kernel
+``csrc/slot_fused.cu``.
 Entry points default to ``device="cuda"`` and raise without a card unless the
 caller passes ``device="cpu"``.
 """

@@ -28,32 +28,24 @@
 // a fixed order (four interleaved partial sums per tile, then tile by tile),
 // so the result is bit-identical from launch to launch and needs no float
 // atomics. Both kernels recompute each entry with the same
-// formula, so the arithmetic is done twice; a single fused pass with
+// formula (slot_ops.cuh, shared with the fused slot K7), so the arithmetic is
+// done twice; a single fused pass with
 // per-tile column partials and a second deterministic reduce is later work.
 // Ragged A: threads past A load zeros and store nothing, and tiles stop at
 // A. A zero factor gives a zero entry (min against a nonnegative side).
 
 #include <cuda_runtime.h>
 
+#include "slot_ops.cuh"
+
 namespace {
 
+using slot_ops::merged_min_entry;
+using slot_ops::tile_sum;
+
 constexpr int kThreads = 128;  // rows (columns) owned by one block
-constexpr int kTile = 256;     // walked entries staged per shared tile
+constexpr int kTile = slot_ops::kMergedMinTile;  // walked entries staged per shared tile
 constexpr int kMaxGridY = 65535;
-
-// torch.minimum semantics: a NaN on either side propagates.
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-
-// One entry m[i, j]; the same expression in both kernels and in the plain
-// version.
-__device__ __forceinline__ float entry(float alpha_i, float wminus_i, float pb_i,
-                                       float wplus_j, float gamma_j, float ps_j) {
-  const float lhs = pb_i > 0.f ? alpha_i * wplus_j : alpha_i;
-  const float rhs = ps_j > 0.f ? wminus_i * gamma_j : gamma_j;
-  return min_nan(lhs, rhs);
-}
 
 __global__ void __launch_bounds__(kThreads)
 merged_min_rows(const float* __restrict__ alpha, const float* __restrict__ wplus,
@@ -84,16 +76,9 @@ merged_min_rows(const float* __restrict__ alpha, const float* __restrict__ wplus
       __syncthreads();
       // Four interleaved partial sums per tile, combined in a fixed order:
       // independent add chains, and a shorter run of rounding per sum.
-      float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
-      int t = 0;
-      for (; t + 4 <= n; t += 4) {
-        p0 += entry(al, wm, pbi, sh_wplus[t], sh_gamma[t], sh_ps[t]);
-        p1 += entry(al, wm, pbi, sh_wplus[t + 1], sh_gamma[t + 1], sh_ps[t + 1]);
-        p2 += entry(al, wm, pbi, sh_wplus[t + 2], sh_gamma[t + 2], sh_ps[t + 2]);
-        p3 += entry(al, wm, pbi, sh_wplus[t + 3], sh_gamma[t + 3], sh_ps[t + 3]);
-      }
-      for (; t < n; ++t) p0 += entry(al, wm, pbi, sh_wplus[t], sh_gamma[t], sh_ps[t]);
-      acc += (p0 + p1) + (p2 + p3);
+      acc += tile_sum(n, [&](int t) {
+        return merged_min_entry(al, wm, pbi, sh_wplus[t], sh_gamma[t], sh_ps[t]);
+      });
     }
     if (i < A) row[base + i] = acc;
   }
@@ -126,16 +111,9 @@ merged_min_cols(const float* __restrict__ alpha, const float* __restrict__ wplus
         sh_pb[t] = pb[base + i0 + t];
       }
       __syncthreads();
-      float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
-      int t = 0;
-      for (; t + 4 <= n; t += 4) {
-        p0 += entry(sh_alpha[t], sh_wminus[t], sh_pb[t], wp, ga, psj);
-        p1 += entry(sh_alpha[t + 1], sh_wminus[t + 1], sh_pb[t + 1], wp, ga, psj);
-        p2 += entry(sh_alpha[t + 2], sh_wminus[t + 2], sh_pb[t + 2], wp, ga, psj);
-        p3 += entry(sh_alpha[t + 3], sh_wminus[t + 3], sh_pb[t + 3], wp, ga, psj);
-      }
-      for (; t < n; ++t) p0 += entry(sh_alpha[t], sh_wminus[t], sh_pb[t], wp, ga, psj);
-      acc += (p0 + p1) + (p2 + p3);
+      acc += tile_sum(n, [&](int t) {
+        return merged_min_entry(sh_alpha[t], sh_wminus[t], sh_pb[t], wp, ga, psj);
+      });
     }
     if (j < A) col[base + j] = acc;
   }

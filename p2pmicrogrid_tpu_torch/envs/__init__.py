@@ -9,6 +9,7 @@ from p2pmicrogrid_tpu_torch.envs.community import (
     SlotTransition,
     init_physical,
     make_ratings,
+    resolve_use_fused,
     slot_dynamics_batched,
 )
 
@@ -21,5 +22,6 @@ __all__ = [
     "SlotTransition",
     "init_physical",
     "make_ratings",
+    "resolve_use_fused",
     "slot_dynamics_batched",
 ]

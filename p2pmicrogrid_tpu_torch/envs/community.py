@@ -17,7 +17,8 @@ scenario and agent axes ``[S, A]``; an episode is a Python loop over slots
 
 The market branches are the factored clearing (``rounds <= 1``, kernel K1),
 the matrix negotiation (any ``rounds``, kernels K5, K4 and K6 of
-``ops/matrix_market.py``) and the no-trading community.
+``ops/matrix_market.py``) and the no-trading community. ``fused=True`` runs
+the whole slot as the one kernel K7 instead (``ops/slot_fused.py``).
 """
 
 from __future__ import annotations
@@ -241,6 +242,22 @@ def resolve_market_impl(cfg: ExperimentConfig, device) -> str:
     return "matrix"
 
 
+def resolve_use_fused(cfg: ExperimentConfig) -> bool:
+    """Resolve ``SimConfig.fused_slot``: None (the default) is off, as in the
+    JAX package, where the unfused chain is the reference; the fused slot
+    takes tabular and DQN only and refuses DDPG (its exploration noise
+    advances inside the act)."""
+    f = cfg.sim.fused_slot
+    if not f:
+        return False
+    if cfg.train.implementation not in ("tabular", "dqn"):
+        raise ValueError(
+            "fused_slot=True supports tabular/dqn policies only (ddpg "
+            f"advances OU state inside act), got {cfg.train.implementation!r}"
+        )
+    return True
+
+
 def slot_dynamics_batched(
     cfg: ExperimentConfig,
     policy: Policy,
@@ -250,6 +267,7 @@ def slot_dynamics_batched(
     draws,
     ratings: AgentRatings,
     explore: bool,
+    fused: bool = False,
 ):
     """One slot of S scenarios except learning: negotiate -> clear -> settle
     -> reward -> step assets (community.py:149-157,170).
@@ -259,8 +277,33 @@ def slot_dynamics_batched(
     [rounds+1, S, A], the exploration draws of every round; ``ratings`` as
     tensors on the state's device.
 
+    ``fused=True`` runs the slot through ``ops/slot_fused.py::
+    slot_step_fused`` (kernel K7 on the card, its plain version on the CPU),
+    with the market resolved as the JAX fused path resolves it: the factored
+    clearing computes in bfloat16 only for ``factored`` with the bfloat16
+    market dtype, and the matrix negotiation is always float32.
+
     Returns (phys', pol_state, outputs, transition).
     """
+    if fused:
+        # Imported here: ops/slot_fused.py builds this module's NamedTuples.
+        from p2pmicrogrid_tpu_torch.ops.slot_fused import slot_step_fused
+
+        device = xs[2].device
+        market_impl_f = resolve_market_impl(cfg, device) if cfg.sim.trading else "matrix"
+        f_dtype = (
+            torch.bfloat16
+            if cfg.sim.trading
+            and market_impl_f == "factored"
+            and resolve_market_dtype(cfg, device) == "bfloat16"
+            else None
+        )
+        phys_f, outputs_f, tr_f = slot_step_fused(
+            cfg, pol_state, phys_s, xs, draws, ratings, explore,
+            market_impl=market_impl_f, compute_dtype=f_dtype,
+        )
+        return phys_f, pol_state, outputs_f, tr_f
+
     time_s, t_out_s, load_w, pv_w, next_time_s, next_load_w, next_pv_w = xs
     th = cfg.thermal
     device = load_w.device

@@ -1,5 +1,21 @@
-"""Learners. Only the tabular Q-learner is ported so far."""
+"""Learners: the tabular Q-learner and DQN with its replay rings."""
 
+from p2pmicrogrid_tpu_torch.models.dqn import (
+    DQNState,
+    dqn_act,
+    dqn_decay,
+    dqn_init,
+    dqn_initialize_target,
+)
+from p2pmicrogrid_tpu_torch.models.networks import QNetwork
+from p2pmicrogrid_tpu_torch.models.replay import (
+    LockstepReplay,
+    ReplayState,
+    lockstep_replay_add,
+    lockstep_replay_init,
+    lockstep_replay_sample,
+    replay_init,
+)
 from p2pmicrogrid_tpu_torch.models.tabular import (
     ACTION_VALUES,
     TabularState,
@@ -11,7 +27,19 @@ from p2pmicrogrid_tpu_torch.models.tabular import (
 
 __all__ = [
     "ACTION_VALUES",
+    "DQNState",
+    "LockstepReplay",
+    "QNetwork",
+    "ReplayState",
     "TabularState",
+    "dqn_act",
+    "dqn_decay",
+    "dqn_init",
+    "dqn_initialize_target",
+    "lockstep_replay_add",
+    "lockstep_replay_init",
+    "lockstep_replay_sample",
+    "replay_init",
     "tabular_act",
     "tabular_decay",
     "tabular_init",

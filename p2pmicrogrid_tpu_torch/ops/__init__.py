@@ -1,3 +1,3 @@
 """Pure tensor operations of one slot: tariff, thermal, battery, observation,
-market clearing, the factored market with its merged-min kernel, and the
-matrix negotiation's kernels."""
+market clearing, the factored market with its merged-min kernel, the matrix
+negotiation's kernels, and the fused slot's kernel."""

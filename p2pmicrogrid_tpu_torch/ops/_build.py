@@ -2,7 +2,8 @@
 
 Each source in ``csrc/`` is compiled for ``sm_90a`` into a shared library
 with a plain C interface, under ``_build/`` beside this package, named by the
-source's digest (an edited source is rebuilt), and loaded with ``ctypes``.
+digest of the source and of the ``csrc/`` headers it includes (an edited
+source or header is rebuilt), and loaded with ``ctypes``.
 Nothing is built when a module is imported: a wrapper loads its library at
 its first launch on a CUDA tensor, and a build failure raises, as does a
 launch that returns a CUDA error (``launch``).
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 from typing import Callable, Tuple
@@ -27,6 +29,27 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_closure(source: str) -> Tuple[str, ...]:
+    """``source`` and every header it includes with ``#include "..."``,
+    transitively, resolved beside the including file; sorted after the
+    source, so the order is stable."""
+    seen, todo = set(), [os.path.abspath(source)]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        base = os.path.dirname(path)
+        todo.extend(os.path.join(base, m.decode()) for m in _INCLUDE.findall(text))
+    first = os.path.abspath(source)
+    return (first,) + tuple(sorted(seen - {first}))
 
 
 def nvcc_path() -> str:
@@ -50,8 +73,11 @@ class KernelLibrary:
         self._lock = threading.Lock()
 
     def path(self) -> str:
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        h = hashlib.sha256()
+        for part in source_closure(self.source):
+            with open(part, "rb") as f:
+                h.update(f.read())
+        digest = h.hexdigest()[:16]
         return os.path.join(BUILD_DIR, f"lib{self.name}-{digest}.so")
 
     def start_build(self, extra_flags: Tuple[str, ...] = ()) -> Callable[[], str]:

@@ -24,7 +24,7 @@ here always takes the kernel route of its ``P2P_FACTORED_PALLAS`` branch.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -69,7 +69,10 @@ def _settle(b, buyer, seller, matched_buy, matched_sell):
 
 
 def clear_factored_rounds1(
-    b0: torch.Tensor, b1: torch.Tensor, compute_dtype: Optional[torch.dtype] = None
+    b0: torch.Tensor,
+    b1: torch.Tensor,
+    compute_dtype: Optional[torch.dtype] = None,
+    min_sums: Callable = merged_min_sums,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(p_grid, p_p2p) of the rounds=1 negotiation chain, matrix-free.
 
@@ -77,7 +80,8 @@ def clear_factored_rounds1(
     net powers (the final decisions). Equal, to f32 summation order, to
     ``clear_market(divide_power(b1, -P0^T with zero diagonal))``.
     ``compute_dtype`` (``torch.bfloat16``) pre-rounds the four factor
-    vectors through it before the f32 min pass.
+    vectors through it before the f32 min pass. ``min_sums`` is the merged
+    min pass (the K1 wrapper, or its plain version).
     """
     A = b0.shape[-1]
     zero = torch.zeros_like(b0)
@@ -105,7 +109,7 @@ def clear_factored_rounds1(
     alpha, wplus_c, wminus_c, gamma = _pre_round(
         (a_p + a_e, wplus, wminus, g_p + g_e), compute_dtype
     )
-    matched_buy, matched_sell = merged_min_sums(
+    matched_buy, matched_sell = min_sums(
         alpha.contiguous(),
         wplus_c.contiguous(),
         wminus_c.contiguous(),
@@ -117,7 +121,9 @@ def clear_factored_rounds1(
 
 
 def clear_factored_rounds0(
-    b0: torch.Tensor, compute_dtype: Optional[torch.dtype] = None
+    b0: torch.Tensor,
+    compute_dtype: Optional[torch.dtype] = None,
+    min_sums: Callable = merged_min_sums,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(p_grid, p_p2p) for a single decision round (rounds == 0): every row
     is the equal branch ``b0_i / A`` — one min(a_e_i, g_e_j) block, which is
@@ -130,5 +136,5 @@ def clear_factored_rounds0(
     a_e = torch.where(buyer, absb * recip(A), zero)
     g_e = torch.where(seller, absb * recip(A), zero)
     a_e, g_e = _pre_round((a_e, g_e), compute_dtype)
-    row, col = merged_min_sums(a_e, zero, zero, g_e, zero, zero)
+    row, col = min_sums(a_e, zero, zero, g_e, zero, zero)
     return _settle(b0, buyer, seller, row, col)

@@ -8,6 +8,7 @@ from p2pmicrogrid_tpu_torch.parallel.scenarios import (
     make_shared_episode_fn,
     stack_scenario_arrays,
     train_scenarios_shared,
+    warmup_shared_dqn,
 )
 
 __all__ = [
@@ -18,4 +19,5 @@ __all__ = [
     "make_shared_episode_fn",
     "stack_scenario_arrays",
     "train_scenarios_shared",
+    "warmup_shared_dqn",
 ]

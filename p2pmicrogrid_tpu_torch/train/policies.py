@@ -2,18 +2,25 @@
 
 A policy is three closures over the experiment config, selected by
 ``TrainConfig.implementation`` like the reference's ``setup.implementation``
-switch (community.py:241-245). Only the tabular learner is ported; DQN and
-DDPG are queued in ROADMAP.md (Queue 1, item 5).
+switch (community.py:241-245). The tabular and DQN learners are ported;
+DDPG is queued in ROADMAP.md (Queue 1: DDPG).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from p2pmicrogrid_tpu_torch.config import ExperimentConfig
 from p2pmicrogrid_tpu_torch.envs.community import Policy
+from p2pmicrogrid_tpu_torch.models.dqn import (
+    action_values_on,
+    dqn_act,
+    dqn_decay,
+    dqn_init,
+)
 from p2pmicrogrid_tpu_torch.models.tabular import (
-    ACTION_VALUES,
     tabular_act,
     tabular_decay,
     tabular_init,
@@ -22,7 +29,7 @@ from p2pmicrogrid_tpu_torch.models.tabular import (
 
 _NOT_PORTED = (
     "implementation {!r} is not ported to p2pmicrogrid_tpu_torch yet "
-    "(ROADMAP.md, Queue 1: DQN, DDPG and replay)"
+    "(ROADMAP.md, Queue 1: DDPG)"
 )
 
 
@@ -35,16 +42,11 @@ def make_tabular_policy(cfg: ExperimentConfig) -> Policy:
     float32.
     """
     q = cfg.qlearning
-    values = {}  # ACTION_VALUES as a tensor, one per device
 
     def act(pol_state, obs, prev_frac, draws, explore):
         uniform, rand_action = draws
         action, qv = tabular_act(q, pol_state, obs, uniform, rand_action, explore)
-        if obs.device not in values:
-            values[obs.device] = torch.tensor(
-                ACTION_VALUES, dtype=torch.float32, device=obs.device
-            )
-        return values[obs.device][action], action.to(torch.float32), qv, pol_state
+        return action_values_on(obs.device)[action], action.to(torch.float32), qv, pol_state
 
     def learn(pol_state, obs, aux, reward, next_obs):
         pol_state = tabular_update(
@@ -55,12 +57,39 @@ def make_tabular_policy(cfg: ExperimentConfig) -> Policy:
     return Policy(act=act, learn=learn, decay=lambda s: tabular_decay(q, s))
 
 
+def make_dqn_policy(cfg: ExperimentConfig) -> Policy:
+    """Per-agent DQN (DQNAgent, agent.py:301-342).
+
+    ``act`` as the tabular policy's, over the 3 enumerated actions. The
+    per-slot single-scenario learn step (``dqn_update``) is not ported yet
+    (ROADMAP.md, Queue 1: the single-scenario simulator); the shared trainer
+    learns through ``parallel/scenarios.py::_dqn_update_shared``.
+    """
+    d = cfg.dqn
+
+    def act(pol_state, obs, prev_frac, draws, explore):
+        uniform, rand_action = draws
+        action, qv = dqn_act(d, pol_state, obs, uniform, rand_action, explore)
+        return action_values_on(obs.device)[action], action.to(torch.float32), qv, pol_state
+
+    def learn(pol_state, obs, aux, reward, next_obs):
+        raise NotImplementedError(
+            "the single-scenario dqn_update is not ported yet (ROADMAP.md, "
+            "Queue 1: the single-scenario simulator); shared-scenario training "
+            "learns through parallel/scenarios.py"
+        )
+
+    return Policy(act=act, learn=learn, decay=lambda s: dqn_decay(d, s))
+
+
 def make_policy(cfg: ExperimentConfig) -> Policy:
     """Select by ``TrainConfig.implementation`` (setup.py:36)."""
     impl = cfg.train.implementation
     if impl == "tabular":
         return make_tabular_policy(cfg)
-    if impl in ("dqn", "ddpg"):
+    if impl == "dqn":
+        return make_dqn_policy(cfg)
+    if impl == "ddpg":
         raise NotImplementedError(_NOT_PORTED.format(impl))
     raise ValueError(
         f"unknown implementation {impl!r}; expected one of "
@@ -68,11 +97,16 @@ def make_policy(cfg: ExperimentConfig) -> Policy:
     )
 
 
-def init_policy_state(cfg: ExperimentConfig, device="cuda"):
-    """Fresh learner state for the configured implementation."""
+def init_policy_state(
+    cfg: ExperimentConfig, device="cuda", generator: Optional[torch.Generator] = None
+):
+    """Fresh learner state for the configured implementation; the DQN
+    networks draw their initial weights from ``generator``."""
     impl = cfg.train.implementation
     if impl == "tabular":
         return tabular_init(cfg.qlearning, cfg.sim.n_agents, device=device)
-    if impl in ("dqn", "ddpg"):
+    if impl == "dqn":
+        return dqn_init(cfg.dqn, cfg.sim.n_agents, generator, device=device)
+    if impl == "ddpg":
         raise NotImplementedError(_NOT_PORTED.format(impl))
     raise ValueError(f"unknown implementation {impl!r}")

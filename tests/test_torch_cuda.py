@@ -151,3 +151,107 @@ def test_matrix_wrappers_reject_bad_inputs(cuda_generator):
         mm.divide_rank1_fused(prev, out[:, :4].contiguous())
     with pytest.raises(ValueError, match="out_dtype"):
         mm.divide_rank1_fused(prev, out, torch.float16)
+
+
+# --- K7: the fused slot ---------------------------------------------------------
+
+SLOT_VARIANTS = [
+    dict(rounds=1, market_impl="factored"),
+    dict(rounds=1, market_impl="factored", market_dtype="bfloat16"),
+    dict(rounds=0, market_impl="factored"),
+    dict(rounds=2, market_impl="matrix"),
+    dict(trading=False),
+]
+SLOT_IDS = ["factored_r1", "factored_r1_bf16", "factored_r0", "matrix_r2", "no_trading"]
+
+
+def _slot_inputs(impl, S, A, sim, gen, t=44):
+    """One slot's inputs on the card: the path's own traces and ratings at
+    11:00, when every agent's PV exceeds its load, a random Q-table (tabular)
+    or freshly initialised networks (DQN), random initial temperatures and
+    draws, epsilon 0.3 so that both greedy and explored agents occur. Half
+    of the batteries are full, the others anywhere in [min_soc, max_soc]: a
+    full battery cannot store the surplus, so the market is two-sided."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.envs import community as com
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+    from p2pmicrogrid_tpu_torch.train import init_policy_state
+
+    cfg = tc.default_config(
+        sim=tc.SimConfig(n_agents=A, n_scenarios=S, **sim),
+        battery=tc.BatteryConfig(enabled=True),
+        train=tc.TrainConfig(implementation=impl),
+    )
+    ratings = com.make_ratings(cfg, np.random.default_rng(0))
+    arrays = sc.stack_scenario_arrays(cfg, sc.make_scenario_traces(cfg, seed=0), ratings, "cuda")
+    xs = tuple(x[:, t].contiguous() for x in arrays)
+    pol = init_policy_state(cfg, device="cuda", generator=gen)
+    if impl == "tabular":
+        pol = pol._replace(q_table=torch.randn(pol.q_table.shape, generator=gen, device="cuda") * 0.1)
+    pol = pol._replace(epsilon=torch.tensor(0.3, device="cuda"))
+    phys = com.init_physical(cfg, torch.randn((S, 2, A), generator=gen, device="cuda"), (S,), "cuda")
+    bat = cfg.battery
+    u = torch.rand((S, A), generator=gen, device="cuda")
+    phys = phys._replace(soc=torch.clamp(bat.min_soc + (bat.max_soc - bat.min_soc) * 2 * u, max=bat.max_soc))
+    R = cfg.sim.rounds + 1 if cfg.sim.trading else 1
+    draws = (
+        torch.rand((R, S, A), generator=gen, device="cuda"),
+        torch.randint(0, 3, (R, S, A), generator=gen, device="cuda"),
+    )
+    market = sim.get("market_impl") if cfg.sim.trading else None
+    dtype = torch.bfloat16 if sim.get("market_dtype") == "bfloat16" else None
+    return cfg, (pol, phys, xs, draws, com.ratings_to(ratings, "cuda"), True, market, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["tabular", "dqn"])
+@pytest.mark.parametrize("sim", SLOT_VARIANTS, ids=SLOT_IDS)
+@pytest.mark.parametrize("shape", [(4, 37), (3, 300)])
+def test_slot_kernel_matches_plain(cuda_generator, impl, sim, shape):
+    """K7 against its plain version on the same card inputs, where buyers and
+    sellers both trade: every decision and action equal, the continuous
+    outputs within rtol=1e-5, atol=1e-3 (the sums over agents and the DQN
+    forward run in another order), and a repeat launch bit-identical."""
+    from p2pmicrogrid_tpu_torch.ops import slot_fused as sf
+
+    S, A = shape
+    cfg, args = _slot_inputs(impl, S, A, sim, cuda_generator)
+    before = sf.slot_step_fused.launches
+    got = sf.slot_raw(cfg, *args)
+    again = sf.slot_raw(cfg, *args)
+    torch.cuda.synchronize()
+    assert sf.slot_step_fused.launches == before + 2
+    ref = sf.slot_step_fused_plain(cfg, *args)
+    if cfg.sim.trading:
+        p = ref.p_p2p
+        assert bool((p > 0).any()) and bool((p < 0).any()), "a one-sided market"
+        assert float((p != 0).float().mean()) >= 0.02
+    for name, g, a, r in zip(sf.SlotRaw._fields, got, again, ref):
+        assert torch.equal(g, a), name
+        assert g.shape == r.shape and g.dtype == r.dtype, name
+        if name in ("aux", "hp_frac", "decisions"):
+            assert torch.equal(g, r), name
+        else:
+            torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-3, msg=name)
+
+
+@pytest.mark.cuda
+def test_slot_wrapper_rejects_bad_inputs(cuda_generator):
+    from p2pmicrogrid_tpu_torch.ops import slot_fused as sf
+
+    cfg, args = _slot_inputs("tabular", 2, 8, SLOT_VARIANTS[0], cuda_generator)
+    pol, phys, xs, draws, ratings = args[:5]
+    rest = args[5:]
+    with pytest.raises(ValueError, match="float32"):
+        sf.slot_raw(cfg, pol, phys._replace(t_in=phys.t_in.double()), xs, draws, ratings, *rest)
+    with pytest.raises(ValueError, match="shape"):
+        sf.slot_raw(cfg, pol, phys._replace(soc=phys.soc[:, :4].contiguous()), xs, draws, ratings, *rest)
+    with pytest.raises(ValueError, match="cuda"):
+        sf.slot_raw(cfg, pol, phys._replace(t_bm=phys.t_bm.cpu()), xs, draws, ratings, *rest)
+    with pytest.raises(ValueError, match="contiguous"):
+        bad = tuple(x.t().contiguous().t() if x.dim() == 2 else x for x in xs)
+        sf.slot_raw(cfg, pol, phys, bad, draws, ratings, *rest)
+    with pytest.raises(ValueError, match="shape"):
+        sf.slot_raw(cfg, pol, phys, xs, (draws[0][:1].contiguous(), draws[1]), ratings, *rest)

@@ -13,6 +13,8 @@ import torch
 import p2pmicrogrid_tpu_torch
 from p2pmicrogrid_tpu_torch import config as tcfg
 from p2pmicrogrid_tpu_torch.envs import community as tcom
+from p2pmicrogrid_tpu_torch.models.dqn import dqn_init
+from p2pmicrogrid_tpu_torch.models.replay import lockstep_replay_init
 from p2pmicrogrid_tpu_torch.models.tabular import tabular_init
 from p2pmicrogrid_tpu_torch.parallel import scenarios as tsc
 from p2pmicrogrid_tpu_torch.train.policies import init_policy_state, make_policy
@@ -51,8 +53,11 @@ def test_every_module_imports_without_jax():
     assert int(proc.stdout.strip()) >= 15  # every module was walked
 
 
-def _cfg():
-    return tcfg.default_config(sim=tcfg.SimConfig(n_agents=4, n_scenarios=2))
+def _cfg(impl="tabular"):
+    return tcfg.default_config(
+        sim=tcfg.SimConfig(n_agents=4, n_scenarios=2),
+        train=tcfg.TrainConfig(implementation=impl),
+    )
 
 
 @pytest.mark.parametrize(
@@ -66,9 +71,13 @@ def _cfg():
         lambda cfg: tsc.stack_scenario_arrays(
             cfg, tsc.make_scenario_traces(cfg), tcom.make_ratings(cfg, np.random.default_rng(0))
         ),
+        lambda cfg: tsc.init_shared_state(_cfg("dqn")),
+        lambda cfg: dqn_init(cfg.dqn, 4),
+        lambda cfg: lockstep_replay_init(2, 4, 8),
     ],
     ids=["init_shared_state", "init_policy_state", "tabular_init", "init_physical",
-         "ratings_to", "stack_scenario_arrays"],
+         "ratings_to", "stack_scenario_arrays", "init_shared_state_dqn", "dqn_init",
+         "lockstep_replay_init"],
 )
 def test_entry_points_default_to_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -77,7 +86,7 @@ def test_entry_points_default_to_cuda(monkeypatch, call):
 
 
 def test_unported_learners_raise():
-    for impl in ("dqn", "ddpg"):
+    for impl in ("ddpg",):
         cfg = tcfg.default_config(train=tcfg.TrainConfig(implementation=impl))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_policy(cfg)
