@@ -13,19 +13,24 @@ Phases (each failure exits non-zero):
    paths' shapes and edge cases; a repeat launch must be bit-identical; the
    kernel and the plain version timed with CUDA events. K1 (merged min), then
    K5, K4, K6 (the matrix path) and K3, K2 (same source, no main path), then
-   K7 (the fused slot: tabular and DQN, factored, matrix and no-trading),
-   whose differing decisions are counted, each explained (a bin edge, a Q
-   near-tie, or a cascade from an earlier round), and held below 1e-4.
+   K7 (the fused slot: tabular and DQN, factored, matrix at rounds 2 and 3,
+   and no-trading; one cooperative launch whose grid and blocks per SM are
+   logged), whose differing decisions are counted, each explained (a bin
+   edge, a Q near-tie, or a cascade from an earlier round), and held below
+   1e-4.
 3. Small-path parity: the A=6, S=3 shared episodes with fixed draws on the
    card against the port on the CPU (rewards, every slot's actions): tabular
    with the factored market (rounds=1) and the matrix negotiation
-   (rounds=2), and the fused slot for tabular and for DQN (one warmup pass).
+   (rounds=2), and the fused slot for tabular (factored, and the matrix
+   negotiation at rounds=2) and for DQN (one warmup pass).
 4. The main paths at full width: ``train_scenarios_shared`` (battery on,
    market "auto") for tabular at rounds=1 (-> factored with bf16
    pre-rounding, K1) and at rounds=2 (-> matrix, K5, K4, K6, bf16 storage at
    A >= 256), and with ``fused=True`` (K7 alone), each at A=1000, S=64 and
-   at A=50, S=256; DQN at A=1000, S=64 with one warmup pass, fused and
-   unfused from the same seed. Two episodes each and one more under the
+   at A=50, S=256, the fused rounds=2 run at A=1000, S=64 only (its peak
+   memory within 64 MB of the fused rounds=1 run's: no [S, A, A] buffer);
+   DQN at A=1000, S=64 with one warmup pass, fused and unfused from the same
+   seed. Two episodes each and one more under the
    profiler. Every kernel launch counter is set to 0 just before each run
    and read just after; each slot must launch each of its path's kernels
    once and no other kernel.
@@ -591,7 +596,8 @@ def explain_flips(cfg, args, got, ref):
 # (label, implementation, S, A, rounds, market, timed): K7 at the main path's
 # shapes (tabular factored with bf16 pre-rounding at [64,1000], float32 at
 # [256,50], DQN factored at [64,1000]), the matrix negotiation at rounds=2,
-# and small ragged edge cases of every variant.
+# and small ragged edge cases of every variant (the matrix chain at depth 3
+# at rounds=3).
 SLOT_CASES = (
     ("tabular factored bf16", "tabular", 64, 1000, 1, "factored", "main"),
     ("tabular factored", "tabular", 256, 50, 1, "factored", "at_256x50"),
@@ -602,6 +608,7 @@ SLOT_CASES = (
     ("dqn factored rounds=0", "dqn", 3, 37, 0, "factored", None),
     ("tabular no trading", "tabular", 5, 33, 1, None, None),
     ("dqn no trading", "dqn", 2, 7, 1, None, None),
+    ("tabular matrix rounds=3", "tabular", 3, 129, 3, "matrix", None),
 )
 
 
@@ -646,7 +653,7 @@ def phase_slot_kernel():
         "replaces": "p2pmicrogrid_tpu/ops/pallas_slot.py:380",
         "launches": None, "max_abs_err": 0.0,
         "library_ms": None,  # no single PyTorch call computes a whole slot
-        "decisions": 0, "decisions_differ": 0, "causes": {},
+        "decisions": 0, "decisions_differ": 0, "causes": {}, "grids": {},
     }
     for label, impl, S, A, rounds, market, timed in SLOT_CASES:
         cfg = slot_config(tc, impl, S, A, rounds, market)
@@ -656,6 +663,15 @@ def phase_slot_kernel():
         torch.cuda.synchronize()
         ref = sf.slot_step_fused_plain(cfg, *args)
         what = f"K7 {label} [{S},{A}]"
+        grid = sf.kernel_grid(cfg, S, A, market)
+        rec["grids"][f"{label} [{S},{A}]"] = grid
+        log(
+            f"{what}: cooperative grid {grid['blocks']} blocks of 256 threads, "
+            f"{grid['blocks_per_sm']} per SM on {grid['sms']} SMs, "
+            f"{grid['smem_bytes']} B shared memory per block"
+        )
+        if S >= 64 and grid["blocks"] < grid["sms"]:
+            fail(f"{what}: the grid of {grid['blocks']} blocks leaves SMs idle")
         traded = "no market" if market is None else f"{trading_share(what, ref):.4f} of the agents trade"
         for name, g, a, r in zip(sf.SlotRaw._fields, got, again, ref):
             if not torch.equal(g, a):
@@ -817,6 +833,7 @@ def phase_small_parity():
         ("tabular", 1, "factored", False),
         ("tabular", 2, "matrix", False),
         ("tabular", 1, "factored", True),
+        ("tabular", 2, "matrix", True),
         ("dqn", 1, "factored", True),
     )
     for impl, rounds, market_impl, fused in cases:
@@ -849,7 +866,8 @@ def phase_small_parity():
 # (label, implementation, market, A, S, rounds, fused, the kernels each slot
 # launches once): the shipped default (rounds=1 -> factored, K1) and the
 # reference's rounds comparison at rounds=2 (-> matrix: K5, K4, K6), the fused
-# slot (K7 alone) for tabular and DQN, and DQN unfused from the same seed, at
+# slot (K7 alone) for tabular at rounds 1 and 2 (-> K7's matrix variant) and
+# for DQN, and DQN unfused from the same seed, at
 # the north-star community size with BASELINE config 4's scenario count and
 # at BASELINE config 3's shape. DQN runs one warmup pass (a cut of depth).
 MATRIX_PATH = ("divide_rank1_fused", "divide_power_fused_with_mean", "clear_market_fused")
@@ -861,6 +879,7 @@ MAIN_RUNS = (
     ("tabular", "tabular", "matrix", 50, 256, 2, False, MATRIX_PATH),
     ("fused tabular", "tabular", "factored", 1000, 64, 1, True, FUSED_PATH),
     ("fused tabular", "tabular", "factored", 50, 256, 1, True, FUSED_PATH),
+    ("fused tabular", "tabular", "matrix", 1000, 64, 2, True, FUSED_PATH),
     ("fused dqn", "dqn", "factored", 1000, 64, 1, True, FUSED_PATH),
     ("dqn", "dqn", "factored", 1000, 64, 1, False, ("merged_min_sums",)),
 )
@@ -918,6 +937,7 @@ def phase_main_path(counters):
     totals = {name: 0 for name in counters}
     profiled = {name: {} for name in counters}
     episode_rewards = {}
+    fused_peak = {}
     for label, impl, market, A, S, rounds, fused, path_kernels in MAIN_RUNS:
         cfg = tc.default_config(
             sim=tc.SimConfig(n_agents=A, n_scenarios=S, rounds=rounds),
@@ -976,6 +996,8 @@ def phase_main_path(counters):
             totals[name] += n
         if market == "factored":
             episode_rewards[(impl, A, S, fused)] = rewards
+        if fused and impl == "tabular" and (A, S) == (1000, 64):
+            fused_peak[rounds] = peak
         log(
             f"phase 4: {what} dtype={mdt} env-steps/s {S * T / s1:.1f} (timed "
             f"episode {s1:.4f} s, {s1 / T * 1e3:.3f} ms per slot, first episode "
@@ -995,7 +1017,7 @@ def phase_main_path(counters):
         if kernels is not None:
             per_call = profiled_kernel_ms(kernels, T)
             for name in path_kernels:
-                profiled[name][(S, A, impl)] = per_call.get(name)
+                profiled[name][(S, A, impl, rounds)] = per_call.get(name)
                 log(f"  profile: {name} device time per call {per_call.get(name, 0) * 1e3:.3f} us")
         del pol, scen, arrays, learned
         torch.cuda.empty_cache()
@@ -1010,6 +1032,12 @@ def phase_main_path(counters):
         log(f"phase 4: {impl} A={A} S={S} fused vs unfused, same seed: max episode reward rel diff {rel.max():.3e}")
         if not np.allclose(fused_rew, plain_rew, rtol=2e-4, atol=0.0):
             fail(f"{impl} A={A} S={S}: fused vs unfused rewards differ by {rel.max():.3e} (rtol 2e-4)")
+    # K7's matrix variant keeps no [S, A, A] workspace: at A=1000, S=64 one
+    # would be 256 MB of float32.
+    extra = (fused_peak[2] - fused_peak[1]) / 2**20
+    log(f"phase 4: fused tabular A=1000 S=64 peak memory, rounds=2 minus rounds=1: {extra:.3f} MiB")
+    if extra > 64:
+        fail(f"fused rounds=2 peak memory exceeds fused rounds=1 by {extra:.1f} MiB (limit 64 MB)")
     return totals, profiled
 
 
@@ -1054,10 +1082,12 @@ def main() -> None:
         # its phase-2 profile under profiled_ms.
         if name in on_path:
             key = "main_path_profiled_ms" if name == "slot_step_fused" else "profiled_ms"
-            rec[key] = profiled[name].get((64, 1000, "tabular"))
-            rec["at_256x50"][key] = profiled[name].get((256, 50, "tabular"))
+            rounds = 2 if name in MATRIX_PATH else 1
+            rec[key] = profiled[name].get((64, 1000, "tabular", rounds))
+            rec["at_256x50"][key] = profiled[name].get((256, 50, "tabular", rounds))
             if name == "slot_step_fused":
-                rec["dqn_64x1000"][key] = profiled[name].get((64, 1000, "dqn"))
+                rec["dqn_64x1000"][key] = profiled[name].get((64, 1000, "dqn", 1))
+                rec["matrix_r2_64x1000"][key] = profiled[name].get((64, 1000, "tabular", 2))
     log(json.dumps({"kernels": records}))
     log(f"total {time.perf_counter() - start:.1f} s")
     print(

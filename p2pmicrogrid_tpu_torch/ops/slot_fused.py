@@ -68,6 +68,10 @@ def _configure(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.slot_fused_counts.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
     lib.slot_fused_counts.restype = i
+    lib.slot_fused_scratch_vectors.argtypes = [i, i, i]
+    lib.slot_fused_scratch_vectors.restype = i
+    lib.slot_fused_grid.argtypes = [p, i, p]
+    lib.slot_fused_grid.restype = i
     lib.slot_fused_launch.argtypes = [p, i, p, i, p, i, p]
     lib.slot_fused_launch.restype = i
     counts = [ctypes.c_int() for _ in range(4)]
@@ -117,6 +121,12 @@ def _check_impl(cfg: ExperimentConfig) -> str:
 
 def _n_rounds(cfg: ExperimentConfig) -> int:
     return cfg.sim.rounds + 1 if cfg.sim.trading else 1
+
+
+def _market_code(cfg: ExperimentConfig, market_impl: Optional[str]) -> int:
+    """The kernel's market variant; ``None`` is the matrix negotiation, as in
+    the plain version."""
+    return _MARKETS[(market_impl or "matrix") if cfg.sim.trading else None]
 
 
 # --- plain version -------------------------------------------------------------
@@ -289,6 +299,38 @@ def _check(name: str, x: torch.Tensor, shape, device, dtype=torch.float32) -> No
         raise ValueError(f"slot_step_fused: {name} must be contiguous")
 
 
+def _kernel_ints(cfg: ExperimentConfig, impl: str, S: int, A: int, market: int,
+                 explore: bool, compute_dtype: Optional[torch.dtype]):
+    """The kernel's integer arguments, in ``slot_fused.cu``'s ``IntArg`` order."""
+    q = cfg.qlearning
+    tab = impl == "tabular"
+    nt, ntp, nb, np_, nact = (
+        (q.num_time_states, q.num_temp_states, q.num_balance_states, q.num_p2p_states,
+         q.num_actions) if tab else (0,) * 5
+    )
+    return (ctypes.c_int * _N_INT)(
+        S, A, _n_rounds(cfg), 0 if tab else 1, market, int(bool(explore)),
+        int(cfg.battery.enabled), int(compute_dtype is not None), nt, ntp, nb, np_, nact,
+    )
+
+
+def kernel_grid(
+    cfg: ExperimentConfig, S: int, A: int, market_impl: Optional[str] = None
+) -> dict:
+    """The cooperative grid K7 launches for this configuration at [S, A] on
+    the current CUDA device: ``blocks``, ``blocks_per_sm``, ``sms`` and
+    ``smem_bytes`` (shared memory per block). The kernel sizes its grid to
+    what the device holds at once, or to its largest phase's work items if
+    fewer."""
+    market = _market_code(cfg, market_impl)
+    ints = _kernel_ints(cfg, _check_impl(cfg), S, A, market, True, None)
+    grid = (ctypes.c_int * 4)()
+    err = LIBRARY.load().slot_fused_grid(ints, _N_INT, grid)
+    if err != 0:
+        raise RuntimeError(f"slot_step_fused grid query failed: CUDA error {err}")
+    return dict(zip(("blocks", "blocks_per_sm", "sms", "smem_bytes"), grid))
+
+
 def _launch_kernel(
     cfg: ExperimentConfig,
     pol_state,
@@ -307,7 +349,7 @@ def _launch_kernel(
         raise ValueError(f"slot_step_fused: load_w must have shape [S, A], got {tuple(load_w.shape)}")
     S, A = load_w.shape
     R = _n_rounds(cfg)
-    market = _MARKETS[market_impl if cfg.sim.trading else None]
+    market = _market_code(cfg, market_impl)
     if compute_dtype not in (None, torch.bfloat16):
         raise ValueError(f"slot_step_fused: compute_dtype must be None or bfloat16, got {compute_dtype}")
     if market == 1 and cfg.sim.rounds > 1:
@@ -328,17 +370,15 @@ def _launch_kernel(
         _check("randint", rand, (R, S, A), device, torch.int64)
     q_table = None
     weights = (None,) * 6
-    nt = ntp = nb = np_ = nact = 0
     if impl == "tabular":
         q = cfg.qlearning
-        nt, ntp, nb, np_, nact = (
-            q.num_time_states, q.num_temp_states, q.num_balance_states,
-            q.num_p2p_states, q.num_actions,
-        )
-        if nact != 3:
-            raise ValueError(f"slot_step_fused: the kernel takes 3 actions, got {nact}")
+        if q.num_actions != 3:
+            raise ValueError(f"slot_step_fused: the kernel takes 3 actions, got {q.num_actions}")
         q_table = pol_state.q_table
-        _check("q_table", q_table, (A, nt, ntp, nb, np_, nact), device)
+        _check("q_table", q_table, (
+            A, q.num_time_states, q.num_temp_states, q.num_balance_states,
+            q.num_p2p_states, q.num_actions,
+        ), device)
     else:
         net = pol_state.online
         h = KERNEL_DQN_HIDDEN
@@ -346,32 +386,35 @@ def _launch_kernel(
             net.Dense_0.kernel, net.Dense_0.bias, net.Dense_1.kernel,
             net.Dense_1.bias, net.Dense_2.kernel, net.Dense_2.bias,
         )
+        names = ("Dense_0.kernel", "Dense_0.bias", "Dense_1.kernel", "Dense_1.bias",
+                 "Dense_2.kernel", "Dense_2.bias")
         for name, w, shape in zip(
-            ("Dense_0.kernel", "Dense_0.bias", "Dense_1.kernel", "Dense_1.bias",
-             "Dense_2.kernel", "Dense_2.bias"),
-            weights,
-            ((A, 5, h), (A, h), (A, h, h), (A, h), (A, h, 1), (A, 1)),
+            names, weights, ((A, 5, h), (A, h), (A, h, h), (A, h), (A, h, 1), (A, 1)),
         ):
             _check(name, w, shape, device)
+        # The kernel copies each agent's weights in 16-byte pieces.
+        for name, w in zip(names[:5], weights[:5]):
+            if w.data_ptr() % 16:
+                raise ValueError(f"slot_step_fused: {name} must be 16-byte aligned")
     lib = LIBRARY.load()
     out = torch.empty((_N_OUT, S, A), dtype=torch.float32, device=device)
     decisions = torch.empty((S, R, A), dtype=torch.float32, device=device)
-    work = None
-    if market == 2:
-        work = torch.empty((S, A, A), dtype=torch.float32, device=device)
+    # The per-agent vectors between the kernel's phases, and the matrix
+    # clearing's sums per block of 32 columns: [S, A] planes, never an
+    # [S, A, A] matrix.
+    scratch = torch.empty(
+        (lib.slot_fused_scratch_vectors(R, A, market), S, A), dtype=torch.float32, device=device
+    )
     ptr = lambda x: None if x is None else x.data_ptr()
     ptrs = (ctypes.c_void_p * _N_PTR)(*(
         ptr(x) for x in (
             time_s, t_out_s, load_w, xs[3], phys_s.t_in, phys_s.t_bm, phys_s.soc,
             phys_s.hp_frac, ratings.max_in, uniform, rand, pol_state.epsilon,
-            q_table, *weights, out, decisions, work,
+            q_table, *weights, out, decisions, scratch,
         )
     ))
     consts = (ctypes.c_float * _N_CONST)(*slot_constants(cfg, A))
-    ints = (ctypes.c_int * _N_INT)(
-        S, A, R, 0 if impl == "tabular" else 1, market, int(bool(explore)),
-        int(cfg.battery.enabled), int(compute_dtype is not None), nt, ntp, nb, np_, nact,
-    )
+    ints = _kernel_ints(cfg, impl, S, A, market, explore, compute_dtype)
     launch(
         "slot_step_fused", device, lib.slot_fused_launch,
         ptrs, _N_PTR, consts, _N_CONST, ints, _N_INT,

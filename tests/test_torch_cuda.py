@@ -161,8 +161,9 @@ SLOT_VARIANTS = [
     dict(rounds=0, market_impl="factored"),
     dict(rounds=2, market_impl="matrix"),
     dict(trading=False),
+    dict(rounds=3, market_impl="matrix"),
 ]
-SLOT_IDS = ["factored_r1", "factored_r1_bf16", "factored_r0", "matrix_r2", "no_trading"]
+SLOT_IDS = ["factored_r1", "factored_r1_bf16", "factored_r0", "matrix_r2", "no_trading", "matrix_r3"]
 
 
 def _slot_inputs(impl, S, A, sim, gen, t=44):

@@ -18,6 +18,10 @@ Both run in daylight with full batteries: the PV surplus that a full battery
 cannot store is sold, so buyers and sellers meet, agents trade peer to peer
 and the balance observation is not zero. Each test asserts that before it
 compares.
+* The matrix-free negotiation of kernel K7: each entry of every round's
+  proposal matrix, computed by the pair chain from per-agent vectors alone,
+  equals the plain version's materialized rounds bit for bit, and its
+  clearing agrees with ``clear_market``.
 * ``resolve_use_fused``: off by default, DDPG refused.
 """
 
@@ -323,6 +327,125 @@ def _check_fused_actions(cfg, policy, pol, scen, arrays, ratings, warm, episodes
                 pol, scen, _ = tsc._dqn_update_shared(cfg, pol, scen, tr, d.replay_idx[t])
         if mode == "learn":
             pol = policy.decay(pol)
+
+
+def _blocked_sum(terms):
+    """Sum over the last axis in K7's order: a running float32 sum over each
+    block of 32 terms, the blocks added in order."""
+    total = torch.zeros(terms.shape[:-1])
+    for j0 in range(0, terms.shape[-1], 32):
+        part = torch.zeros(terms.shape[:-1])
+        for j in range(j0, min(terms.shape[-1], j0 + 32)):
+            part = part + terms[..., j]
+        total = total + part
+    return total
+
+
+def _split(o, t, pw, inv_a):
+    """divide_power's split of net power o (opposite-sign total t) for the
+    proposal pw, written as K7 writes it."""
+    filtered = torch.where(torch.sign(o) != torch.sign(pw), pw, torch.zeros_like(pw))
+    safe = torch.where(t > 0, t, torch.ones_like(t))
+    return torch.where(t > 0, o * filtered.abs() / safe, o * inv_a)
+
+
+def _pair_chain(outs, totals, m, inv_a):
+    """(N_m[a, b], N_m[b, a]) for every ordered pair [S, a, b], each from the
+    vectors of agents a and b alone: N_0[a, b] = out_0[a] / A and
+    N_k[a, b] = split(out_k[a], total_k[a], -N_{k-1}[b, a]), with a zero
+    proposal on the diagonal. Elementwise over the pairs, so no entry reads
+    another pair's."""
+    S, A = outs[0].shape
+    eye = torch.eye(A, dtype=torch.bool)
+    row = lambda v: v[:, :, None].expand(S, A, A)
+    col = lambda v: v[:, None, :].expand(S, A, A)
+    x, y = row(outs[0]) * inv_a, col(outs[0]) * inv_a
+    for k in range(1, m + 1):
+        x, y = (
+            _split(row(outs[k]), row(totals[k]), torch.where(eye, 0.0, -y), inv_a),
+            _split(col(outs[k]), col(totals[k]), torch.where(eye, 0.0, -x), inv_a),
+        )
+    return x, y
+
+
+def _matrix_rounds(rounds, seed):
+    """Net powers of rounds + 1 decision passes at S=3, A=37 (zero net powers
+    in every round, and one scenario whose round-0 powers are all negative
+    and round-1 powers positive, so that no proposal opposes its agents with
+    a net power: their totals are 0 and they split equally), and the plain
+    version's
+    materialized rounds (ops/slot_fused.py::slot_step_fused_plain): each
+    round's matrix and its per-agent opposite-sign totals."""
+    from p2pmicrogrid_tpu_torch.ops.market import divide_power, zero_diagonal
+
+    S, A = 3, 37
+    rng = np.random.default_rng(seed)
+    outs = [rng.standard_normal((S, A)).astype(np.float32) * 1e3 for _ in range(rounds + 1)]
+    for o in outs:
+        o[:, :4] = 0.0
+    outs[0][1] = -np.abs(outs[0][1])
+    outs[1][1] = np.abs(outs[1][1])
+    outs = [torch.from_numpy(o) for o in outs]
+    p2p = torch.zeros((S, A, A))
+    mats, totals = [], []
+    for r in range(rounds + 1):
+        p2p = zero_diagonal(p2p)
+        powers = -p2p.transpose(-1, -2)
+        so = torch.sign(outs[r])[..., None]
+        totals.append(torch.where(so != torch.sign(powers), powers, 0.0).sum(-1).abs())
+        p2p = divide_power(outs[r], powers)
+        mats.append(p2p)
+    return outs, mats, totals
+
+
+@pytest.mark.parametrize("rounds", [2, 3])
+def test_matrix_free_chain_matches_materialized_rounds(rounds):
+    """K7 never stores the [S, A, A] negotiation matrix: given the same
+    per-agent totals, the pair chain gives every entry of every round bit for
+    bit, and its clearing (row sums in blocks of 32) agrees with
+    clear_market at rtol=1e-5, atol=1e-3 (another summation order)."""
+    from p2pmicrogrid_tpu_torch.ops._f32 import recip
+    from p2pmicrogrid_tpu_torch.ops.market import clear_market
+
+    outs, mats, totals = _matrix_rounds(rounds, seed=rounds)
+    assert bool((totals[1][1, 4:] == 0).all())  # the one-signed scenario splits equally
+    inv_a = recip(outs[0].shape[-1])
+    for m in range(rounds + 1):
+        x, y = _pair_chain(outs, totals, m, inv_a)
+        assert torch.equal(x, mats[m]), f"round {m}"
+        assert torch.equal(y, mats[m].transpose(-1, -2)), f"round {m}"
+    differ = torch.sign(x) != torch.sign(y)
+    ex = torch.where(differ, torch.sign(x) * torch.minimum(x.abs(), y.abs()), 0.0)
+    grid, peer = _blocked_sum(x - ex), _blocked_sum(ex)
+    ref_grid, ref_peer = clear_market(mats[-1])
+    assert (ref_peer > 0).any() and (ref_peer < 0).any()  # buyers and sellers trade
+    torch.testing.assert_close(grid, ref_grid, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(peer, ref_peer, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("rounds", [2, 3])
+def test_opposite_sign_total_from_sign_candidates(rounds):
+    """K7 sums each column's round-r terms -N_{r-1}[j, i] once, for all three
+    signs out_r[i] can take (pw kept where it is not below, not equal to, not
+    above 0), before out_r exists; the candidate of out_r's sign is the
+    opposite-sign total bit for bit, and matches divide_power's total."""
+    from p2pmicrogrid_tpu_torch.ops._f32 import recip
+
+    outs, _, totals = _matrix_rounds(rounds, seed=10 + rounds)
+    A = outs[0].shape[-1]
+    inv_a = recip(A)
+    eye = torch.eye(A, dtype=torch.bool)
+    for r in range(1, rounds + 1):
+        _, y = _pair_chain(outs, totals, r - 1, inv_a)
+        pw = torch.where(eye, 0.0, -y)  # [S, i, j]: -N_{r-1}[j, i]
+        below, zero, above = (
+            _blocked_sum(torch.where(cond, 0.0, pw)) for cond in (pw < 0, pw == 0, pw > 0)
+        )
+        o = outs[r]
+        picked = torch.where(o > 0, above, torch.where(o < 0, below, zero))
+        direct = _blocked_sum(torch.where(torch.sign(o)[..., None] != torch.sign(pw), pw, 0.0))
+        assert torch.equal(picked, direct), f"round {r}"
+        torch.testing.assert_close(picked.abs(), totals[r], rtol=1e-5, atol=1e-3)
 
 
 def test_resolve_use_fused():
