@@ -11,8 +11,10 @@ Phases (each failure exits non-zero):
    source, all started together).
 2. Each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and edge cases; a repeat launch must be bit-identical; the
-   kernel and the plain version timed with CUDA events. K1 (merged min), then
-   K5, K4, K6 (the matrix path) and K3, K2 (same source, no main path), then
+   kernel and the plain version timed with CUDA events, and the matrix
+   kernels' device time from the profiler. K1 (merged min), then K5, K4, K6
+   (the matrix path; K4's dispatch at every case and K4's and K6's grid and
+   shared memory a block logged) and K3, K2 (same source, no main path), then
    K7 (the fused slot: tabular and DQN, factored, matrix at rounds 2 and 3,
    and no-trading; one cooperative launch whose grid and blocks per SM are
    logged), whose differing decisions are counted, each explained (a bin
@@ -305,9 +307,10 @@ def matrix_inputs(S, A, dtype, gen):
 
 def matrix_kernel_specs():
     """K5, K4, K6, K3, K2: wrapper, plain version, arguments, what each
-    output is (a matrix or a sum over A terms), and the function's work: the
-    float32 operations per matrix entry and the bytes it must move (each
-    input read once, each output written once)."""
+    output is (a matrix or a sum over A terms), the function's work (the
+    float32 operations per matrix entry and the bytes it must move, each
+    input read once, each output written once) and the kernels it launches
+    (profiler names)."""
     from p2pmicrogrid_tpu_torch.ops import matrix_market as mm
 
     vec = lambda S, A: 4.0 * S * A
@@ -321,26 +324,31 @@ def matrix_kernel_specs():
              plain=mm.divide_rank1_fused_plain,
              args=lambda p2p, out, prev, dt: (prev, out, dt), outputs=("matrix", "mean"),
              replaces="p2pmicrogrid_tpu/ops/pallas_market.py:254", ops=12,
-             nbytes=lambda S, A, es: 2 * vec(S, A) + mat(S, A, es) + vec(S, A)),
+             nbytes=lambda S, A, es: 2 * vec(S, A) + mat(S, A, es) + vec(S, A),
+             kernels=("split_kernel", "column_mean_kernel")),
         dict(name="divide_power_fused_with_mean", fn=mm.divide_power_fused_with_mean,
              plain=mm.divide_power_fused_with_mean_plain,
              args=lambda p2p, out, prev, dt: (p2p, out), outputs=("matrix", "mean"),
              replaces="p2pmicrogrid_tpu/ops/pallas_market.py:227", ops=12,
-             nbytes=lambda S, A, es: 2 * mat(S, A, es) + 2 * vec(S, A)),
+             nbytes=lambda S, A, es: 2 * mat(S, A, es) + 2 * vec(S, A),
+             kernels=("divide_mean_stripe_kernel", "column_mean_kernel")),
         dict(name="clear_market_fused", fn=mm.clear_market_fused,
              plain=mm.clear_market_fused_plain,
              args=lambda p2p, out, prev, dt: (p2p,), outputs=("rowsum", "rowsum"),
              replaces="p2pmicrogrid_tpu/ops/pallas_market.py:282", ops=10,
-             nbytes=lambda S, A, es: mat(S, A, es) + 2 * vec(S, A)),
+             nbytes=lambda S, A, es: mat(S, A, es) + 2 * vec(S, A),
+             kernels=("clear_tiles_kernel", "clear_sums_kernel")),
         dict(name="divide_power_fused", fn=mm.divide_power_fused,
              plain=mm.divide_power_fused_plain,
              args=lambda p2p, out, prev, dt: (p2p, out), outputs=("matrix",),
              replaces="p2pmicrogrid_tpu/ops/pallas_market.py:211", ops=10,
-             nbytes=lambda S, A, es: 2 * mat(S, A, es) + vec(S, A)),
+             nbytes=lambda S, A, es: 2 * mat(S, A, es) + vec(S, A),
+             kernels=("split_kernel",)),
         dict(name="prep_mean", fn=mm.prep_mean, plain=mm.prep_mean_plain,
              args=lambda p2p, out, prev, dt: (p2p,), outputs=("colsum",),
              replaces="p2pmicrogrid_tpu/ops/pallas_market.py:194", ops=2,
-             nbytes=lambda S, A, es: mat(S, A, es) + vec(S, A)),
+             nbytes=lambda S, A, es: mat(S, A, es) + vec(S, A),
+             kernels=("split_kernel",)),
     ]
 
 
@@ -370,16 +378,22 @@ def check_matrix_output(label, kind, got, ref, terms):
 
 def phase_matrix_kernels():
     """K5, K4, K6, K3 and K2 against their plain versions; returns their
-    records, K5, K4, K6 (the matrix path) first."""
+    records, K5, K4, K6 (the matrix path) first. K4's and K6's records also
+    carry each timed shape's launch (design, grid, threads, shared memory a
+    block) and K4's dispatch at every case (its stripe rows, or the two-pass
+    kernel)."""
     import torch
+
+    from p2pmicrogrid_tpu_torch.ops import matrix_market as mm
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4321)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        (64, 1000, bf16), (64, 1000, f32), (256, 50, f32),
-        (5, 257, bf16), (5, 257, f32), (3, 7, f32), (3, 7, bf16), (1, 50, f32), (2, 1, f32),
+        (64, 1000, bf16), (64, 1000, f32), (256, 50, f32), (5, 257, bf16), (5, 257, f32),
+        (2, 65, f32), (3, 7, f32), (3, 7, bf16), (1, 50, f32), (2, 1, f32),
     ]
+    redesigned = ("divide_power_fused_with_mean", "clear_market_fused")
     timed = {(64, 1000, bf16): "main", (64, 1000, f32): "at_64x1000_f32", (256, 50, f32): "at_256x50"}
     specs = matrix_kernel_specs()
     records = {
@@ -392,8 +406,15 @@ def phase_matrix_kernels():
         }
         for sp in specs
     }
+    for name in redesigned:
+        records[name]["launch"] = {}
+    records["divide_power_fused_with_mean"]["dispatch"] = {}
     for S, A, dt in cases:
         p2p, out, prev = matrix_inputs(S, A, dt, gen)
+        k4 = mm.kernel_config("divide_power_fused_with_mean", S, A, dt, "cuda")
+        records["divide_power_fused_with_mean"]["dispatch"][f"[{S},{A}] {str(dt)[6:]}"] = (
+            f"stripe of {k4['rows']} rows" if k4["rows"] else "two-pass split_kernel"
+        )
         terms = {
             "rowsum": p2p.float(),
             "colsum": p2p.float().transpose(-1, -2) / A,
@@ -422,20 +443,28 @@ def phase_matrix_kernels():
             if where is not None:
                 k_ms = cuda_time_ms(lambda: sp["fn"](*args))
                 p_ms = cuda_time_ms(lambda: sp["plain"](*args), iters=10)
+                dev_ms = profiled_device_ms(lambda: sp["fn"](*args), sp["kernels"])
                 es = torch.finfo(dt).bits // 8
                 bound_ops = sp["ops"] * S * A * A / PEAK_F32_FLOPS * 1e3
                 bound_bytes = sp["nbytes"](S, A, es) / PEAK_BYTES_PER_S * 1e3
                 t = dict(
-                    ms=k_ms, plain_ms=p_ms, bound_ms=max(bound_ops, bound_bytes),
+                    ms=k_ms, device_ms=dev_ms, plain_ms=p_ms,
+                    bound_ms=max(bound_ops, bound_bytes),
                     bound_by="operations" if bound_ops >= bound_bytes else "bytes",
                 )
                 if where == "main":
                     rec.update(t, shape=[S, A], dtype="bfloat16")
                 else:
                     rec[where] = t
+                if sp["name"] in redesigned:
+                    rec["launch"][f"[{S},{A}] {str(dt)[6:]}"] = mm.kernel_config(
+                        sp["name"], S, A, dt, "cuda"
+                    )
+                dev = "not measured" if dev_ms is None else f"{dev_ms:.6f} ms"
                 log(
-                    f"{sp['name']} [{S},{A}] {str(dt)[6:]} kernel {k_ms:.6f} ms  "
-                    f"plain {p_ms:.6f} ms  bound {t['bound_ms']:.6f} ms ({t['bound_by']})"
+                    f"{sp['name']} [{S},{A}] {str(dt)[6:]} kernel {k_ms:.6f} ms events, "
+                    f"{dev} device  plain {p_ms:.6f} ms  bound {t['bound_ms']:.6f} ms "
+                    f"({t['bound_by']})"
                 )
         log(f"matrix kernels [{S},{A}] {str(dt)[6:]} ok, bit-identical repeats")
     for rec in records.values():
@@ -443,13 +472,18 @@ def phase_matrix_kernels():
             f"{rec['name']}: max abs err {rec['max_abs_err']:.3e}, bf16 matrix "
             f"entries that differ from the plain version {rec['bf16_entries_differ']}"
         )
+    for name in redesigned:
+        for shape, config in records[name]["launch"].items():
+            log(f"{name} {shape}: {config}")
+    log(f"divide_power_fused_with_mean dispatch: {records['divide_power_fused_with_mean']['dispatch']}")
     return [records[sp["name"]] for sp in specs]
 
 
-def profiled_device_ms(fn, match: str, calls: int = 10):
-    """Device time per call of the kernels whose name contains ``match``,
-    over ``calls`` calls of ``fn`` under torch.profiler; None when the
-    profiler saw no such device time."""
+def profiled_device_ms(fn, match, calls: int = 10):
+    """Device time per call of ``fn`` over ``calls`` calls under
+    torch.profiler: for each name in ``match`` (a string or a tuple), the
+    kernels whose name contains it, per launch, summed over the names (each
+    launched once per call); None when the profiler saw none of them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -459,13 +493,18 @@ def profiled_device_ms(fn, match: str, calls: int = 10):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total, n = 0.0, 0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key:
-            us = getattr(e, "self_device_time_total", None)
-            total += e.self_cuda_time_total if us is None else us
-            n += e.count
-    return total / n / 1e3 if n else None
+    per_call = 0.0
+    for name in (match,) if isinstance(match, str) else match:
+        total, n = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key:
+                us = getattr(e, "self_device_time_total", None)
+                total += e.self_cuda_time_total if us is None else us
+                n += e.count
+        if not n:
+            return None
+        per_call += total / n / 1e3
+    return per_call
 
 
 def slot_config(tc, impl, S, A, rounds, market):
@@ -888,7 +927,7 @@ MAIN_RUNS = (
 def profiled_kernel_ms(kernels, T):
     """Device ms per call of each path kernel in one profiled episode of T
     slots. K5 and K4 each launch the column-mean reduce once per call, so
-    each is charged one reduce per call."""
+    each is charged one reduce per call; K6 is its tile and sum kernels."""
     def per_call(match):
         hits = [v for k, v in kernels.items() if match(k)]
         n = sum(c for c, _ in hits)
@@ -897,8 +936,9 @@ def profiled_kernel_ms(kernels, T):
     reduce_ms, _ = per_call(lambda k: "column_mean_kernel" in k)
     rank1 = lambda k: "true" in k or "(bool)1" in k  # K5's template flag
     k5, n5 = per_call(lambda k: "split_kernel" in k and rank1(k))
-    k4, n4 = per_call(lambda k: "split_kernel" in k and not rank1(k))
-    k6, n6 = per_call(lambda k: "clear_kernel" in k)
+    k4, n4 = per_call(lambda k: "divide_mean_stripe_kernel" in k)
+    k6, n6 = per_call(lambda k: "clear_tiles_kernel" in k)
+    k6_sums, _ = per_call(lambda k: "clear_sums_kernel" in k)
     k7, n7 = per_call(lambda k: "slot_fused_kernel" in k)
     k1 = sum(ms for k, (_, ms) in kernels.items() if "merged_min" in k) / T
     out = {"merged_min_sums": k1}  # both passes, one call per slot
@@ -907,7 +947,7 @@ def profiled_kernel_ms(kernels, T):
     if n4:
         out["divide_power_fused_with_mean"] = k4 + reduce_ms
     if n6:
-        out["clear_market_fused"] = k6
+        out["clear_market_fused"] = k6 + k6_sums
     if n7:
         out["slot_step_fused"] = k7
     return out

@@ -23,11 +23,17 @@ version for tensors on the CPU; there is no fallback from one to the other,
 and a failed build or launch raises. The plain versions reuse the semantic
 oracle of ``ops/market.py`` and round to bfloat16 at the same points as the
 kernels.
+
+K4 holds a stripe of ``stripe_rows`` rows in shared memory; where not even 8
+rows fit (on an H100, A above 14,336 in bfloat16 or 7,168 in float32), it
+runs the two-pass kernel that K3 shares. That choice is a rule on the shape,
+never a reaction to a failure. ``kernel_config`` reports each launch's grid.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -44,14 +50,20 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.divide_rank1_launch.argtypes = [p] * 5 + [i, i, i, p]
     lib.divide_power_launch.argtypes = [p] * 5 + [i, i, i, i, p]
     lib.prep_mean_launch.argtypes = [p, p, i, i, i, p]
-    lib.clear_market_launch.argtypes = [p, p, p, i, i, i, p]
+    lib.divide_mean_stripe_launch.argtypes = [p] * 5 + [i, i, i, i, p]
+    lib.clear_market_launch.argtypes = [p] * 4 + [i, i, i, p]
     lib.matrix_market_stripe_rows.argtypes = []
+    lib.matrix_market_smem_limits.argtypes = [p]
+    lib.matrix_kernel_config.argtypes = [i] * 5 + [p]
     for fn in (
         lib.divide_rank1_launch,
         lib.divide_power_launch,
+        lib.divide_mean_stripe_launch,
         lib.prep_mean_launch,
         lib.clear_market_launch,
         lib.matrix_market_stripe_rows,
+        lib.matrix_market_smem_limits,
+        lib.matrix_kernel_config,
     ):
         fn.restype = ctypes.c_int
 
@@ -130,9 +142,84 @@ def _check_mat(fn: str, p2p: torch.Tensor) -> None:
         raise ValueError(f"{fn}: p2p must be contiguous")
 
 
-def _col_partial(lib, s: int, a: int, device) -> torch.Tensor:
-    rows = lib.matrix_market_stripe_rows()
+def _col_partial(s: int, a: int, rows: int, device) -> torch.Tensor:
     return torch.empty((s, -(-a // rows), a), dtype=torch.float32, device=device)
+
+
+# Shared memory K4's block needs beside its stripe: its static arrays (1.5
+# KB: a float4 and a float2 for each of 64 rows), the 1 KB the device
+# reserves for each block, and 0.5 KB to spare.
+_STRIPE_OVERHEAD_BYTES = 3072
+
+
+_PAIR_TILE = 64  # K6: agents of a tile
+
+
+def stripe_bytes(a: int, rows: int, elem_bytes: int) -> int:
+    """Shared memory of K4's stripe: ``ceil(a / 32) * 32`` rows j of ``rows``
+    entries."""
+    return -(-a // 32) * 32 * rows * elem_bytes
+
+
+def stripe_rows(a: int, elem_bytes: int, block_bytes: int, sm_bytes: int) -> int:
+    """Rows i of K4's stripe in shared memory at ``a`` agents, or 0 when not
+    even 8 fit in the ``block_bytes`` a block may hold: the two-pass kernel.
+
+    The largest of 64, 32, 16, 8 rows (16 to 128 bytes a row) whose stripe
+    lets three blocks share an SM's ``sm_bytes``, so that one block's loads
+    overlap another's arithmetic and stores; else the largest that one block
+    holds. At a = 1000: 32 rows in bfloat16, 16 in float32 (64 KB)."""
+    choices = [r for r in (64, 32, 16, 8) if 16 <= r * elem_bytes <= 128]
+    for blocks in (3, 1):
+        for rows in choices:
+            need = stripe_bytes(a, rows, elem_bytes) + _STRIPE_OVERHEAD_BYTES
+            if need <= block_bytes and blocks * need <= sm_bytes:
+                return rows
+    return 0
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_limits(device_index: int) -> Tuple[int, int]:
+    """(shared memory a block may opt in to, an SM's) of a CUDA device."""
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device_index):
+        err = LIBRARY.load().matrix_market_smem_limits(out)
+    if err != 0:
+        raise RuntimeError(f"matrix_market_smem_limits: CUDA error {err}")
+    return out[0], out[1]
+
+
+def _k4_rows(a: int, dtype, device: torch.device) -> int:
+    return stripe_rows(a, torch.finfo(dtype).bits // 8, *_smem_limits(device.index))
+
+
+def kernel_config(name: str, s: int, a: int, dtype, device) -> dict:
+    """How ``divide_power_fused_with_mean`` (K4) or ``clear_market_fused``
+    (K6) launches at [s, a] in ``dtype`` on ``device``: the design, grid,
+    threads a block, shared memory a block (bytes), the stripe's rows (K4)
+    and the global access width (bytes)."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    bf16 = int(dtype == torch.bfloat16)
+    if name == "divide_power_fused_with_mean":
+        rows = _k4_rows(a, dtype, device)
+        if rows == 0:
+            return dict(design="two-pass split_kernel (no 8-row stripe fits in shared memory)",
+                        rows=0)
+        kernel, design = 4, "stripe of rows i in shared memory, the matrix read once"
+    elif name == "clear_market_fused":
+        rows, kernel = 0, 6
+        design = "each unordered pair of 64x64 tiles once, then the tile sums in order"
+    else:
+        raise ValueError(f"kernel_config: no configuration for {name}")
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = LIBRARY.load().matrix_kernel_config(kernel, s, a, bf16, rows, out)
+    if err != 0:
+        raise RuntimeError(f"kernel_config({name}): CUDA error {err}")
+    return dict(design=design, grid=[out[0], out[1]], threads=out[2], smem_bytes=out[3],
+                rows=rows, vector_bytes=out[4])
 
 
 def prep_mean(p2p: torch.Tensor) -> torch.Tensor:
@@ -159,7 +246,16 @@ def _divide(fn: str, p2p: torch.Tensor, out_power: torch.Tensor, with_mean: bool
     mean = partial = None
     if with_mean:
         mean = torch.empty((s, a), dtype=torch.float32, device=p2p.device)
-        partial = _col_partial(lib, s, a, p2p.device)
+        rows = _k4_rows(a, p2p.dtype, p2p.device)
+        if rows:
+            partial = _col_partial(s, a, rows, p2p.device)
+            launch(
+                fn, p2p.device, lib.divide_mean_stripe_launch, p2p.data_ptr(),
+                out_power.data_ptr(), new.data_ptr(), mean.data_ptr(), partial.data_ptr(),
+                s, a, int(p2p.dtype == torch.bfloat16), rows,
+            )
+            return new, mean
+        partial = _col_partial(s, a, lib.matrix_market_stripe_rows(), p2p.device)
     launch(
         fn, p2p.device, lib.divide_power_launch, p2p.data_ptr(), out_power.data_ptr(),
         new.data_ptr(), None if mean is None else mean.data_ptr(),
@@ -208,7 +304,7 @@ def divide_rank1_fused(
     new = torch.empty((s, a, a), dtype=out_dtype, device=prev_out.device)
     mean = torch.empty((s, a), dtype=torch.float32, device=prev_out.device)
     lib = LIBRARY.load()
-    partial = _col_partial(lib, s, a, prev_out.device)
+    partial = _col_partial(s, a, lib.matrix_market_stripe_rows(), prev_out.device)
     launch(
         fn, prev_out.device, lib.divide_rank1_launch, prev_out.data_ptr(),
         out_power.data_ptr(), new.data_ptr(), mean.data_ptr(), partial.data_ptr(), s, a,
@@ -226,9 +322,11 @@ def clear_market_fused(p2p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     s, a, _ = p2p.shape
     grid = torch.empty((s, a), dtype=torch.float32, device=p2p.device)
     peer = torch.empty_like(grid)
+    # Row sums over each tile of columns: grid's, then peer's.
+    parts = torch.empty((2, s, -(-a // _PAIR_TILE), a), dtype=torch.float32, device=p2p.device)
     launch(
         "clear_market_fused", p2p.device, LIBRARY.load().clear_market_launch,
-        p2p.data_ptr(), grid.data_ptr(), peer.data_ptr(), s, a,
+        p2p.data_ptr(), grid.data_ptr(), peer.data_ptr(), parts.data_ptr(), s, a,
         int(p2p.dtype == torch.bfloat16),
     )
     clear_market_fused.launches += 1

@@ -95,11 +95,15 @@ def _close_matrix(got, ref):
         ((256, 50), torch.float32),
         ((3, 7), torch.float32),
         ((3, 7), torch.bfloat16),
+        ((5, 257), torch.bfloat16),
+        ((5, 257), torch.float32),
+        ((2, 65), torch.float32),
     ],
 )
 def test_matrix_kernels_match_plain(cuda_generator, shape, dtype):
-    """K5, K4, K3, K2 and K6 at the matrix path's shapes and a ragged small
-    one; each launch is counted once, and a repeat launch is bit-identical."""
+    """K5, K4, K3, K2 and K6 at the matrix path's shapes, ragged small ones,
+    and shapes that cross K4's stripe and K6's 64-agent tile edges; each
+    launch is counted once, and a repeat launch is bit-identical."""
     S, A = shape
     p2p, out, prev = _matrix_inputs(S, A, dtype, cuda_generator)
     calls = {
@@ -134,6 +138,30 @@ def test_matrix_kernels_match_plain(cuda_generator, shape, dtype):
             _close_matrix(got[0], ref[0])
             if len(got) > 1:
                 _close_sums(got[1], ref[1], ref[0].float().transpose(-1, -2) / A)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "A,dtype,rows",
+    [(3000, torch.bfloat16, 8), (7100, torch.float32, 8), (7300, torch.float32, 0)],
+)
+def test_divide_mean_large_a(cuda_generator, A, dtype, rows):
+    """K4 where its stripe shrinks to 8 rows (one 16-byte unit a row in
+    bfloat16; nearly all of a block's shared memory in float32), and past
+    that, where the wrapper takes the two-pass kernel: the same function
+    either way."""
+    p2p, out, _ = _matrix_inputs(1, A, dtype, cuda_generator)
+    config = mm.kernel_config("divide_power_fused_with_mean", 1, A, dtype, p2p.device)
+    assert config["rows"] == rows, config
+    before = mm.divide_power_fused_with_mean.launches
+    new, mean = mm.divide_power_fused_with_mean(p2p, out)
+    again = mm.divide_power_fused_with_mean(p2p, out)
+    torch.cuda.synchronize()
+    assert mm.divide_power_fused_with_mean.launches == before + 2
+    assert torch.equal(new, again[0]) and torch.equal(mean, again[1])
+    ref_new, ref_mean = mm.divide_power_fused_with_mean_plain(p2p, out)
+    _close_matrix(new, ref_new)
+    _close_sums(mean, ref_mean, ref_new.float().transpose(-1, -2) / A)
 
 
 @pytest.mark.cuda
