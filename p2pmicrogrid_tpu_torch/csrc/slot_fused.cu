@@ -28,8 +28,9 @@
 // * Factored clearing: operations, the merged min (about 7 per entry of each
 //   scenario's A x A). Items are (scenario, tile of rows); a row's sum and
 //   the column sum of the same index are split over the threads of the item
-//   by tiles of 256 entries and added in order, with K1's device functions
-//   (slot_ops.cuh), so K7 and K1 give the same bits.
+//   by tiles of 256 entries and added in order, with slot_ops.cuh's device
+//   functions. K1 sums the same entries in another order (merged_min.cu),
+//   so the two agree to rounding, not bit for bit.
 // * DQN act: operations, S * A * R * 3 forwards of ~8.9 kFLOP in float32
 //   (3.4 GFLOP per slot at rounds=1). A work item owns one agent: its 18 KB
 //   of weights come once per round into shared memory by cp.async, double
@@ -67,7 +68,8 @@
 // math); the constants come from the host as the chain rounds them. Sums
 // over agents run in fixed orders of their own: the round-1 total of out_0
 // and the factored weight totals as a 512-thread block's reduction tree
-// (scenario_sum), the merged min as K1, the matrix sums in blocks of 32. So
+// (scenario_sum), the merged min by slot_ops.cuh's tile_sum, the matrix
+// sums in blocks of 32. So
 // the result is the same on every launch, whatever the grid, but may differ
 // from torch.sum in the last bits.
 
@@ -594,7 +596,8 @@ __device__ __forceinline__ void phase_mean_feature(const Args& g, float* red) {
 
 // ops/factored_market.py::clear_factored_rounds0 (R = 1, on out_0) or
 // clear_factored_rounds1 (R = 2, out_0 and out_1): the merged min's row and
-// column sums in K1's order, then _settle, then the agent's outputs.
+// column sums in tile_sum's order (slot_ops.cuh), then _settle, then the
+// agent's outputs.
 __device__ __forceinline__ void phase_merged_min(const Args& g, float* smem) {
   const int S = g.n[I_S], A = g.n[I_A], R = g.n[I_R];
   const float inv_a = g.c[C_INV_A];

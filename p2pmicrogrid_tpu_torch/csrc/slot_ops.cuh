@@ -1,16 +1,18 @@
-// Device functions shared by the merged min pass (kernel K1,
-// merged_min.cu) and the fused slot (kernel K7, slot_fused.cu), so the
-// factored clearing sums the same entries in the same order on both card
-// paths.
+// Device functions of the merged min matrix: the fused slot (kernel K7,
+// slot_fused.cu) sums its entries with merged_min_entry and tile_sum; the
+// merged min pass (kernel K1, merged_min.cu) shares min_nan only and sums
+// the same entries in another order (each entry once, with the selects
+// folded into its factors), so the two card paths agree to rounding, not
+// bit for bit.
 //
 // One entry of the merged min matrix, for agents i (row) and j (column):
 //
 //   m[i, j] = min(alpha_i * (pb_i > 0 ? wplus_j : 1),
 //                 (ps_j > 0 ? wminus_i : 1) * gamma_j)
 //
-// A row or column sum walks its A entries in tiles of kMergedMinTile, sums
-// each tile with four interleaved partials combined as (p0 + p1) + (p2 + p3),
-// and adds the tiles in order.
+// In K7, a row or column sum walks its A entries in tiles of
+// kMergedMinTile, sums each tile with four interleaved partials combined as
+// (p0 + p1) + (p2 + p3), and adds the tiles in order.
 
 #pragma once
 

@@ -26,8 +26,11 @@ kernels.
 
 K4 holds a stripe of ``stripe_rows`` rows in shared memory; where not even 8
 rows fit (on an H100, A above 14,336 in bfloat16 or 7,168 in float32), it
-runs the two-pass kernel that K3 shares. That choice is a rule on the shape,
-never a reaction to a failure. ``kernel_config`` reports each launch's grid.
+runs the two-pass kernel that K3 shares. K5 holds its vector of A powers in
+shared memory and takes stripes of ``rank1_rows`` rows; where the vector does
+not fit (on an H100, A above 52,736), it runs the two-pass kernel. Those
+choices are rules on the shape, never reactions to a failure.
+``kernel_config`` reports each launch's grid.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ _MATRIX_DTYPES = (torch.float32, torch.bfloat16)
 def _configure(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.divide_rank1_launch.argtypes = [p] * 5 + [i, i, i, p]
+    lib.divide_rank1_stripe_launch.argtypes = [p] * 5 + [i, i, i, i, p]
     lib.divide_power_launch.argtypes = [p] * 5 + [i, i, i, i, p]
     lib.prep_mean_launch.argtypes = [p, p, i, i, i, p]
     lib.divide_mean_stripe_launch.argtypes = [p] * 5 + [i, i, i, i, p]
@@ -57,6 +61,7 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.matrix_kernel_config.argtypes = [i] * 5 + [p]
     for fn in (
         lib.divide_rank1_launch,
+        lib.divide_rank1_stripe_launch,
         lib.divide_power_launch,
         lib.divide_mean_stripe_launch,
         lib.prep_mean_launch,
@@ -178,6 +183,35 @@ def stripe_rows(a: int, elem_bytes: int, block_bytes: int, sm_bytes: int) -> int
     return 0
 
 
+# Shared memory K5's block needs beside its vector of powers: its static
+# arrays (19,840 bytes: the column partials' two [8, 256] buffers, 128 rows'
+# constants), the 1 KB the device reserves for each block, and 0.6 KB to
+# spare.
+_RANK1_OVERHEAD_BYTES = 21504
+
+
+def rank1_fits(a: int, block_bytes: int) -> bool:
+    """Whether K5's vector of powers at ``a`` agents (float32, padded to its
+    256-column chunks) fits in the ``block_bytes`` a block may hold (on an
+    H100, up to A = 52,736); else the two-pass kernel runs."""
+    return -(-a // 256) * 256 * 4 + _RANK1_OVERHEAD_BYTES <= block_bytes
+
+
+def rank1_rows(a: int) -> int:
+    """Rows i of K5's stripes at ``a`` agents: one stripe a scenario up to A
+    = 128, where a stripe's fixed cost (staging the powers, three barriers,
+    the lane chains) outweighs its work; else 32 rows, 4 a warp, the two-pass
+    kernel's tile height, so the column sums keep its order too. On an H100
+    at [64, 1000] it was the fastest height tried, level with 40 rows; the
+    stripes sized to fill the card once (112 rows) left a tail."""
+    return -(-a // 8) * 8 if a <= 128 else 32
+
+
+def _k5_rows(a: int, device: torch.device) -> int:
+    """K5's stripe rows on ``device``, or 0: the two-pass kernel."""
+    return rank1_rows(a) if rank1_fits(a, _smem_limits(device.index)[0]) else 0
+
+
 @functools.lru_cache(maxsize=None)
 def _smem_limits(device_index: int) -> Tuple[int, int]:
     """(shared memory a block may opt in to, an SM's) of a CUDA device."""
@@ -194,15 +228,22 @@ def _k4_rows(a: int, dtype, device: torch.device) -> int:
 
 
 def kernel_config(name: str, s: int, a: int, dtype, device) -> dict:
-    """How ``divide_power_fused_with_mean`` (K4) or ``clear_market_fused``
-    (K6) launches at [s, a] in ``dtype`` on ``device``: the design, grid,
-    threads a block, shared memory a block (bytes), the stripe's rows (K4)
-    and the global access width (bytes)."""
+    """How ``divide_rank1_fused`` (K5), ``divide_power_fused_with_mean`` (K4)
+    or ``clear_market_fused`` (K6) launches at [s, a] in ``dtype`` on
+    ``device``: the design, grid, threads a block, shared memory a block
+    (bytes), the stripe's rows (K4, K5) and the global access width
+    (bytes)."""
     device = torch.device(device)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     bf16 = int(dtype == torch.bfloat16)
-    if name == "divide_power_fused_with_mean":
+    if name == "divide_rank1_fused":
+        rows = _k5_rows(a, device)
+        if rows == 0:
+            return dict(design="two-pass split_kernel (the vector does not fit in shared memory)",
+                        rows=0)
+        kernel, design = 5, "vector of powers in shared memory, the matrix written in one pass"
+    elif name == "divide_power_fused_with_mean":
         rows = _k4_rows(a, dtype, device)
         if rows == 0:
             return dict(design="two-pass split_kernel (no 8-row stripe fits in shared memory)",
@@ -301,16 +342,30 @@ def divide_rank1_fused(
     s, a = prev_out.shape
     _check_vec(fn, "prev_out", prev_out, (s, a), prev_out.device)
     _check_vec(fn, "out_power", out_power, (s, a), prev_out.device)
+    out = _divide_rank1(prev_out, out_power, out_dtype)
+    divide_rank1_fused.launches += 1
+    return out
+
+
+def _divide_rank1(prev_out: torch.Tensor, out_power: torch.Tensor, out_dtype, two_pass=False):
+    """K5's launch on checked inputs, by the shape rule (``_k5_rows``), or
+    the two-pass kernel where ``two_pass`` is set (its card checks)."""
+    s, a = prev_out.shape
+    rows = 0 if two_pass else _k5_rows(a, prev_out.device)
     new = torch.empty((s, a, a), dtype=out_dtype, device=prev_out.device)
     mean = torch.empty((s, a), dtype=torch.float32, device=prev_out.device)
     lib = LIBRARY.load()
-    partial = _col_partial(s, a, lib.matrix_market_stripe_rows(), prev_out.device)
+    bf16 = int(out_dtype == torch.bfloat16)
+    if rows:
+        partial = _col_partial(s, a, rows, prev_out.device)
+        c_fn, extra = lib.divide_rank1_stripe_launch, (bf16, rows)
+    else:
+        partial = _col_partial(s, a, lib.matrix_market_stripe_rows(), prev_out.device)
+        c_fn, extra = lib.divide_rank1_launch, (bf16,)
     launch(
-        fn, prev_out.device, lib.divide_rank1_launch, prev_out.data_ptr(),
-        out_power.data_ptr(), new.data_ptr(), mean.data_ptr(), partial.data_ptr(), s, a,
-        int(out_dtype == torch.bfloat16),
+        "divide_rank1_fused", prev_out.device, c_fn, prev_out.data_ptr(), out_power.data_ptr(),
+        new.data_ptr(), mean.data_ptr(), partial.data_ptr(), s, a, *extra,
     )
-    divide_rank1_fused.launches += 1
     return new, mean
 
 

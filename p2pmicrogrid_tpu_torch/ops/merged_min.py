@@ -13,7 +13,11 @@ of ``ops/factored_market.py::clear_factored_rounds1``).
 ``merged_min_sums`` launches the CUDA kernel (``csrc/merged_min.cu``) for
 tensors on a CUDA device and runs ``merged_min_sums_plain`` for tensors on
 the CPU; there is no fallback from one to the other. The kernel is built
-at first use (``ops/_build.py``).
+at first use (``ops/_build.py``). It computes each entry once: a block owns
+64 rows of one scenario and walks every column, so the row sums are whole
+and the column sums come as one partial per tile of rows, added in order
+by a second small kernel (not launched where one tile covers A <= 64).
+``kernel_config`` reports the launch.
 """
 
 from __future__ import annotations
@@ -27,15 +31,15 @@ from p2pmicrogrid_tpu_torch.ops._build import KernelLibrary, launch
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    lib.merged_min_sums_launch.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_int,
-        ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    lib.merged_min_sums_launch.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.merged_min_sums_launch.argtypes = [p] * 9 + [i, i, p]
+    lib.merged_min_config.argtypes = [i, i, p]
+    for fn in (lib.merged_min_sums_launch, lib.merged_min_config):
+        fn.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("merged_min.cu", _configure)
+_TILE_ROWS = 64  # rows i of a block (kTileRows in csrc/merged_min.cu)
 
 
 def merged_min_sums_plain(
@@ -95,14 +99,41 @@ def merged_min_sums(
     for name, x in zip(("alpha", "wplus", "wminus", "gamma", "prop_b", "prop_s"), args):
         _check(name, x, alpha)
     s, a = alpha.shape
+    lib = LIBRARY.load()
     row = torch.empty_like(alpha)
     col = torch.empty_like(alpha)
+    tiles = -(-a // _TILE_ROWS)
+    # Each tile of rows' column sums, added in order by the second kernel.
+    partial = (
+        torch.empty((s, tiles, a), dtype=torch.float32, device=alpha.device) if tiles > 1 else None
+    )
     launch(
-        "merged_min_sums", alpha.device, LIBRARY.load().merged_min_sums_launch,
-        *(x.data_ptr() for x in args), row.data_ptr(), col.data_ptr(), s, a,
+        "merged_min_sums", alpha.device, lib.merged_min_sums_launch,
+        *(x.data_ptr() for x in args), row.data_ptr(), col.data_ptr(),
+        None if partial is None else partial.data_ptr(), s, a,
     )
     merged_min_sums.launches += 1
     return row, col
 
 
 merged_min_sums.launches = 0
+
+
+def kernel_config(s: int, a: int, device) -> dict:
+    """How ``merged_min_sums`` launches at [s, a] on ``device``: the design,
+    grid, threads a block, shared memory a block (bytes), columns a thread
+    takes a step, steps a block, and whether the column sums' second kernel
+    runs."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        err = LIBRARY.load().merged_min_config(s, a, out)
+    if err != 0:
+        raise RuntimeError(f"merged_min kernel_config: CUDA error {err}")
+    return dict(
+        design="each entry once: 64-row tiles walk every column, column partials added in order",
+        grid=[out[0], out[1]], threads=out[2], smem_bytes=out[3], cols_per_thread=out[4],
+        steps=out[5], colsum_kernel=out[0] > 1,
+    )
