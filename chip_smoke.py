@@ -12,7 +12,8 @@ Phases (each failure exits non-zero):
 2. Each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and edge cases; a repeat launch must be bit-identical; the
    kernel and the plain version timed with CUDA events, and the device time
-   from the profiler. K1 (merged min; its launch logged), then K5, K4, K6
+   from the profiler. K1 (merged min, timed at [64,1000], [256,50] and
+   [2048,50], the DDPG scale row's shape; its launch logged), then K5, K4, K6
    (the matrix path; K5's and K4's dispatch at every case and K5's, K4's and
    K6's grid and shared memory a block logged; K5's matrix held to its
    two-pass kernel's bit for bit, and that kernel timed beside it) and K3,
@@ -26,7 +27,11 @@ Phases (each failure exits non-zero):
    card against the port on the CPU (rewards, every slot's actions): tabular
    with the factored market (rounds=1) and the matrix negotiation
    (rounds=2), and the fused slot for tabular (factored, and the matrix
-   negotiation at rounds=2) and for DQN (one warmup pass).
+   negotiation at rounds=2) and for DQN (one warmup pass); and shared DDPG
+   (one actor-critic for every agent, and per-agent stacks, at rounds=1 and
+   rounds=2, one case under the striped learn-batch cap) over two episodes
+   of slots 58-65, every slot's actions and the rewards held at the CPU
+   tests' tolerances.
 4. The main paths at full width: ``train_scenarios_shared`` (battery on,
    market "auto") for tabular at rounds=1 (-> factored with bf16
    pre-rounding, K1) and at rounds=2 (-> matrix, K5, K4, K6, bf16 storage at
@@ -34,12 +39,14 @@ Phases (each failure exits non-zero):
    at A=50, S=256, the fused rounds=2 run at A=1000, S=64 only (its peak
    memory within 64 MB of the fused rounds=1 run's: no [S, A, A] buffer);
    DQN at A=1000, S=64 with one warmup pass, fused and unfused from the same
-   seed. Two episodes each and one more under the
-   profiler. Every kernel launch counter is set to 0 just before each run
-   and read just after; each slot must launch each of its path's kernels
-   once and no other kernel.
-5. One JSON line with every kernel's numbers, then the last line
-   ``{"ok": true, "device": {...}}``.
+   seed; shared DDPG (unfused, K1) at the JAX bench's cfg4 (A=1000, S=64)
+   and scale (A=50, S=2048) rows, each with its learn step's device time
+   per slot and share of the device's busy time. Two episodes each and one
+   more under the profiler. Every kernel launch counter is set to 0 just
+   before each run and read just after; each slot must launch each of its
+   path's kernels once and no other kernel.
+5. One JSON line with the DDPG rows' numbers, one with every kernel's,
+   then the last line ``{"ok": true, "device": {...}}``.
 
 It prints no result and exits non-zero without a CUDA device, or when run
 outside a checkout of the repository.
@@ -107,10 +114,12 @@ def cuda_time_ms(fn, warmup: int = 5, iters: int = 50, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def profile_episode(run_episode, n_slots: int, wall_unprofiled_s: float):
+def profile_episode(run_episode, n_slots: int, wall_unprofiled_s: float, span=None):
     """One episode under torch.profiler: device busy time, idle share, the
-    kernels by device time. Returns {kernel name: (count, device ms)} or None
-    when the profiler saw no device time."""
+    kernels by device time. Returns ({kernel name: (count, device ms)}, the
+    device ms of the kernels launched inside ``span``'s record_function
+    ranges, or None without ``span``), or (None, None) when the profiler saw
+    no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -121,8 +130,13 @@ def profile_episode(run_episode, n_slots: int, wall_unprofiled_s: float):
         torch.cuda.synchronize()
     wall = time.perf_counter() - start
     kernels = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    averages = prof.key_averages()
+    # record_function ranges (the optimizers' steps, the learn step's span)
+    # also show on the device's timeline as spans over their kernels: they
+    # are not kernels, and counting them would count their kernels twice.
+    annotations = {e.key for e in averages if getattr(e, "is_user_annotation", False)}
+    for e in averages:
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key in annotations:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -131,7 +145,7 @@ def profile_episode(run_episode, n_slots: int, wall_unprofiled_s: float):
     busy_ms = sum(ms for _, ms in kernels.values())
     if busy_ms <= 0:
         log("  profile: the profiler saw no device time (not measured)")
-        return None
+        return None, None
     launches = sum(n for n, _ in kernels.values())
     log(
         f"  profile: device busy {busy_ms:.3f} ms over {wall * 1e3:.3f} ms "
@@ -142,7 +156,50 @@ def profile_episode(run_episode, n_slots: int, wall_unprofiled_s: float):
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     for name, (n, ms) in top:
         log(f"    {ms:10.3f} ms {n:6d}x  {name[:100]}")
-    return kernels
+    return kernels, (None if span is None else span_device_ms(prof, span))
+
+
+def span_device_ms(prof, span: str):
+    """Device ms of the kernels launched by ops that start inside any
+    ``span`` record_function range, on any thread (the backward pass runs
+    on autograd's own thread, inside the range's time); None when the
+    profile holds no such range."""
+    import bisect
+
+    import torch
+
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    # The range as the host entered and left it (the profiler also keeps its
+    # span on the device's timeline, which lags the host's).
+    ranges = sorted(
+        (e.time_range.start, e.time_range.end)
+        for e in events
+        if e.name == span and e.device_type == cpu
+    )
+    if not ranges:
+        return None
+    starts = [a for a, _ in ranges]
+    total_us = 0.0
+    by_name = {}
+    for e in events:
+        if (
+            e.device_type != cpu
+            or not e.kernels
+            or e.name == span
+            or getattr(e, "is_user_annotation", False)
+        ):
+            continue
+        t = e.time_range.start
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t <= ranges[i][1]:
+            for k in e.kernels:
+                total_us += k.duration
+                by_name[k.name] = by_name.get(k.name, 0.0) + k.duration
+    log(f"  profile: {span}: {total_us / 1e3:.3f} ms of device time in {len(ranges)} ranges")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {us / 1e3:10.3f} ms  {name[:100]}")
+    return total_us / 1e3
 
 
 # --- phase 1 ---------------------------------------------------------------
@@ -226,6 +283,7 @@ def phase_kernels():
         (64, 1000, "random"),
         (64, 1000, "bf16"),
         (256, 50, "random"),
+        (2048, 50, "random"),
         (256, 50, "zero"),
         (64, 1000, "no_prop"),
         (64, 1000, "one_sided"),
@@ -256,7 +314,7 @@ def phase_kernels():
             fail(f"K1 {case} [{S},{A}]: repeat launch not bit-identical")
         config = kernel_config(S, A, "cuda")
         launch[f"[{S},{A}]"] = config
-        if case == "random" and (S, A) in ((64, 1000), (256, 50)):
+        if case == "random" and (S, A) in ((64, 1000), (256, 50), (2048, 50)):
             k_ms = cuda_time_ms(lambda: merged_min_sums(*args))
             p_ms = cuda_time_ms(lambda: merged_min_sums_plain(*args))
             names = ("merged_min_tiles_kernel",) + (
@@ -306,6 +364,7 @@ def phase_kernels():
         "library_ms": None,  # no single PyTorch call computes this pass
         "shape": [64, 1000],
         "at_256x50": timings[(256, 50)],
+        "at_2048x50": timings[(2048, 50)],
         "launch": launch,
     }
 
@@ -893,7 +952,7 @@ def run_slots(cfg, device, draws_np, ratings, n_episodes, fused=False):
         phys = com.init_physical(cfg, z, (S,), device=device)
         rew = torch.zeros(S, device=device)
         for t in range(xs[0].shape[0]):
-            phys, _, out, tr = com.slot_dynamics_batched(
+            phys, _, out, tr, _ = com.slot_dynamics_batched(
                 cfg, policy, pol, phys, tuple(x[t] for x in xs), (u[t], r[t]),
                 ratings_d, explore=True, fused=fused,
             )
@@ -916,6 +975,142 @@ def run_slots(cfg, device, draws_np, ratings, n_episodes, fused=False):
         torch.stack(rewards).cpu().numpy(),
         final.detach().cpu().numpy(),
     )
+
+
+def ddpg_small_config(tc, share, batch, cap, rounds, market_impl, A=6, S=3):
+    """A=6, S=3 shared DDPG with full batteries (the CPU tests' config)."""
+    return tc.default_config(
+        sim=tc.SimConfig(n_agents=A, n_scenarios=S, rounds=rounds, market_impl=market_impl),
+        battery=tc.BatteryConfig(enabled=True, init_soc=0.9),
+        train=tc.TrainConfig(implementation="ddpg"),
+        ddpg=tc.DDPGConfig(
+            buffer_size=16, batch_size=batch, share_across_agents=share,
+            learn_batch_cap=cap, noise_decay=0.9,
+        ),
+    )
+
+
+def ddpg_small_draws(cfg, n_passes, T, seed=0):
+    """Numpy draws for ``n_passes`` DDPG passes of T slots: per pass the
+    initial-temperature normals, OU normals [T, R, S, A], replay indices
+    [T, B] in the ring's filled region, and stripe offsets [T, n] where the
+    cap stripes the pooled batch."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+
+    S, A, R = cfg.sim.n_scenarios, cfg.sim.n_agents, cfg.sim.rounds + 1
+    d = cfg.ddpg
+    stripes = sc.ddpg_stripes(cfg, S, A)
+    rng = np.random.default_rng(seed)
+    out = []
+    for e in range(n_passes):
+        counts = [min(e * T + t + 1, d.buffer_size) for t in range(T)]
+        out.append(dict(
+            normals=rng.standard_normal((S, 2, A)).astype(np.float32),
+            ou=rng.standard_normal((T, R, S, A)).astype(np.float32),
+            idx=np.stack([rng.integers(0, c, d.batch_size) for c in counts]),
+            starts=None if stripes is None else rng.integers(
+                0, d.batch_size * S * A, (T, stripes[0])
+            ),
+        ))
+    return out
+
+
+def run_ddpg_slots(cfg, device, draws_np, ratings, t0):
+    """Per-slot actions, per-episode rewards and the final actor's first
+    layer of the port's shared DDPG slot loop from slot ``t0``, learning
+    between slots at the episode's scaled lrs."""
+    import torch
+
+    from p2pmicrogrid_tpu_torch.convert import state_from_jax, state_to_numpy
+    from p2pmicrogrid_tpu_torch.envs import community as com
+    from p2pmicrogrid_tpu_torch.models.ddpg import set_learning_rates
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+    from p2pmicrogrid_tpu_torch.train import make_policy
+
+    S = cfg.sim.n_scenarios
+    cfg = sc.auto_scale_ddpg_lrs(cfg, S)
+    policy = make_policy(cfg)
+    # The same initial weights and OU state on both devices: drawn on the
+    # CPU, copied.
+    pol, scen = sc.init_shared_state(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+    if device != "cpu":
+        move = lambda st: state_from_jax(state_to_numpy(st), device=device, cfg=cfg.ddpg)
+        pol, scen = move(pol), move(scen)
+    set_learning_rates(cfg.ddpg, pol)
+    arrays = sc.stack_scenario_arrays(cfg, sc.make_scenario_traces(cfg, seed=0), ratings, device)
+    T = draws_np[0]["ou"].shape[0]
+    xs = [x.transpose(0, 1)[t0 : t0 + T].contiguous() for x in arrays]
+    ratings_d = com.ratings_to(ratings, device)
+    to = lambda x: None if x is None else torch.from_numpy(x).to(device)
+    actions, rewards = [], []
+    for e, d in enumerate(draws_np):
+        ou_n, idx, starts = to(d["ou"]), to(d["idx"]), to(d["starts"])
+        phys = com.init_physical(cfg, to(d["normals"]), (S,), device=device)
+        rew = torch.zeros(S, device=device)
+        for t in range(T):
+            phys, _, out, tr, ou = com.slot_dynamics_batched(
+                cfg, policy, pol, phys, tuple(x[t] for x in xs), (ou_n[t],), ratings_d,
+                explore=True, explore_state=scen.ou,
+            )
+            pol, scen, _ = sc._ddpg_update_shared(
+                cfg, pol, scen._replace(ou=ou), tr, idx[t], None if starts is None else starts[t]
+            )
+            actions.append(tr.aux)
+            rew += out.reward.mean(dim=-1)
+        rewards.append(rew)
+        if e % cfg.train.min_episodes_criterion == 0:
+            pol = policy.decay(pol)
+    return (
+        torch.stack(actions).cpu().numpy(),
+        torch.stack(rewards).cpu().numpy(),
+        pol.actor.Dense_0.kernel.detach().cpu().numpy(),
+    )
+
+
+def phase_ddpg_parity():
+    """Shared DDPG at A=6, S=3 on the card against the port on the CPU, from
+    the same draws, at the CPU tests' tolerances (tests/test_torch_ddpg.py:
+    every slot's actions atol=1e-5, episode rewards rtol=2e-4): one
+    actor-critic for every agent at rounds=1 (factored, K1) and at rounds=2
+    (matrix, K5/K4/K6; the cap below the pool, so the update takes its
+    stripes), per-agent stacks at both; two episodes of slots 58-65, where
+    PV exceeds every load and the heat pumps make buyers and sellers."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.envs.community import make_ratings
+
+    E, T, t0 = 2, 8, 58
+    cases = (
+        (True, 32, None, 1, "factored"),
+        (True, 32, 40, 2, "matrix"),
+        (False, 4, None, 1, "factored"),
+        (False, 4, None, 2, "matrix"),
+    )
+    for share, batch, cap, rounds, market_impl in cases:
+        cfg = ddpg_small_config(tc, share, batch, cap, rounds, market_impl)
+        draws = ddpg_small_draws(cfg, E, T)
+        ratings = make_ratings(cfg, np.random.default_rng(0))
+        act_g, rew_g, w_g = run_ddpg_slots(cfg, "cuda", draws, ratings, t0)
+        act_c, rew_c, w_c = run_ddpg_slots(cfg, "cpu", draws, ratings, t0)
+        what = (
+            f"small path (ddpg, {'shared' if share else 'per-agent'}, {market_impl}, "
+            f"rounds={rounds}, cap={cap})"
+        )
+        if not (np.isfinite(rew_g).all() and np.isfinite(act_g).all()):
+            fail(f"{what}: non-finite actions or rewards on the card")
+        if not np.allclose(act_g, act_c, rtol=0.0, atol=1e-5):
+            fail(f"{what}: actions differ card vs CPU by {np.abs(act_g - act_c).max()} (atol 1e-5)")
+        if not np.allclose(rew_g, rew_c, rtol=2e-4, atol=0.0):
+            fail(f"{what}: rewards differ card vs CPU: {rew_g} vs {rew_c}")
+        rel = float(np.abs((rew_g - rew_c) / rew_c).max())
+        log(
+            f"phase 3: {what} A=6 S=3 card vs CPU: {act_g.size} actions, max abs diff "
+            f"{np.abs(act_g - act_c).max():.3e}; max reward rel err {rel:.3e}; actor first "
+            f"layer max abs diff {np.abs(w_g - w_c).max():.3e}"
+        )
 
 
 def phase_small_parity():
@@ -966,6 +1161,9 @@ def phase_small_parity():
 # for DQN, and DQN unfused from the same seed, at
 # the north-star community size with BASELINE config 4's scenario count and
 # at BASELINE config 3's shape. DQN runs one warmup pass (a cut of depth).
+# Then shared DDPG (unfused: K7 refuses it), one actor-critic for every agent,
+# at the JAX bench's cfg4 and scale rows (benchmarks.py:553-571,679-685): the
+# ninth field is the row's DDPGConfig.
 MATRIX_PATH = ("divide_rank1_fused", "divide_power_fused_with_mean", "clear_market_fused")
 FUSED_PATH = ("slot_step_fused",)
 MAIN_RUNS = (
@@ -978,7 +1176,12 @@ MAIN_RUNS = (
     ("fused tabular", "tabular", "matrix", 1000, 64, 2, True, FUSED_PATH),
     ("fused dqn", "dqn", "factored", 1000, 64, 1, True, FUSED_PATH),
     ("dqn", "dqn", "factored", 1000, 64, 1, False, ("merged_min_sums",)),
+    ("ddpg cfg4", "ddpg", "factored", 1000, 64, 1, False, ("merged_min_sums",),
+     dict(buffer_size=256, batch_size=4, share_across_agents=True)),
+    ("ddpg scale", "ddpg", "factored", 50, 2048, 1, False, ("merged_min_sums",),
+     dict(buffer_size=96, batch_size=2, share_across_agents=True)),
 )
+LEARN_SPAN = "ddpg_learn_step"
 
 
 def profiled_kernel_ms(kernels, T):
@@ -1011,7 +1214,8 @@ def profiled_kernel_ms(kernels, T):
 
 def phase_main_path(counters):
     """train_scenarios_shared at full width; returns each kernel's launches
-    summed over the runs, and {kernel: {(S, A): device ms per call}}."""
+    summed over the runs, {kernel: {(S, A, impl, rounds): device ms per
+    call}}, and the DDPG rows' numbers."""
     import numpy as np
     import torch
 
@@ -1028,18 +1232,21 @@ def phase_main_path(counters):
         train_scenarios_shared,
         warmup_shared_dqn,
     )
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
     from p2pmicrogrid_tpu_torch.train import make_policy
 
     totals = {name: 0 for name in counters}
     profiled = {name: {} for name in counters}
     episode_rewards = {}
     fused_peak = {}
-    for label, impl, market, A, S, rounds, fused, path_kernels in MAIN_RUNS:
+    ddpg_rows = []
+    for label, impl, market, A, S, rounds, fused, path_kernels, *ddpg_kw in MAIN_RUNS:
         cfg = tc.default_config(
             sim=tc.SimConfig(n_agents=A, n_scenarios=S, rounds=rounds),
             battery=tc.BatteryConfig(enabled=True),
             train=tc.TrainConfig(implementation=impl),
             dqn=tc.DQNConfig(warmup_passes=1),
+            ddpg=tc.DDPGConfig(**(ddpg_kw[0] if ddpg_kw else {})),
         )
         resolved = resolve_market_impl(cfg, "cuda")
         mdt = resolve_market_dtype(cfg, "cuda")
@@ -1075,13 +1282,25 @@ def phase_main_path(counters):
         rewards = np.concatenate([rew0, rew1])
         if rewards.shape != (2, S) or not np.isfinite(rewards).all():
             fail(f"{what}: rewards {rewards.shape} not finite")
-        learned = pol.q_table if impl == "tabular" else pol.online.Dense_0.kernel
+        learned = {
+            "tabular": lambda: pol.q_table,
+            "dqn": lambda: pol.online.Dense_0.kernel,
+            "ddpg": lambda: pol.actor.Dense_0.kernel,
+        }[impl]()
         if not np.isfinite(loss1).all() or not torch.isfinite(learned).all():
             fail(f"{what}: non-finite loss or learner state")
-        sched = cfg.qlearning if impl == "tabular" else cfg.dqn
-        expect_eps = sched.epsilon * sched.epsilon_decay
-        if abs(float(pol.epsilon) - expect_eps) > 1e-6:
-            fail(f"{what}: epsilon {float(pol.epsilon)} != {expect_eps}")
+        if impl == "ddpg":
+            # The OU noise anneals once, after episode 0.
+            decayed, expect = float(pol.noise_scale), cfg.ddpg.noise_decay
+            lrs = (pol.actor_opt.param_groups[0]["lr"], pol.critic_opt.param_groups[0]["lr"])
+            scaled = sc.auto_scale_ddpg_lrs(cfg, S).ddpg
+            if lrs != (scaled.actor_lr, scaled.critic_lr):
+                fail(f"{what}: learning rates {lrs}, expected {scaled.actor_lr, scaled.critic_lr}")
+        else:
+            sched = cfg.qlearning if impl == "tabular" else cfg.dqn
+            decayed, expect = float(pol.epsilon), sched.epsilon * sched.epsilon_decay
+        if abs(decayed - expect) > 1e-6:
+            fail(f"{what}: exploration {decayed} != {expect}")
         # Each kernel of the path once per slot of every pass, no other.
         expect = {name: (passes * T if name in path_kernels else 0) for name in counters}
         if launches != expect:
@@ -1101,20 +1320,52 @@ def phase_main_path(counters):
             f"launches {({k: v for k, v in launches.items() if v})} "
             f"peak device memory {peak / 2**30:.3f} GiB"
         )
-        # A third episode, after the counts were read, under the profiler.
-        kernels = profile_episode(
-            lambda: train_scenarios_shared(
-                cfg, policy, pol, arrays, ratings, gen, 1, replay_s=scen, episode0=2,
-                fused=fused,
-            ),
-            T,
-            s1,
-        )
+        # A third episode, after the counts were read, under the profiler; a
+        # DDPG learn step runs inside a record_function range, so its kernels
+        # can be told from the rest of the slot's.
+        update = sc._ddpg_update_shared
+
+        def labelled_update(*args, **kwargs):
+            with torch.profiler.record_function(LEARN_SPAN):
+                return update(*args, **kwargs)
+
+        if impl == "ddpg":
+            sc._ddpg_update_shared = labelled_update
+        try:
+            kernels, learn_ms = profile_episode(
+                lambda: train_scenarios_shared(
+                    cfg, policy, pol, arrays, ratings, gen, 1, replay_s=scen, episode0=2,
+                    fused=fused,
+                ),
+                T,
+                s1,
+                span=LEARN_SPAN if impl == "ddpg" else None,
+            )
+        finally:
+            sc._ddpg_update_shared = update
+        busy_ms = None
         if kernels is not None:
+            busy_ms = sum(ms for _, ms in kernels.values())
             per_call = profiled_kernel_ms(kernels, T)
             for name in path_kernels:
                 profiled[name][(S, A, impl, rounds)] = per_call.get(name)
                 log(f"  profile: {name} device time per call {per_call.get(name, 0) * 1e3:.3f} us")
+        if impl == "ddpg":
+            row = dict(
+                row=label, A=A, S=S, market=resolved, market_dtype=mdt,
+                env_steps_per_s=S * T / s1, ms_per_slot=s1 / T * 1e3,
+                busy_ms=busy_ms, idle_share=None if busy_ms is None else 1 - busy_ms / (s1 * 1e3),
+                device_ops_per_slot=None if kernels is None else sum(n for n, _ in kernels.values()) / T,
+                k1_launches=launches["merged_min_sums"],
+                k1_device_ms_per_call=None if kernels is None else per_call.get("merged_min_sums"),
+                peak_memory_gib=peak / 2**30,
+                learn_device_ms_per_slot=None if learn_ms is None else learn_ms / T,
+                learn_share_of_busy=None if learn_ms is None or not busy_ms else learn_ms / busy_ms,
+                pooled_batch=sc.ddpg_pooled_batch(cfg), lr_scale=sc.auto_scale_ddpg_lrs(cfg, S).ddpg.actor_lr / cfg.ddpg.actor_lr,
+                rewards=rewards.mean(axis=1).tolist(), final_loss=loss1.mean().item(),
+            )
+            ddpg_rows.append(row)
+            log(f"phase 4: {label} {json.dumps(row)}")
         del pol, scen, arrays, learned
         torch.cuda.empty_cache()
     # Fused and unfused from one seed draw the same numbers in the same order;
@@ -1134,7 +1385,7 @@ def phase_main_path(counters):
     log(f"phase 4: fused tabular A=1000 S=64 peak memory, rounds=2 minus rounds=1: {extra:.3f} MiB")
     if extra > 64:
         fail(f"fused rounds=2 peak memory exceeds fused rounds=1 by {extra:.1f} MiB (limit 64 MB)")
-    return totals, profiled
+    return totals, profiled, ddpg_rows
 
 
 def main() -> None:
@@ -1163,8 +1414,9 @@ def main() -> None:
     records = [phase_kernels()] + phase_matrix_kernels() + [phase_slot_kernel()]
     log(f"phase 2: kernels match their plain versions ({time.perf_counter() - start:.1f} s)")
     phase_small_parity()
+    phase_ddpg_parity()
     log(f"phase 3 done ({time.perf_counter() - start:.1f} s)")
-    launches, profiled = phase_main_path(counters)
+    launches, profiled, ddpg_rows = phase_main_path(counters)
     on_path = {name for run in MAIN_RUNS for name in run[7]}
     for name in on_path:
         if launches[name] <= 0:
@@ -1181,9 +1433,13 @@ def main() -> None:
             rounds = 2 if name in MATRIX_PATH else 1
             rec[key] = profiled[name].get((64, 1000, "tabular", rounds))
             rec["at_256x50"][key] = profiled[name].get((256, 50, "tabular", rounds))
+            if name == "merged_min_sums":
+                rec["at_2048x50"][key] = profiled[name].get((2048, 50, "ddpg", 1))
+                rec["ddpg_64x1000"] = {key: profiled[name].get((64, 1000, "ddpg", 1))}
             if name == "slot_step_fused":
                 rec["dqn_64x1000"][key] = profiled[name].get((64, 1000, "dqn", 1))
                 rec["matrix_r2_64x1000"][key] = profiled[name].get((64, 1000, "tabular", 2))
+    log(json.dumps({"ddpg_rows": ddpg_rows}))
     log(json.dumps({"kernels": records}))
     log(f"total {time.perf_counter() - start:.1f} s")
     print(

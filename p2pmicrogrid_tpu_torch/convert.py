@@ -4,19 +4,22 @@
 leaves already converted to numpy (``jax.tree.map(np.asarray, state)``) and
 returns the port's NamedTuple of the same name with tensors on ``device``:
 ``TabularState``, ``PhysState``, ``AgentRatings``, ``EpisodeArrays``,
-``ReplayState``, ``LockstepReplay`` or ``DQNState``. The match is by class
-name and field names, so this module imports nothing of the JAX package.
+``ReplayState``, ``LockstepReplay``, ``DQNState``, ``DDPGParams`` or
+``DDPGScenState``. The match is by class name and field names, so this module
+imports nothing of the JAX package.
 
-A ``DQNState`` carries flax parameter trees, ``{"Dense_i": {"kernel",
-"bias"}}`` with the kernel ``[A, in, out]``, which load in place into the
-port's ``QNetwork`` (the same layout), and optax's Adam state
-``(ScaleByAdamState(count, mu, nu), EmptyState())``, which becomes the
-``torch.optim.Adam`` state at the same step count. Adam's learning rate is
-not part of that state, so a ``DQNState`` needs the ``DQNConfig``.
+A ``DQNState`` or ``DDPGParams`` carries flax parameter trees,
+``{"Dense_i": {"kernel", "bias"}}`` with the kernel ``[A, in, out]`` per
+agent or ``[in, out]`` shared, which load in place into the port's networks
+(the same layout), and optax's Adam states ``(ScaleByAdamState(count, mu,
+nu), EmptyState())``, which become ``torch.optim.Adam`` states at the same
+step count (``count`` is ``[A]`` per agent, a scalar shared). Adam's
+learning rate is not part of that state, so these need their config
+(``DQNConfig``, ``DDPGConfig``).
 
-``state_to_numpy`` does the reverse for comparisons: a ``DQNState`` comes
-back with flax-shaped trees and optax-shaped Adam state (the NamedTuples
-below, named as optax names them).
+``state_to_numpy`` does the reverse for comparisons: these come back with
+flax-shaped trees and optax-shaped Adam states (the NamedTuples below, named
+as optax names them).
 """
 
 from __future__ import annotations
@@ -26,13 +29,15 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from p2pmicrogrid_tpu_torch.config import DQNConfig
+from p2pmicrogrid_tpu_torch.config import DDPGConfig, DQNConfig
 from p2pmicrogrid_tpu_torch.device import resolve_device
 from p2pmicrogrid_tpu_torch.envs.community import AgentRatings, EpisodeArrays, PhysState
+from p2pmicrogrid_tpu_torch.models.ddpg import DDPGParams, make_optimizers
 from p2pmicrogrid_tpu_torch.models.dqn import DQNState, make_optimizer
-from p2pmicrogrid_tpu_torch.models.networks import QNetwork
+from p2pmicrogrid_tpu_torch.models.networks import Actor, QNetwork
 from p2pmicrogrid_tpu_torch.models.replay import LockstepReplay, ReplayState
 from p2pmicrogrid_tpu_torch.models.tabular import TabularState
+from p2pmicrogrid_tpu_torch.parallel.scenarios import DDPGScenState
 
 _TENSOR_TYPES = {cls.__name__: cls for cls in (TabularState, PhysState, AgentRatings, EpisodeArrays)}
 _RING_TYPES = {cls.__name__: cls for cls in (ReplayState, LockstepReplay)}
@@ -40,8 +45,8 @@ _LAYERS = ("Dense_0", "Dense_1", "Dense_2")
 
 
 class ScaleByAdamState(NamedTuple):
-    """optax's Adam state: step ``count`` [A] int32 and moments ``mu``/``nu``
-    as flax-shaped trees."""
+    """optax's Adam state: step ``count`` int32 ([A] per agent, a scalar
+    shared) and moments ``mu``/``nu`` as flax-shaped trees."""
 
     count: np.ndarray
     mu: dict
@@ -70,11 +75,14 @@ def _ring(np_tree, cls, dev):
     return cls(*(_tensor(b, dev) for b in bufs), int(cursor), int(count))
 
 
-def _network(tree: dict, dev) -> QNetwork:
-    """A flax ``QNetwork`` parameter tree as the port's module."""
+def _network(tree: dict, cls, dev):
+    """A flax parameter tree of ``QNetwork``/``Critic`` or ``Actor`` as the
+    port's module: per agent for ``[A, in, out]`` kernels, shared for
+    ``[in, out]``."""
     kernel0 = np.asarray(tree["Dense_0"]["kernel"])
-    n_agents, d_in, hidden = kernel0.shape
-    net = QNetwork(n_agents, hidden, d_in - 1, device=dev)
+    n_agents = kernel0.shape[0] if kernel0.ndim == 3 else None
+    d_in, hidden = kernel0.shape[-2:]
+    net = cls(n_agents, hidden, d_in - cls.action_dim, device=dev)
     with torch.no_grad():
         for name in _LAYERS:
             layer = getattr(net, name)
@@ -83,39 +91,67 @@ def _network(tree: dict, dev) -> QNetwork:
     return net
 
 
-def _dqn_state(np_tree, dev, cfg: DQNConfig) -> DQNState:
-    _check_fields(np_tree, DQNState)
-    online = _network(np_tree.online, dev)
-    target = _network(np_tree.target, dev)
-    target.requires_grad_(False)
-    adam, _ = np_tree.opt_state
+def _load_adam(opt: torch.optim.Adam, net, opt_state) -> None:
+    """optax's ``(ScaleByAdamState, EmptyState)`` of ``net`` into ``opt``."""
+    adam, _ = opt_state
     if type(adam).__name__ != "ScaleByAdamState":
         raise TypeError(f"state_from_jax: opt_state[0] must be ScaleByAdamState, got {type(adam).__name__}")
-    counts = np.asarray(adam.count)
-    if counts.size and not (counts == counts.flat[0]).all():
+    counts = np.asarray(adam.count).reshape(-1)
+    if not (counts == counts[0]).all():
         raise ValueError("state_from_jax: per-agent Adam step counts differ")
-    opt = make_optimizer(cfg, online)
-    step = float(counts.flat[0]) if counts.size else 0.0
     for name in _LAYERS:
         for field in ("kernel", "bias"):
-            p = getattr(getattr(online, name), field)
+            p = getattr(getattr(net, name), field)
             opt.state[p] = {
-                "step": torch.tensor(step, dtype=torch.float32),
-                "exp_avg": _tensor(adam.mu[name][field], dev),
-                "exp_avg_sq": _tensor(adam.nu[name][field], dev),
+                "step": torch.tensor(float(counts[0]), dtype=torch.float32),
+                "exp_avg": _tensor(adam.mu[name][field], p.device),
+                "exp_avg_sq": _tensor(adam.nu[name][field], p.device),
             }
+
+
+def _target(tree: dict, cls, dev):
+    return _network(tree, cls, dev).requires_grad_(False)
+
+
+def _dqn_state(np_tree, dev, cfg: DQNConfig) -> DQNState:
+    _check_fields(np_tree, DQNState)
+    online = _network(np_tree.online, QNetwork, dev)
+    opt = make_optimizer(cfg, online)
+    _load_adam(opt, online, np_tree.opt_state)
     return DQNState(
         online=online,
-        target=target,
+        target=_target(np_tree.target, QNetwork, dev),
         opt_state=opt,
         replay=_ring(np_tree.replay, ReplayState, dev),
         epsilon=_tensor(np_tree.epsilon, dev),
     )
 
 
-def state_from_jax(np_tree, device="cuda", cfg: Optional[DQNConfig] = None):
+def _ddpg_params(np_tree, dev, cfg: DDPGConfig) -> DDPGParams:
+    _check_fields(np_tree, DDPGParams)
+    actor = _network(np_tree.actor, Actor, dev)
+    critic = _network(np_tree.critic, QNetwork, dev)
+    actor_opt, critic_opt = make_optimizers(cfg, actor, critic)
+    _load_adam(actor_opt, actor, np_tree.actor_opt)
+    _load_adam(critic_opt, critic, np_tree.critic_opt)
+    return DDPGParams(
+        actor=actor,
+        critic=critic,
+        actor_target=_target(np_tree.actor_target, Actor, dev),
+        critic_target=_target(np_tree.critic_target, QNetwork, dev),
+        actor_opt=actor_opt,
+        critic_opt=critic_opt,
+        noise_scale=_tensor(np_tree.noise_scale, dev),
+    )
+
+
+_LEARNER_STATES = {"DQNState": (_dqn_state, DQNConfig), "DDPGParams": (_ddpg_params, DDPGConfig)}
+
+
+def state_from_jax(np_tree, device="cuda", cfg=None):
     """The port's counterpart of a JAX state NamedTuple with numpy leaves;
-    ``cfg`` (the ``DQNConfig``) is needed for a ``DQNState``."""
+    ``cfg`` (the ``DQNConfig`` or ``DDPGConfig``) is needed for a
+    ``DQNState`` or ``DDPGParams``."""
     dev = resolve_device(device)
     name = type(np_tree).__name__
     if name in _TENSOR_TYPES:
@@ -124,17 +160,23 @@ def state_from_jax(np_tree, device="cuda", cfg: Optional[DQNConfig] = None):
         return cls(*(_tensor(x, dev) for x in np_tree))
     if name in _RING_TYPES:
         return _ring(np_tree, _RING_TYPES[name], dev)
-    if name == "DQNState":
-        if cfg is None:
-            raise ValueError("state_from_jax: a DQNState needs its DQNConfig (cfg=)")
-        return _dqn_state(np_tree, dev, cfg)
+    if name == "DDPGScenState":
+        _check_fields(np_tree, DDPGScenState)
+        return DDPGScenState(
+            replay=_ring(np_tree.replay, LockstepReplay, dev), ou=_tensor(np_tree.ou, dev)
+        )
+    if name in _LEARNER_STATES:
+        convert, cfg_type = _LEARNER_STATES[name]
+        if not isinstance(cfg, cfg_type):
+            raise ValueError(f"state_from_jax: a {name} needs its {cfg_type.__name__} (cfg=)")
+        return convert(np_tree, dev, cfg)
     raise TypeError(
-        f"state_from_jax converts {sorted([*_TENSOR_TYPES, *_RING_TYPES, 'DQNState'])}, "
-        f"got {name}"
+        f"state_from_jax converts "
+        f"{sorted([*_TENSOR_TYPES, *_RING_TYPES, 'DDPGScenState', *_LEARNER_STATES])}, got {name}"
     )
 
 
-def _tree_to_numpy(net: QNetwork) -> dict:
+def _tree_to_numpy(net) -> dict:
     return {
         name: {
             field: state_to_numpy(getattr(getattr(net, name), field))
@@ -144,25 +186,26 @@ def _tree_to_numpy(net: QNetwork) -> dict:
     }
 
 
-def _adam_to_numpy(opt: torch.optim.Adam, online: QNetwork) -> tuple:
+def _adam_to_numpy(opt: torch.optim.Adam, net) -> tuple:
     mu, nu = {}, {}
     step = 0
     for name in _LAYERS:
         mu[name], nu[name] = {}, {}
         for field in ("kernel", "bias"):
-            p = getattr(getattr(online, name), field)
+            p = getattr(getattr(net, name), field)
             st = opt.state.get(p, {})
             zeros = np.zeros(tuple(p.shape), np.float32)
             mu[name][field] = state_to_numpy(st["exp_avg"]) if st else zeros
             nu[name][field] = state_to_numpy(st["exp_avg_sq"]) if st else zeros
             step = int(st["step"]) if st else 0
-    count = np.full((online.n_agents,), step, dtype=np.int32)
+    shape = () if net.n_agents is None else (net.n_agents,)
+    count = np.full(shape, step, dtype=np.int32)
     return (ScaleByAdamState(count=count, mu=mu, nu=nu), EmptyState())
 
 
 def state_to_numpy(tree):
     """A port NamedTuple (or tensor) with its tensors copied to numpy; a
-    ``DQNState`` in the JAX package's tree shapes."""
+    ``DQNState`` or ``DDPGParams`` in the JAX package's tree shapes."""
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     if isinstance(tree, DQNState):
@@ -172,6 +215,16 @@ def state_to_numpy(tree):
             opt_state=_adam_to_numpy(tree.opt_state, tree.online),
             replay=state_to_numpy(tree.replay),
             epsilon=state_to_numpy(tree.epsilon),
+        )
+    if isinstance(tree, DDPGParams):
+        return DDPGParams(
+            actor=_tree_to_numpy(tree.actor),
+            critic=_tree_to_numpy(tree.critic),
+            actor_target=_tree_to_numpy(tree.actor_target),
+            critic_target=_tree_to_numpy(tree.critic_target),
+            actor_opt=_adam_to_numpy(tree.actor_opt, tree.actor),
+            critic_opt=_adam_to_numpy(tree.critic_opt, tree.critic),
+            noise_scale=state_to_numpy(tree.noise_scale),
         )
     if isinstance(tree, (ReplayState, LockstepReplay)):
         *bufs, cursor, count = tree

@@ -54,9 +54,12 @@ from p2pmicrogrid_tpu_torch.ops.thermal import (
 class Policy(NamedTuple):
     """A policy as three functions closing over their config.
 
-    act(pol_state, obs [S, A, 4], prev_frac [S, A], draws, explore) ->
-        (hp_frac [S, A], aux [S, A], q [S, A], pol_state); ``draws`` is the
-        round's ``(uniform, randint)`` exploration draws, each [S, A].
+    act(pol_state, obs [S, A, 4], prev_frac [S, A], draws, explore,
+        explore_state) -> (hp_frac [S, A], aux [S, A], q [S, A],
+        explore_state'); ``draws`` is the round's exploration draws, each
+        [S, A]: ``(uniform, randint)`` for tabular and DQN, ``(normals,)`` for
+        DDPG. ``explore_state`` is per-scenario exploration state that
+        threads through the rounds (DDPG's OU noise [S, A]; None otherwise).
     learn(pol_state, obs, aux, reward, next_obs) -> (pol_state, loss)
     decay(pol_state) -> pol_state   (exploration schedule, community.py:283-285)
     """
@@ -121,7 +124,8 @@ class SlotTransition(NamedTuple):
     """The learning transition of a slot (agent.py:293-296)."""
 
     obs: torch.Tensor       # [S, A, 4] last-round observation
-    aux: torch.Tensor       # [S, A] action identifier (index as float32)
+    aux: torch.Tensor       # [S, A] action: index as float32 (tabular, DQN),
+                            # heat-pump fraction (DDPG)
     reward: torch.Tensor    # [S, A]
     next_obs: torch.Tensor  # [S, A, 4]
 
@@ -268,14 +272,17 @@ def slot_dynamics_batched(
     ratings: AgentRatings,
     explore: bool,
     fused: bool = False,
+    explore_state=None,
 ):
     """One slot of S scenarios except learning: negotiate -> clear -> settle
     -> reward -> step assets (community.py:149-157,170).
 
     ``xs`` = (time [S], t_out [S], load_w [S, A], pv_w [S, A], next_time [S],
-    next_load_w, next_pv_w); ``draws`` = (uniform, randint), each
-    [rounds+1, S, A], the exploration draws of every round; ``ratings`` as
-    tensors on the state's device.
+    next_load_w, next_pv_w); ``draws``, the exploration draws of every round,
+    each [rounds+1, S, A]: (uniform, randint) for tabular and DQN, (normals,)
+    for DDPG; ``ratings`` as tensors on the state's device.
+    ``explore_state`` (DDPG's OU noise [S, A]) threads through every
+    negotiation round's act and is returned.
 
     ``fused=True`` runs the slot through ``ops/slot_fused.py::
     slot_step_fused`` (kernel K7 on the card, its plain version on the CPU),
@@ -283,7 +290,7 @@ def slot_dynamics_batched(
     clearing computes in bfloat16 only for ``factored`` with the bfloat16
     market dtype, and the matrix negotiation is always float32.
 
-    Returns (phys', pol_state, outputs, transition).
+    Returns (phys', pol_state, outputs, transition, explore_state').
     """
     if fused:
         # Imported here: ops/slot_fused.py builds this module's NamedTuples.
@@ -302,12 +309,11 @@ def slot_dynamics_batched(
             cfg, pol_state, phys_s, xs, draws, ratings, explore,
             market_impl=market_impl_f, compute_dtype=f_dtype,
         )
-        return phys_f, pol_state, outputs_f, tr_f
+        return phys_f, pol_state, outputs_f, tr_f, explore_state
 
     time_s, t_out_s, load_w, pv_w, next_time_s, next_load_w, next_pv_w = xs
     th = cfg.thermal
     device = load_w.device
-    uniform, rand_action = draws
     inv_max_in = torch.reciprocal(ratings.max_in)
 
     buy, inj = grid_prices(cfg.tariff, time_s)  # [S]
@@ -322,10 +328,13 @@ def slot_dynamics_batched(
     norm_balance = balance_w * inv_max_in
     norm_temp = normalized_temperature(th, phys_s.t_in)
 
+    ex = explore_state
+
     def round_obs_act(p2p_mean, hp_frac, r):
+        nonlocal ex
         obs = make_observation(time_s[:, None], norm_temp, norm_balance, p2p_mean)
-        hp_frac, aux, q, _ = policy.act(
-            pol_state, obs, hp_frac, (uniform[r], rand_action[r]), explore
+        hp_frac, aux, q, ex = policy.act(
+            pol_state, obs, hp_frac, tuple(d[r] for d in draws), explore, ex
         )
         return obs, hp_frac, aux, q, balance_w + hp_frac * th.hp_max_power
 
@@ -395,13 +404,9 @@ def slot_dynamics_batched(
     else:
         # No-com community: one decision pass, zero p2p signal, grid-only
         # settlement.
-        obs = make_observation(
-            time_s[:, None], norm_temp, norm_balance, torch.zeros_like(norm_balance)
+        obs, hp_frac, aux, q, p_grid = round_obs_act(
+            torch.zeros_like(norm_balance), phys_s.hp_frac, 0
         )
-        hp_frac, aux, q, _ = policy.act(
-            pol_state, obs, phys_s.hp_frac, (uniform[0], rand_action[0]), explore
-        )
-        p_grid = balance_w + hp_frac * th.hp_max_power
         p_p2p = torch.zeros_like(p_grid)
         hp_power_r = (hp_frac * th.hp_max_power)[:, None]
     cost = compute_costs(
@@ -441,4 +446,4 @@ def slot_dynamics_batched(
     )
     phys_s = PhysState(t_in=t_in_new, t_bm=t_bm_new, soc=soc, hp_frac=hp_frac)
     transition = SlotTransition(obs=obs, aux=aux, reward=reward, next_obs=next_obs)
-    return phys_s, pol_state, outputs, transition
+    return phys_s, pol_state, outputs, transition, ex

@@ -1,5 +1,11 @@
-"""Learners: the tabular Q-learner and DQN with its replay rings."""
+"""Learners: the tabular Q-learner, DQN with its replay rings, and DDPG."""
 
+from p2pmicrogrid_tpu_torch.models.ddpg import (
+    DDPGParams,
+    ddpg_decay,
+    ddpg_params_init,
+    ddpg_shared_act,
+)
 from p2pmicrogrid_tpu_torch.models.dqn import (
     DQNState,
     dqn_act,
@@ -7,7 +13,7 @@ from p2pmicrogrid_tpu_torch.models.dqn import (
     dqn_init,
     dqn_initialize_target,
 )
-from p2pmicrogrid_tpu_torch.models.networks import QNetwork
+from p2pmicrogrid_tpu_torch.models.networks import Actor, Critic, QNetwork
 from p2pmicrogrid_tpu_torch.models.replay import (
     LockstepReplay,
     ReplayState,
@@ -27,11 +33,17 @@ from p2pmicrogrid_tpu_torch.models.tabular import (
 
 __all__ = [
     "ACTION_VALUES",
+    "Actor",
+    "Critic",
+    "DDPGParams",
     "DQNState",
     "LockstepReplay",
     "QNetwork",
     "ReplayState",
     "TabularState",
+    "ddpg_decay",
+    "ddpg_params_init",
+    "ddpg_shared_act",
     "dqn_act",
     "dqn_decay",
     "dqn_init",

@@ -1,15 +1,22 @@
-"""The per-agent state-action Q-network of the DQN learner.
+"""The learners' networks: DQN's state-action Q-network and DDPG's actor and
+critic.
 
-The port of the JAX package's ``models/networks.py::QNetwork``
-(rl.py:135-148): concat(state [4], action [1]) -> Dense 64 -> ReLU ->
-Dense 64 -> ReLU -> Dense 1, one independent network per agent.
+The port of the JAX package's ``models/networks.py``:
 
-Layout: every agent's parameters are stacked on a leading ``[A]`` axis in
-flax's ``Dense`` layout, the kernel as ``[A, in, out]`` and the bias as
-``[A, out]``, under flax's names (``Dense_0.kernel``, ``Dense_0.bias``, ...).
-The converter (``convert.py``), the plain forward here and the fused slot
-kernel K7 (``csrc/slot_fused.cu``) all read that one layout in place. The
-actor and critic of DDPG are not ported yet (ROADMAP.md, Queue 1).
+* ``QNetwork`` (rl.py:135-148): concat(state [4], action [1]) -> Dense 64 ->
+  ReLU -> Dense 64 -> ReLU -> Dense 1. DDPG's critic (flax ``Critic``) is the
+  same network, so ``Critic`` names it again.
+* ``Actor``: state [4] -> Dense 64 -> ReLU -> Dense 64 -> ReLU -> Dense 1 ->
+  sigmoid, the heat-pump power fraction in [0, 1].
+
+Each comes in two forms, chosen by ``n_agents``: an integer stacks one
+independent network per agent on a leading ``[A]`` axis (``BatchedDense``,
+the kernel ``[A, in, out]``, the bias ``[A, out]``); None gives one unbatched
+network (``Dense``, the kernel ``[in, out]``, the bias ``[out]``), shared by
+every agent. Both keep flax's ``Dense`` layout and names (``Dense_0.kernel``,
+``Dense_0.bias``, ...), which the converter (``convert.py``), the plain
+forwards here and the fused slot kernel K7 (``csrc/slot_fused.cu``) read in
+place. Every forward runs in full float32 and refuses TF32 on the card.
 """
 
 from __future__ import annotations
@@ -26,17 +33,17 @@ from torch import nn
 _TRUNCATED_NORMAL_STD = 0.87962566103423978
 
 
-class BatchedDense(nn.Module):
-    """One ``Dense`` layer per agent: ``y[a] = x[a] @ kernel[a] + bias[a]``."""
+class Dense(nn.Module):
+    """One flax ``Dense`` layer: ``y = x @ kernel + bias``, x ``[N, in]``."""
 
-    def __init__(self, n_agents: int, d_in: int, d_out: int, device=None):
+    def __init__(self, d_in: int, d_out: int, device=None):
         super().__init__()
-        self.kernel = nn.Parameter(torch.zeros((n_agents, d_in, d_out), device=device))
-        self.bias = nn.Parameter(torch.zeros((n_agents, d_out), device=device))
+        self.kernel = nn.Parameter(torch.zeros((d_in, d_out), device=device))
+        self.bias = nn.Parameter(torch.zeros((d_out,), device=device))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """flax's defaults: lecun_normal kernel, zero bias."""
-        std = (1.0 / self.kernel.shape[1]) ** 0.5 / _TRUNCATED_NORMAL_STD
+        std = (1.0 / self.kernel.shape[-2]) ** 0.5 / _TRUNCATED_NORMAL_STD
         with torch.no_grad():
             nn.init.trunc_normal_(
                 self.kernel, 0.0, std, -2.0 * std, 2.0 * std, generator=generator
@@ -44,37 +51,89 @@ class BatchedDense(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [A, N, in] -> [A, N, out], full float32 (``torch.baddbmm``)."""
+        """x [N, in] -> [N, out] (``torch.addmm``)."""
+        return torch.addmm(self.bias, x, self.kernel)
+
+
+class BatchedDense(Dense):
+    """One ``Dense`` layer per agent: ``y[a] = x[a] @ kernel[a] + bias[a]``."""
+
+    def __init__(self, n_agents: int, d_in: int, d_out: int, device=None):
+        nn.Module.__init__(self)
+        self.kernel = nn.Parameter(torch.zeros((n_agents, d_in, d_out), device=device))
+        self.bias = nn.Parameter(torch.zeros((n_agents, d_out), device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [A, N, in] -> [A, N, out] (``torch.baddbmm``)."""
         return torch.baddbmm(self.bias[:, None, :], x, self.kernel)
 
 
-class QNetwork(nn.Module):
-    """Per-agent Q(s, a): ``forward(state [A, N, 4], action [A, N, 1]) ->
-    [A, N, 1]``."""
+class _ThreeLayer(nn.Module):
+    """Dense_0 (in -> hidden), Dense_1 (hidden -> hidden), Dense_2 (hidden ->
+    1), per agent when ``n_agents`` is an integer, shared when None."""
 
-    def __init__(self, n_agents: int, hidden: int = 64, obs_dim: int = 4, device=None):
+    action_dim = 0  # inputs after the observation (1 for Q(s, a))
+
+    def __init__(self, n_agents: Optional[int], hidden: int, obs_dim: int, device=None):
         super().__init__()
-        self.Dense_0 = BatchedDense(n_agents, obs_dim + 1, hidden, device)
-        self.Dense_1 = BatchedDense(n_agents, hidden, hidden, device)
-        self.Dense_2 = BatchedDense(n_agents, hidden, 1, device)
+        d_in = obs_dim + self.action_dim
+        dense = (
+            (lambda i, o: Dense(i, o, device))
+            if n_agents is None
+            else (lambda i, o: BatchedDense(n_agents, i, o, device))
+        )
+        self.Dense_0 = dense(d_in, hidden)
+        self.Dense_1 = dense(hidden, hidden)
+        self.Dense_2 = dense(hidden, 1)
 
     @property
-    def n_agents(self) -> int:
-        return self.Dense_0.kernel.shape[0]
+    def n_agents(self) -> Optional[int]:
+        kernel = self.Dense_0.kernel
+        return kernel.shape[0] if kernel.dim() == 3 else None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         for layer in (self.Dense_0, self.Dense_1, self.Dense_2):
             layer.reset_parameters(generator)
 
-    def forward(self, state: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
-        if state.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-            # TF32 keeps ~3 decimal digits: the acts and the learn step, like
+    def _layers(self, x: torch.Tensor) -> torch.Tensor:
+        if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+            # TF32 keeps ~3 decimal digits: the acts and the learn steps, like
             # the JAX reference, run in full float32.
             raise RuntimeError(
-                "QNetwork runs in full float32: set "
+                f"{type(self).__name__} runs in full float32: set "
                 "torch.backends.cuda.matmul.allow_tf32 = False"
             )
-        x = torch.cat([state, action], dim=-1)
         x = torch.relu(self.Dense_0(x))
         x = torch.relu(self.Dense_1(x))
         return self.Dense_2(x)
+
+
+class QNetwork(_ThreeLayer):
+    """Q(s, a): ``forward(state, action) -> Q``, state ``[A, N, 4]`` and
+    action ``[A, N, 1]`` per agent (-> ``[A, N, 1]``), or ``[N, 4]`` and
+    ``[N, 1]`` shared (-> ``[N, 1]``)."""
+
+    action_dim = 1
+
+    def __init__(self, n_agents: Optional[int], hidden: int = 64, obs_dim: int = 4, device=None):
+        super().__init__(n_agents, hidden, obs_dim, device)
+
+    def forward(self, state: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+        return self._layers(torch.cat([state, action], dim=-1))
+
+
+# DDPG's critic (the JAX package's ``Critic``, networks.py:45) is QNetwork's
+# network: concat(state, action) -> 64 -> 64 -> 1.
+Critic = QNetwork
+
+
+class Actor(_ThreeLayer):
+    """The deterministic policy (rl_backup.py:23-27): ``forward(state) ->
+    sigmoid(...)``, the heat-pump fraction, state ``[A, N, 4]`` per agent (->
+    ``[A, N, 1]``) or ``[N, 4]`` shared (-> ``[N, 1]``)."""
+
+    def __init__(self, n_agents: Optional[int], hidden: int = 64, obs_dim: int = 4, device=None):
+        super().__init__(n_agents, hidden, obs_dim, device)
+
+    def forward(self, state: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(self._layers(state))

@@ -1,7 +1,11 @@
 """Scenario-batched training."""
 
 from p2pmicrogrid_tpu_torch.parallel.scenarios import (
+    DDPGScenState,
     EpisodeDraws,
+    auto_scale_ddpg_lrs,
+    ddpg_pooled_batch,
+    init_scen_state_only,
     init_shared_pol_state,
     init_shared_state,
     make_scenario_traces,
@@ -12,7 +16,11 @@ from p2pmicrogrid_tpu_torch.parallel.scenarios import (
 )
 
 __all__ = [
+    "DDPGScenState",
     "EpisodeDraws",
+    "auto_scale_ddpg_lrs",
+    "ddpg_pooled_batch",
+    "init_scen_state_only",
     "init_shared_pol_state",
     "init_shared_state",
     "make_scenario_traces",

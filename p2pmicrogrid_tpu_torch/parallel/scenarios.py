@@ -4,11 +4,13 @@ A *scenario* is an independent draw of the synthetic load/PV/weather
 generator; scenarios form the leading ``[S]`` axis of the whole simulation.
 In the shared mode ported here, one set of policy parameters serves all
 scenarios and each slot applies one update averaged over the scenario axis
-(the "shared-critic" mode of BASELINE.md config 4): the tabular Q-learner, or
-DQN with per-scenario lockstep replay. ``fused=True`` runs every slot as the
-one kernel K7 (``ops/slot_fused.py``). Exploration decays on the
-reference cadence (every ``min_episodes_criterion`` episodes,
-community.py:279-287), starting after episode 0.
+(the "shared-critic" mode of BASELINE.md config 4): the tabular Q-learner,
+DQN with per-scenario lockstep replay, or DDPG with per-scenario lockstep
+replay and OU noise (one actor-critic for every agent, or one per agent).
+``fused=True`` runs every slot as the one kernel K7 (``ops/slot_fused.py``;
+tabular and DQN). Exploration decays on the reference cadence (every
+``min_episodes_criterion`` episodes, community.py:279-287), starting after
+episode 0.
 
 An episode is a Python loop over the 96 slots on the device; it makes no
 host synchronisation inside the loop. Randomness comes from an explicit
@@ -18,6 +20,7 @@ JAX package's own draws through them).
 
 from __future__ import annotations
 
+import dataclasses
 import time as _time
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
@@ -40,6 +43,11 @@ from p2pmicrogrid_tpu_torch.envs.community import (
     ratings_to,
     resolve_use_fused,
     slot_dynamics_batched,
+)
+from p2pmicrogrid_tpu_torch.models.ddpg import (
+    DDPGParams,
+    ddpg_learn_batch,
+    set_learning_rates,
 )
 from p2pmicrogrid_tpu_torch.models.dqn import (
     ACTION_VALUES,
@@ -68,17 +76,25 @@ class EpisodeDraws(NamedTuple):
 
     uniform: [T, rounds+1, S, A] float32 in [0, 1) — exploration coin per round
     randint: [T, rounds+1, S, A] integer in [0, n_actions) — random action
-        (n_actions is ``num_actions`` for tabular, 3 for DQN)
+        (n_actions is ``num_actions`` for tabular, 3 for DQN); both None for
+        DDPG
     normals: [S, 2, A] float32 standard normals for the initial (t_in, t_bm)
-    replay_idx: [T, B] integer — DQN's replay sample indices per slot, each
-        in [0, max(count, 1)) of that slot's ring (None for tabular and for
-        the record-only warmup)
+    replay_idx: [T, B] integer — DQN's and DDPG's replay sample indices per
+        slot, each in [0, max(count, 1)) of that slot's ring (None for
+        tabular and for the record-only warmup)
+    ou_normals: [T, rounds+1, S, A] float32 — DDPG's OU noise normals per
+        round (None otherwise)
+    stripe_starts: [T, n_stripes] integer in [0, B * S * A) — DDPG's stripe
+        offsets into the pooled batch where ``learn_batch_cap`` caps it
+        (``ddpg_stripes``; None otherwise)
     """
 
-    uniform: torch.Tensor
-    randint: torch.Tensor
+    uniform: Optional[torch.Tensor]
+    randint: Optional[torch.Tensor]
     normals: torch.Tensor
     replay_idx: Optional[torch.Tensor] = None
+    ou_normals: Optional[torch.Tensor] = None
+    stripe_starts: Optional[torch.Tensor] = None
 
 
 def make_scenario_traces(
@@ -140,30 +156,63 @@ def stack_scenario_arrays(
     )
 
 
+class DDPGScenState(NamedTuple):
+    """Shared DDPG's per-scenario state: the learnable ``DDPGParams`` are
+    shared across scenarios, but each scenario keeps its own replay history
+    and Ornstein-Uhlenbeck noise trajectory.
+
+    replay: ``LockstepReplay`` with ``[cap, S, A, ...]`` rings
+    ou:     [S, A] float32, the OU noise
+    """
+
+    replay: LockstepReplay
+    ou: torch.Tensor
+
+
 def init_shared_pol_state(
     cfg: ExperimentConfig, device="cuda", generator: Optional[torch.Generator] = None
 ):
-    """The shared learnable state (a ``TabularState`` or a ``DQNState``,
-    whose networks draw their weights from ``generator``)."""
+    """The shared learnable state (a ``TabularState``, a ``DQNState`` or
+    ``DDPGParams``, whose networks draw their weights from ``generator``)."""
     return init_policy_state(cfg, device=device, generator=generator)
+
+
+def init_scen_state_only(
+    cfg: ExperimentConfig,
+    device="cuda",
+    generator: Optional[torch.Generator] = None,
+    n_scenarios: Optional[int] = None,
+):
+    """The per-scenario state alone: None for tabular, a ``LockstepReplay``
+    for DQN, a ``DDPGScenState`` for DDPG (its OU noise starts at
+    ``ou_init_sd`` times standard normals from ``generator``,
+    rl_backup.py:81,102)."""
+    S = cfg.sim.n_scenarios if n_scenarios is None else n_scenarios
+    A = cfg.sim.n_agents
+    impl = cfg.train.implementation
+    if impl == "tabular":
+        return None
+    if impl == "dqn":
+        return lockstep_replay_init(S, A, cfg.dqn.buffer_size, OBS_DIM, 1, device=device)
+    if impl == "ddpg":
+        replay = lockstep_replay_init(S, A, cfg.ddpg.buffer_size, OBS_DIM, 1, device=device)
+        normals = torch.randn((S, A), generator=generator, device=replay.obs.device)
+        return DDPGScenState(replay=replay, ou=cfg.ddpg.ou_init_sd * normals)
+    raise ValueError(f"unknown implementation {impl!r}")
 
 
 def init_shared_state(
     cfg: ExperimentConfig, device="cuda", generator: Optional[torch.Generator] = None
 ) -> Tuple[object, object]:
-    """(pol_state, scen_state) for ``train_scenarios_shared``:
+    """(pol_state, scen_state) for ``train_scenarios_shared``, the policy
+    state drawn from ``generator`` first:
 
     * tabular -> (TabularState, None): no per-scenario state;
-    * dqn     -> (DQNState, LockstepReplay) with ``[cap, S, A, ...]`` rings.
+    * dqn     -> (DQNState, LockstepReplay) with ``[cap, S, A, ...]`` rings;
+    * ddpg    -> (DDPGParams, DDPGScenState).
     """
     pol_state = init_shared_pol_state(cfg, device=device, generator=generator)
-    if cfg.train.implementation == "dqn":
-        replay = lockstep_replay_init(
-            cfg.sim.n_scenarios, cfg.sim.n_agents, cfg.dqn.buffer_size, OBS_DIM, 1,
-            device=device,
-        )
-        return pol_state, replay
-    return pol_state, None
+    return pol_state, init_scen_state_only(cfg, device=device, generator=generator)
 
 
 def _tabular_update_shared(
@@ -245,6 +294,122 @@ def _dqn_update_shared(
     return state, replay_s, per_scenario
 
 
+def ddpg_stripes(cfg: ExperimentConfig, n_scenarios: int, n_agents: int) -> Optional[Tuple[int, int]]:
+    """(stripes, rows a stripe) of the capped agent-shared DDPG learn batch,
+    or None where the update takes the whole pool.
+
+    With one actor-critic for every agent and ``learn_batch_cap`` below the
+    pool ``B * S * A``, each update takes ``cap`` rows of the flattened
+    ``[B, S, A]`` sample as contiguous stripes at random offsets, wrapping
+    around (JAX source, :580-604): the largest stripe count up to 8 that
+    divides the cap, so a cap not a multiple of 8 does not collapse into one
+    block.
+    """
+    d = cfg.ddpg
+    cap = d.learn_batch_cap
+    if not d.share_across_agents or cap is None or cap >= d.batch_size * n_scenarios * n_agents:
+        return None
+    n = next(n for n in range(8, 0, -1) if cap % n == 0)
+    return n, cap // n
+
+
+def _ddpg_update_shared(
+    cfg: ExperimentConfig,
+    params: DDPGParams,
+    scen: DDPGScenState,
+    tr,
+    idx: torch.Tensor,
+    starts: Optional[torch.Tensor] = None,
+) -> Tuple[DDPGParams, DDPGScenState, torch.Tensor]:
+    """Shared DDPG parameters, per-scenario replay (JAX source, :547-708):
+    add the slot's transitions (the action as its clipped fraction), sample
+    the B shared indices ``idx``, and take one learn step whose gradient is
+    the average over every scenario's sampled batch. The networks, Adam and
+    the ring update in place.
+
+    * per-agent parameters: each agent learns on its scenario-pooled batch
+      ``[A, B * S, ...]``;
+    * one actor-critic for every agent: it learns on the pooled ``[B * S *
+      A]`` batch, or, where ``ddpg_stripes`` caps it, on the stripes at
+      offsets ``starts`` [n_stripes] into that flattened batch, the rows
+      gathered by ``index_select`` on the device.
+
+    Returns (params, scen, loss [S]): the per-scenario mean of the per-sample
+    squared critic residuals; under the cap, the mean over each scenario's
+    rows in the stripes, by a one-hot ``[cap, S]`` product in float32, and
+    the mean of all rows for a scenario that no stripe covered.
+    """
+    d = cfg.ddpg
+    S, A = tr.reward.shape
+    replay = lockstep_replay_add(scen.replay, tr.obs, tr.aux[..., None], tr.reward, tr.next_obs)
+    s, a, r, ns = lockstep_replay_sample(replay, idx)  # [B, S, A, ...]
+    stripes = ddpg_stripes(cfg, S, A)
+    if stripes is not None:
+        _, length = stripes
+        pool = s.shape[0] * S * A
+        rows = (starts[:, None] + torch.arange(length, device=starts.device)).reshape(-1) % pool
+        take = lambda x: x.reshape((pool,) + tuple(x.shape[3:])).index_select(0, rows)
+        sq = ddpg_learn_batch(d, params, take(s), take(a), take(r), take(ns))
+        # Row i of the flattened [B, S, A] sample is scenario (i // A) % S.
+        scenario = (rows // A) % S
+        one_hot = (scenario[:, None] == torch.arange(S, device=rows.device)).to(sq.dtype)
+        hit = one_hot.sum(dim=0)
+        loss = torch.where(hit > 0, (sq @ one_hot) / hit.clamp(min=1.0), sq.mean())
+    elif d.share_across_agents:
+        flat = lambda x: x.reshape((-1,) + tuple(x.shape[3:]))
+        sq = ddpg_learn_batch(d, params, flat(s), flat(a), flat(r), flat(ns))
+        loss = sq.reshape(-1, S, A).mean(dim=(0, 2))  # [B * S * A] in (B, S, A) order
+    else:
+        pool = lambda x: x.movedim(2, 0).reshape((A, -1) + tuple(x.shape[3:]))
+        sq = ddpg_learn_batch(d, params, pool(s), pool(a), pool(r), pool(ns))
+        loss = sq.reshape(A, -1, S).mean(dim=(0, 1))  # [A, B * S] in (B, S) order
+    return params, scen._replace(replay=replay), loss
+
+
+# The pooled-batch lr rule (JAX source, :710-720, calibrated there on the
+# JAX package's runs): below DDPG_LR_REF_POOLED pooled transitions per update
+# the config lrs hold; above it they fall off as pooled^(-DDPG_LR_EXP).
+DDPG_LR_REF_POOLED = 400.0
+DDPG_LR_EXP = 0.5
+
+
+def ddpg_pooled_batch(cfg: ExperimentConfig, n_scenarios: Optional[int] = None) -> int:
+    """Transitions one shared-DDPG gradient step consumes per slot:
+    ``batch_size * S`` per agent, ``* n_agents`` when one actor-critic is
+    shared across agents, capped there at ``learn_batch_cap``."""
+    S = cfg.sim.n_scenarios if n_scenarios is None else n_scenarios
+    A = cfg.sim.n_agents if cfg.ddpg.share_across_agents else 1
+    pooled = cfg.ddpg.batch_size * S * A
+    cap = cfg.ddpg.learn_batch_cap
+    if cfg.ddpg.share_across_agents and cap is not None:
+        pooled = min(pooled, cap)
+    return pooled
+
+
+def auto_scale_ddpg_lrs(
+    cfg: ExperimentConfig, n_scenarios: Optional[int] = None
+) -> ExperimentConfig:
+    """The config with DDPG's actor and critic lrs scaled by
+    ``(DDPG_LR_REF_POOLED / pooled) ** DDPG_LR_EXP`` where the pooled update
+    batch exceeds the reference pool; ``cfg`` itself when ``lr_auto_scale``
+    is off, the pool is small, or the learner is not DDPG. The shared
+    episode function applies the result."""
+    if cfg.train.implementation != "ddpg" or not cfg.ddpg.lr_auto_scale:
+        return cfg
+    pooled = ddpg_pooled_batch(cfg, n_scenarios)
+    if pooled <= DDPG_LR_REF_POOLED:
+        return cfg
+    scale = (DDPG_LR_REF_POOLED / pooled) ** DDPG_LR_EXP
+    return dataclasses.replace(
+        cfg,
+        ddpg=dataclasses.replace(
+            cfg.ddpg,
+            actor_lr=cfg.ddpg.actor_lr * scale,
+            critic_lr=cfg.ddpg.critic_lr * scale,
+        ),
+    )
+
+
 def make_shared_episode_fn(
     cfg: ExperimentConfig,
     policy: Policy,
@@ -259,11 +424,17 @@ def make_shared_episode_fn(
     (rewards [S], losses [S]))`` with ``carry = (pol_state, scen_state)``
     (``init_shared_state``). Draws come from ``generator`` (a
     ``torch.Generator`` on the arrays' device: the initial-temperature
-    normals, then per slot the uniforms and random actions of every round
-    and, for a DQN learn step, the B replay indices), or, when ``draws``
-    (``EpisodeDraws``) is given, from it alone. Rewards are the per-scenario
-    sums over slots of the agent-mean reward; losses the per-scenario means
-    over slots of the learn loss. The learner state updates in place.
+    normals, then per slot the exploration draws of every round (tabular and
+    DQN: uniforms and random actions; DDPG: OU normals) and, for a learn
+    step, the B replay indices and DDPG's stripe offsets), or, when
+    ``draws`` (``EpisodeDraws``) is given, from it alone. Rewards are the
+    per-scenario sums over slots of the agent-mean reward; losses the
+    per-scenario means over slots of the learn loss. The learner state
+    updates in place.
+
+    DDPG learns at the lrs of ``auto_scale_ddpg_lrs`` for this S, which the
+    episode sets on its optimizers each time it runs (the JAX package bakes
+    them into its episode program).
 
     ``fused`` runs every slot through the fused slot (kernel K7 on the card;
     tabular and DQN only); None resolves ``SimConfig.fused_slot``.
@@ -272,18 +443,19 @@ def make_shared_episode_fn(
     ``init_buffers``, community.py:125-147).
     """
     impl = cfg.train.implementation
-    if impl not in ("tabular", "dqn"):
-        raise NotImplementedError(
-            f"shared-scenario training of {impl!r} is not ported yet "
-            "(ROADMAP.md, Queue 1: DDPG)"
-        )
+    if impl not in ("tabular", "dqn", "ddpg"):
+        raise ValueError(f"shared-scenario training supports tabular/dqn/ddpg, got {impl!r}")
     if record_only and impl != "dqn":
         raise ValueError("record_only warmup applies to dqn only")
     if fused is None:
         fused = resolve_use_fused(cfg)
+    if fused and impl == "ddpg":
+        raise ValueError(f"fused episodes support tabular/dqn, got {impl!r}")
     device = arrays_s.load_w.device
     S, T, A = arrays_s.load_w.shape
     R = cfg.sim.rounds + 1 if cfg.sim.trading else 1
+    cfg = auto_scale_ddpg_lrs(cfg, S)
+    stripes = ddpg_stripes(cfg, S, A) if impl == "ddpg" else None
     ratings_d = ratings_to(ratings, device)
     # Time-major copies, so each slot reads contiguous [S, ...] rows.
     xs = tuple(
@@ -300,49 +472,77 @@ def make_shared_episode_fn(
     )
     # The random-action bound (pallas_slot.py:339-341).
     n_actions = cfg.qlearning.num_actions if impl == "tabular" else len(ACTION_VALUES)
-    learns_dqn = impl == "dqn" and not record_only
+    learns_from_replay = impl == "ddpg" or (impl == "dqn" and not record_only)
+    batch_size = cfg.ddpg.batch_size if impl == "ddpg" else cfg.dqn.batch_size
+
+    def check_draws(draws):
+        missing = []
+        if learns_from_replay and draws.replay_idx is None:
+            missing.append("replay_idx")
+        if impl == "ddpg" and draws.ou_normals is None:
+            missing.append("ou_normals")
+        if stripes is not None and draws.stripe_starts is None:
+            missing.append("stripe_starts")
+        if missing:
+            raise ValueError(f"a {impl} episode needs EpisodeDraws.{' and '.join(missing)}")
+
+    def slot_draws(t, generator, draws):
+        """The exploration draws of slot t's rounds, each [R, S, A]."""
+        if draws is not None:
+            return (draws.ou_normals[t],) if impl == "ddpg" else (draws.uniform[t], draws.randint[t])
+        if impl == "ddpg":
+            return (torch.randn((R, S, A), generator=generator, device=device),)
+        return (
+            torch.rand((R, S, A), generator=generator, device=device),
+            torch.randint(0, n_actions, (R, S, A), generator=generator, device=device),
+        )
+
+    def learn_draws(t, generator, draws, replay):
+        """Slot t's replay indices [B] and, under the cap, stripe offsets."""
+        if draws is not None:
+            return draws.replay_idx[t], None if stripes is None else draws.stripe_starts[t]
+        # The ring holds this slot's transition when it is sampled.
+        count = min(replay.count + 1, replay.capacity)
+        idx = lockstep_sample_indices(count, batch_size, generator, device)
+        if stripes is None:
+            return idx, None
+        pool = batch_size * S * A
+        return idx, torch.randint(0, pool, (stripes[0],), generator=generator, device=device)
 
     def episode(carry, generator: Optional[torch.Generator] = None, draws=None):
         pol_state, scen_state = carry
         if draws is None and generator is None:
             raise ValueError("episode needs a torch.Generator or EpisodeDraws")
-        if draws is not None and learns_dqn and draws.replay_idx is None:
-            raise ValueError("a DQN learning episode needs EpisodeDraws.replay_idx")
-        if draws is None:
-            normals = torch.randn((S, 2, A), generator=generator, device=device)
-        else:
+        if draws is not None:
+            check_draws(draws)
             normals = draws.normals
+        else:
+            normals = torch.randn((S, 2, A), generator=generator, device=device)
+        if impl == "ddpg":
+            set_learning_rates(cfg.ddpg, pol_state)
         phys_s = init_physical(cfg, normals, (S,), device=device)
         rewards = torch.empty((T, S), dtype=torch.float32, device=device)
         losses = torch.empty((T, S), dtype=torch.float32, device=device)
         for t in range(T):
-            if draws is None:
-                slot_draws = (
-                    torch.rand((R, S, A), generator=generator, device=device),
-                    torch.randint(
-                        0, n_actions, (R, S, A), generator=generator, device=device
-                    ),
-                )
-            else:
-                slot_draws = (draws.uniform[t], draws.randint[t])
-            phys_s, _, outputs, tr = slot_dynamics_batched(
+            phys_s, _, outputs, tr, ou = slot_dynamics_batched(
                 cfg, policy, pol_state, phys_s, tuple(x[t] for x in xs),
-                slot_draws, ratings_d, explore=True, fused=fused,
+                slot_draws(t, generator, draws), ratings_d, explore=True, fused=fused,
+                explore_state=scen_state.ou if impl == "ddpg" else None,
             )
             if impl == "tabular":
                 pol_state, loss = _tabular_update_shared(cfg, pol_state, tr)
             elif record_only:
                 scen_state = _record_shared(scen_state, tr)
                 loss = torch.zeros((S,), dtype=torch.float32, device=device)
-            else:
-                if draws is None:
-                    # The ring holds this slot's transition when it is sampled.
-                    count = min(scen_state.count + 1, scen_state.capacity)
-                    idx = lockstep_sample_indices(count, cfg.dqn.batch_size, generator, device)
-                else:
-                    idx = draws.replay_idx[t]
+            elif impl == "dqn":
+                idx, _ = learn_draws(t, generator, draws, scen_state)
                 pol_state, scen_state, loss = _dqn_update_shared(
                     cfg, pol_state, scen_state, tr, idx
+                )
+            else:
+                idx, starts = learn_draws(t, generator, draws, scen_state.replay)
+                pol_state, scen_state, loss = _ddpg_update_shared(
+                    cfg, pol_state, scen_state._replace(ou=ou), tr, idx, starts
                 )
             rewards[t] = outputs.reward.mean(dim=-1)
             losses[t] = loss
@@ -401,7 +601,9 @@ def train_scenarios_shared(
     ``episode_fn`` (``make_shared_episode_fn``) to reuse it across calls;
     otherwise one is built with ``fused`` (None resolves
     ``SimConfig.fused_slot``). ``replay_s`` is the per-scenario state of
-    ``init_shared_state`` (None for tabular, the ``LockstepReplay`` for DQN).
+    ``init_shared_state`` (None for tabular, the ``LockstepReplay`` for DQN,
+    the ``DDPGScenState`` for DDPG); DDPG anneals its OU noise where the
+    discrete learners decay epsilon.
 
     Returns (pol_state, scen_state, rewards [episodes, S], losses
     [episodes, S], seconds); the seconds end after the device finished.

@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card against their plain versions: K1
-(``ops/merged_min.py``) and K2-K6 (``ops/matrix_market.py``).
+(``ops/merged_min.py``), K2-K6 (``ops/matrix_market.py``) and K7
+(``ops/slot_fused.py``); and shared DDPG's act and learn step on the card
+against the port on the CPU.
 
 Marked ``cuda``: it skips without a CUDA device (a CUDA kernel has no CPU
 mode). This file imports neither JAX nor the JAX package, so it also runs on
@@ -23,7 +25,7 @@ def cuda_generator():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 1000), (256, 50), (3, 7)])
+@pytest.mark.parametrize("shape", [(64, 1000), (256, 50), (2048, 50), (3, 7)])
 def test_merged_min_kernel_matches_plain(cuda_generator, shape):
     """At the main path's shapes and a ragged small one; zero factors give
     exactly 0, and a repeat launch is bit-identical."""
@@ -284,3 +286,90 @@ def test_slot_wrapper_rejects_bad_inputs(cuda_generator):
         sf.slot_raw(cfg, pol, phys, bad, draws, ratings, *rest)
     with pytest.raises(ValueError, match="shape"):
         sf.slot_raw(cfg, pol, phys, xs, (draws[0][:1].contiguous(), draws[1]), ratings, *rest)
+
+
+# --- shared DDPG: the act and the learn step ------------------------------------
+
+
+def _ddpg_pair(share, cap):
+    """A=6, S=3 shared DDPG state drawn on the CPU and its copy on the card,
+    with a ring of 16 slots already filled with random transitions."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.convert import state_from_jax, state_to_numpy
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+
+    cfg = tc.default_config(
+        sim=tc.SimConfig(n_agents=6, n_scenarios=3),
+        train=tc.TrainConfig(implementation="ddpg"),
+        ddpg=tc.DDPGConfig(buffer_size=16, batch_size=32, share_across_agents=share, learn_batch_cap=cap),
+    )
+    pol, scen = sc.init_shared_state(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    replay = scen.replay
+    for buf in (replay.obs, replay.action, replay.reward, replay.next_obs):
+        buf.copy_(torch.from_numpy(rng.uniform(-1.0, 1.0, tuple(buf.shape)).astype(np.float32)))
+    scen = scen._replace(replay=replay._replace(cursor=0, count=16))
+    move = lambda st: state_from_jax(state_to_numpy(st), device="cuda", cfg=cfg.ddpg)
+    return cfg, (pol, scen), (move(pol), move(scen)), rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share,cap", [(True, None), (True, 40), (False, None)], ids=["shared", "striped", "per_agent"])
+def test_ddpg_act_and_learn_step_match_cpu(cuda_generator, share, cap):
+    """ddpg_shared_act and one _ddpg_update_shared step on the card against
+    the port on the CPU, from the same state and draws, at the CPU tests'
+    tolerances (tests/test_torch_ddpg.py): actions and q rtol=1e-5,
+    atol=1e-6, the OU state bit for bit (its fused multiply-adds are emulated
+    in float64 on both); after the step parameters and targets rtol=1e-5,
+    atol=1e-7 (1e-2 of a learning-rate step where the gradient is within two
+    orders of Adam's eps), the per-scenario loss rtol=1e-4."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.envs.community import SlotTransition
+    from p2pmicrogrid_tpu_torch.models.ddpg import ddpg_shared_act
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, (pol_c, scen_c), (pol_g, scen_g), rng = _ddpg_pair(share, cap)
+    S, A = 3, 6
+    f32 = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    obs, normals = rng.uniform(-1.0, 1.0, (S, A, 4)).astype(np.float32), f32(S, A)
+    both = lambda x: (torch.from_numpy(x), torch.from_numpy(x).cuda())
+    (obs_c, obs_g), (n_c, n_g) = both(obs), both(normals)
+    a_c, q_c, ou_c = ddpg_shared_act(cfg.ddpg, pol_c, obs_c, scen_c.ou, n_c)
+    a_g, q_g, ou_g = ddpg_shared_act(cfg.ddpg, pol_g, obs_g, scen_g.ou, n_g)
+    torch.testing.assert_close(a_g.cpu(), a_c, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(q_g.cpu(), q_c, rtol=1e-5, atol=1e-6)
+    assert torch.equal(ou_g.cpu(), ou_c)
+
+    tr = SlotTransition(
+        obs=obs, aux=rng.uniform(0.0, 1.0, (S, A)).astype(np.float32),
+        reward=rng.normal(-20.0, 30.0, (S, A)).astype(np.float32), next_obs=f32(S, A, 4),
+    )
+    idx = rng.integers(0, 16, cfg.ddpg.batch_size)
+    stripes = sc.ddpg_stripes(cfg, S, A)
+    assert (stripes is not None) == (cap is not None)
+    starts = None if stripes is None else rng.integers(0, 32 * S * A, stripes[0])
+    results = []
+    for dev, pol, scen in (("cpu", pol_c, scen_c), ("cuda", pol_g, scen_g)):
+        t = lambda x: None if x is None else torch.from_numpy(np.asarray(x)).to(dev)
+        tr_d = SlotTransition(*(t(x) for x in tr))
+        results.append(sc._ddpg_update_shared(cfg, pol, scen, tr_d, t(idx), t(starts)))
+    (pol_c, _, loss_c), (pol_g, _, loss_g) = results
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-4, atol=0.0)
+    for name, opt in (("actor", pol_c.actor_opt), ("critic", pol_c.critic_opt)):
+        lr = opt.param_groups[0]["lr"]
+        for (pname, pc), pg in zip(
+            getattr(pol_c, name).named_parameters(), getattr(pol_g, name).parameters()
+        ):
+            mu = opt.state[pc]["exp_avg"] / (1.0 - 0.9) if opt.state else torch.zeros_like(pc)
+            ill = mu.abs() < 100 * 1e-8
+            g = pg.detach().cpu()
+            torch.testing.assert_close(g[~ill], pc.detach()[~ill], rtol=1e-5, atol=1e-7, msg=f"{name}.{pname}")
+            torch.testing.assert_close(g[ill], pc.detach()[ill], rtol=0.0, atol=1e-2 * lr, msg=f"{name}.{pname}")
+        for pc, pg in zip(
+            getattr(pol_c, f"{name}_target").parameters(), getattr(pol_g, f"{name}_target").parameters()
+        ):
+            torch.testing.assert_close(pg.cpu(), pc, rtol=1e-5, atol=1e-7)

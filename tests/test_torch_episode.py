@@ -204,7 +204,7 @@ def _check_every_slot_action(jax_run, sim):
     for e, d in enumerate(jax_run["draws"]):
         phys = tcom.init_physical(cfg, d.normals, (S,), device="cpu")
         for t in range(T):
-            phys, _, _, tr = tcom.slot_dynamics_batched(
+            phys, _, _, tr, _ = tcom.slot_dynamics_batched(
                 cfg, policy, pol, phys, tuple(x[t] for x in xs),
                 (d.uniform[t], d.randint[t]), ratings, explore=True,
             )
@@ -264,7 +264,7 @@ def _check_single_slot(sim):
         tuple(d[None] for d in _jax_round_draws(k_act))
     )
     draws = tuple(torch.from_numpy(np.array(d)) for d in draws_j)
-    phys_t, _, out_t, tr_t = tcom.slot_dynamics_batched(
+    phys_t, _, out_t, tr_t, _ = tcom.slot_dynamics_batched(
         cfg_t, t_make_policy(cfg_t),
         state_from_jax(jax.tree.map(np.asarray, pol), device="cpu"),
         state_from_jax(jax.tree.map(np.asarray, phys), device="cpu"),

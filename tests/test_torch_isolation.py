@@ -13,11 +13,12 @@ import torch
 import p2pmicrogrid_tpu_torch
 from p2pmicrogrid_tpu_torch import config as tcfg
 from p2pmicrogrid_tpu_torch.envs import community as tcom
+from p2pmicrogrid_tpu_torch.models.ddpg import ddpg_params_init
 from p2pmicrogrid_tpu_torch.models.dqn import dqn_init
 from p2pmicrogrid_tpu_torch.models.replay import lockstep_replay_init
 from p2pmicrogrid_tpu_torch.models.tabular import tabular_init
 from p2pmicrogrid_tpu_torch.parallel import scenarios as tsc
-from p2pmicrogrid_tpu_torch.train.policies import init_policy_state, make_policy
+from p2pmicrogrid_tpu_torch.train.policies import init_policy_state
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(p2pmicrogrid_tpu_torch.__file__)))
 
@@ -74,21 +75,14 @@ def _cfg(impl="tabular"):
         lambda cfg: tsc.init_shared_state(_cfg("dqn")),
         lambda cfg: dqn_init(cfg.dqn, 4),
         lambda cfg: lockstep_replay_init(2, 4, 8),
+        lambda cfg: tsc.init_shared_state(_cfg("ddpg")),
+        lambda cfg: ddpg_params_init(cfg.ddpg, 4),
     ],
     ids=["init_shared_state", "init_policy_state", "tabular_init", "init_physical",
          "ratings_to", "stack_scenario_arrays", "init_shared_state_dqn", "dqn_init",
-         "lockstep_replay_init"],
+         "lockstep_replay_init", "init_shared_state_ddpg", "ddpg_params_init"],
 )
 def test_entry_points_default_to_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call(_cfg())
-
-
-def test_unported_learners_raise():
-    for impl in ("ddpg",):
-        cfg = tcfg.default_config(train=tcfg.TrainConfig(implementation=impl))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_policy(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_policy_state(cfg, device="cpu")

@@ -133,7 +133,7 @@ def test_fused_slot_matches_jax_fused(impl, sim, explore):
     R = cfg_j.sim.rounds + 1 if cfg_j.sim.trading else 1
     draws = tuple(_t(d) for d in _slot_draws(key, R, cfg_j.sim.trading))
     pol_t = state_from_jax(jax.tree.map(np.asarray, pol), device="cpu", cfg=cfg_t.dqn)
-    phys_t, _, out_t, tr_t = tcom.slot_dynamics_batched(
+    phys_t, _, out_t, tr_t, _ = tcom.slot_dynamics_batched(
         cfg_t, t_make_policy(cfg_t), pol_t,
         state_from_jax(jax.tree.map(np.asarray, phys), device="cpu"),
         tuple(_t(x) for x in xs), draws, tcom.ratings_to(ratings, device="cpu"),
@@ -311,7 +311,7 @@ def _check_fused_actions(cfg, policy, pol, scen, arrays, ratings, warm, episodes
             pol = dqn_initialize_target(pol)
         phys = tcom.init_physical(cfg, d.normals, (S,), device="cpu")
         for t in range(T):
-            phys, _, out, tr = tcom.slot_dynamics_batched(
+            phys, _, out, tr, _ = tcom.slot_dynamics_batched(
                 cfg, policy, pol, phys, tuple(x[t] for x in xs),
                 (d.uniform[t], d.randint[t]), ratings_t, explore=True, fused=True,
             )
