@@ -12,8 +12,9 @@ Phases (each failure exits non-zero):
 2. Each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and edge cases; a repeat launch must be bit-identical; the
    kernel and the plain version timed with CUDA events, and the device time
-   from the profiler. K1 (merged min, timed at [64,1000], [256,50] and
-   [2048,50], the DDPG scale row's shape; its launch logged), then K5, K4, K6
+   from the profiler. K1 (merged min, timed at [64,1000], [128,1000] (the
+   northstar chunk), [256,50] and [2048,50], the DDPG scale row's shape;
+   its launch logged), then K5, K4, K6
    (the matrix path; K5's and K4's dispatch at every case and K5's, K4's and
    K6's grid and shared memory a block logged; K5's matrix held to its
    two-pass kernel's bit for bit, and that kernel timed beside it) and K3,
@@ -45,8 +46,26 @@ Phases (each failure exits non-zero):
    more under the profiler. Every kernel launch counter is set to 0 just
    before each run and read just after; each slot must launch each of its
    path's kernels once and no other kernel.
-5. One JSON line with the DDPG rows' numbers, one with every kernel's,
-   then the last line ``{"ok": true, "device": {...}}``.
+5. The chunked trainer (``train_scenarios_chunked``, traces made on the
+   card, each chunk a CUDA graph replay): K=2 chunks at A=1000, S=128
+   through the graph and through the eager loop from the same state and
+   seeds, bit-identical rewards, losses and averaged state, for shared DDPG
+   at the northstar config (K1), fused tabular (K7) and tabular rounds=2
+   (K5, K4, K6), each replay counted as its kernels' launches; A=6, S=3,
+   K=2 on the card (graph) against the CPU (eager) from the same injected
+   draws; the JAX bench's ``northstar`` row (A=1000, S=128, K=80, shared
+   DDPG, B=4, ring 96, battery on, factored bf16): a warm episode with the
+   capture, a timed episode, then one chunk under the profiler as a graph
+   replay and one eagerly with the learn step's range (env-steps/s, busy,
+   idle share, capture and instantiate seconds, the graph's pool, peak
+   memory, K1 at [128,1000], the learn step's share of busy); and ``cfg4``
+   through the graph (K=1, S=64), timed beside phase 4's eager row.
+6. One JSON line with the DDPG rows' numbers, one with the chunked rows',
+   one with every kernel's, then the last line ``{"ok": true, "device":
+   {...}}``.
+
+With arguments (a comma-separated list of phase numbers, e.g. ``5``) it
+builds and runs only those phases and prints no result line.
 
 It prints no result and exits non-zero without a CUDA device, or when run
 outside a checkout of the repository.
@@ -282,6 +301,8 @@ def phase_kernels():
     cases = [
         (64, 1000, "random"),
         (64, 1000, "bf16"),
+        (128, 1000, "random"),
+        (128, 1000, "bf16"),
         (256, 50, "random"),
         (2048, 50, "random"),
         (256, 50, "zero"),
@@ -314,7 +335,7 @@ def phase_kernels():
             fail(f"K1 {case} [{S},{A}]: repeat launch not bit-identical")
         config = kernel_config(S, A, "cuda")
         launch[f"[{S},{A}]"] = config
-        if case == "random" and (S, A) in ((64, 1000), (256, 50), (2048, 50)):
+        if case == "random" and (S, A) in ((64, 1000), (128, 1000), (256, 50), (2048, 50)):
             k_ms = cuda_time_ms(lambda: merged_min_sums(*args))
             p_ms = cuda_time_ms(lambda: merged_min_sums_plain(*args))
             names = ("merged_min_tiles_kernel",) + (
@@ -363,6 +384,7 @@ def phase_kernels():
         "bound_by": main["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this pass
         "shape": [64, 1000],
+        "at_128x1000": timings[(128, 1000)],
         "at_256x50": timings[(256, 50)],
         "at_2048x50": timings[(2048, 50)],
         "launch": launch,
@@ -1388,6 +1410,311 @@ def phase_main_path(counters):
     return totals, profiled, ddpg_rows
 
 
+# --- phase 5 ---------------------------------------------------------------
+
+
+def chunked_config(tc, impl, A, S, rounds=1, fused=False, **ddpg):
+    """The chunked trainer's config: battery on, market "auto"; DDPG with
+    one actor-critic for every agent and the given replay sizes."""
+    return tc.default_config(
+        sim=tc.SimConfig(n_agents=A, n_scenarios=S, rounds=rounds, fused_slot=fused or None),
+        battery=tc.BatteryConfig(enabled=True),
+        train=tc.TrainConfig(implementation=impl),
+        ddpg=tc.DDPGConfig(share_across_agents=True, **ddpg),
+    )
+
+
+# The JAX bench's northstar row (benchmarks.py:732-741): A=1000, 80 chunks of
+# 128 scenarios, shared DDPG (one actor-critic for every agent), batch 4 per
+# (scenario, agent), a 96-slot ring, battery on, market auto (factored bf16,
+# K1 at [128,1000]).
+NORTHSTAR = dict(A=1000, S=128, K=80, buffer_size=96, batch_size=4)
+CHUNK_RUNS = (
+    ("ddpg northstar", "ddpg", 1, False, ("merged_min_sums",),
+     dict(buffer_size=NORTHSTAR["buffer_size"], batch_size=NORTHSTAR["batch_size"])),
+    ("fused tabular", "tabular", 1, True, FUSED_PATH, {}),
+    ("tabular rounds=2", "tabular", 2, False, MATRIX_PATH, {}),
+)
+
+
+def chunked_runner(cfg, graph, n_chunks, device="cuda"):
+    """The chunked trainer's episode function (traces made on the device)
+    and its K-chunk runner, with the policy and the ratings."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.envs.community import make_ratings
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+    from p2pmicrogrid_tpu_torch.train import make_policy
+
+    ratings = make_ratings(cfg, np.random.default_rng(42))
+    policy = make_policy(cfg)
+    episode_fn = sc.make_device_episode_fn(cfg, policy, ratings, device=device)
+    return policy, ratings, sc.make_chunked_episode_runner(cfg, episode_fn, n_chunks, graph=graph)
+
+
+def graph_stats(captured):
+    """A capture's seconds, pool and launches as plain numbers."""
+    return dict(
+        capture_seconds=captured.capture_seconds,
+        instantiate_seconds=captured.instantiate_seconds,
+        pool_bytes=captured.pool_bytes,
+        launches={w.__name__: n for w, n in captured.launches.items()},
+    )
+
+
+def copy_state(cfg, pol, device):
+    from p2pmicrogrid_tpu_torch.convert import state_from_jax, state_to_numpy
+
+    sub = {"ddpg": cfg.ddpg, "dqn": cfg.dqn}.get(cfg.train.implementation)
+    return state_from_jax(state_to_numpy(pol), device=device, cfg=sub)
+
+
+def phase_graph_vs_eager(counters):
+    """K=2 chunks at A=1000, S=128 through the graph and through the eager
+    loop, from the same state and seeds: rewards, losses and every averaged
+    leaf must be bit-identical, and finite. Returns the graphs' stats."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+
+    A, S, K = NORTHSTAR["A"], NORTHSTAR["S"], 2
+    stats = {}
+    totals = {name: 0 for name in counters}
+    for label, impl, rounds, fused, path_kernels, ddpg_kw in CHUNK_RUNS:
+        cfg = chunked_config(tc, impl, A, S, rounds, fused, **ddpg_kw)
+        what = f"chunked {label} A={A} S={S} K={K}"
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        pol0 = sc.init_shared_pol_state(cfg, device="cuda", generator=gen)
+        results = {}
+        for mode in ("eager", "graph"):
+            policy, ratings, runner = chunked_runner(cfg, mode == "graph", K)
+            for fn in counters.values():
+                fn.launches = 0
+            pol, rew, loss, secs = sc.train_scenarios_chunked(
+                cfg, policy, copy_state(cfg, pol0, "cuda"), ratings, 11, 1, K, runner=runner
+            )
+            launches = {name: fn.launches for name, fn in counters.items()}
+            leaves = [x.detach().clone() for x, _ in sc.learner_leaves(pol)]
+            results[mode] = (rew, loss, leaves)
+            T = runner.episode_fn.n_slots
+            # The graph's warm-up run is a chunk run eagerly before the capture.
+            runs = K + (1 if mode == "graph" else 0)
+            expect = {name: (runs * T if name in path_kernels else 0) for name in counters}
+            if launches != expect:
+                fail(f"{what} {mode}: launches {launches}, expected {expect}")
+            for name, n in launches.items():
+                totals[name] += n
+            if not (np.isfinite(rew).all() and np.isfinite(loss).all()):
+                fail(f"{what} {mode}: non-finite rewards or losses")
+            if not all(bool(torch.isfinite(x).all()) for x in leaves):
+                fail(f"{what} {mode}: non-finite learner state")
+            log(f"phase 5: {what} {mode}: {secs:.3f} s, launches {({k: v for k, v in launches.items() if v})}")
+            if mode == "graph":
+                (captured,) = runner.graphs.values()
+                if any(captured[0].launches.get(counters[name], 0) != T for name in path_kernels):
+                    fail(f"{what}: the captured graph does not launch each path kernel once a slot")
+                stats[label] = graph_stats(captured[0])
+                log(f"phase 5: {what} graph: {json.dumps(stats[label])}")
+            del runner
+            torch.cuda.empty_cache()
+        (rg, lg, pg), (re_, le, pe) = results["graph"], results["eager"]
+        differing = sum(int((a != b).sum()) for a, b in zip(pg, pe))
+        if not (np.array_equal(rg, re_) and np.array_equal(lg, le)) or differing:
+            fail(
+                f"{what}: graph replay differs from the eager loop: rewards max abs "
+                f"{np.abs(rg - re_).max()}, losses {np.abs(lg - le).max()}, {differing} state entries"
+            )
+        log(f"phase 5: {what}: graph replay bit-identical to the eager loop ({len(pg)} leaves)")
+    return stats, totals
+
+
+def phase_chunked_small_parity():
+    """A=6, S=3, K=2 chunked training on the card (graph) against the CPU
+    (eager) from the same injected draws, tabular and shared DDPG, factored
+    float32 market: rewards rtol=2e-4, losses rtol=1e-3 (phase 3's and the
+    CPU tests' tolerances)."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+
+    A, S, K = 6, 3, 2
+    for impl in ("tabular", "ddpg"):
+        cfg = tc.default_config(
+            sim=tc.SimConfig(n_agents=A, n_scenarios=S, market_impl="factored"),
+            battery=tc.BatteryConfig(enabled=True),
+            train=tc.TrainConfig(implementation=impl),
+            ddpg=tc.DDPGConfig(buffer_size=16, batch_size=4, share_across_agents=True),
+        )
+        pol0 = sc.init_shared_pol_state(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+        out = {}
+        for device in ("cpu", "cuda"):
+            policy, ratings, runner = chunked_runner(cfg, device == "cuda", K, device)
+            if device == "cpu":
+                gen = torch.Generator().manual_seed(9)
+                ep = runner.episode_fn
+                draws = [
+                    sc.ChunkDraws(
+                        torch.randn((S, A), generator=gen) if impl == "ddpg" else None, (), ep.draw(gen)
+                    )
+                    for _ in range(K)
+                ]
+            else:
+                draws = [sc._map_tensors(lambda x: x.cuda(), d) for d in draws]
+            _, rew, loss, _ = sc.train_scenarios_chunked(
+                cfg, policy, copy_state(cfg, pol0, device), ratings, 0, 1, K,
+                runner=runner, draws=[draws],
+            )
+            out[device] = (rew, loss)
+        (rg, lg), (rc, lc) = out["cuda"], out["cpu"]
+        what = f"chunked small path ({impl}, factored, A={A} S={S} K={K})"
+        if not np.isfinite(rg).all():
+            fail(f"{what}: non-finite rewards on the card")
+        if not (np.allclose(rg, rc, rtol=2e-4, atol=0.0) and np.allclose(lg, lc, rtol=1e-3, atol=0.0)):
+            fail(f"{what}: card vs CPU rewards {rg} vs {rc}, losses {lg} vs {lc}")
+        log(
+            f"phase 5: {what} card (graph) vs CPU (eager): max reward rel err "
+            f"{float(np.abs((rg - rc) / rc).max()):.3e}, max loss rel err "
+            f"{float(np.abs((lg - lc) / lc).max()):.3e}"
+        )
+
+
+def profile_chunk(cfg, runner, policy, pol, ratings, T, span=None):
+    """One one-chunk episode of ``runner`` under the profiler, after two runs
+    outside it (the first captures, for a graph runner; the second is
+    timed): (kernels, span device ms, the timed run's seconds)."""
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+
+    run = lambda: sc.train_scenarios_chunked(cfg, policy, pol, ratings, 21, 1, 1, runner=runner)
+    run()
+    _, _, _, secs = run()
+    kernels, span_ms = profile_episode(run, T, secs, span=span)
+    return kernels, span_ms, secs
+
+
+def phase_northstar(counters, card):
+    """The northstar row through the chunked graph path: one warm episode
+    (the capture), one timed episode ending in a device synchronisation,
+    then one chunk under the profiler (graph replay: busy, idle, K1) and one
+    eager chunk (the learn step's share of busy). Returns the row."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.envs.community import resolve_market_dtype, resolve_market_impl
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+
+    A, S, K = NORTHSTAR["A"], NORTHSTAR["S"], NORTHSTAR["K"]
+    cfg = chunked_config(tc, "ddpg", A, S, buffer_size=NORTHSTAR["buffer_size"],
+                         batch_size=NORTHSTAR["batch_size"])
+    what = f"northstar A={A} S={S} K={K}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    policy, ratings, runner = chunked_runner(cfg, True, K)
+    T = runner.episode_fn.n_slots
+    pol = sc.init_shared_pol_state(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    pol, rew0, _, warm_s = sc.train_scenarios_chunked(cfg, policy, pol, ratings, 0, 1, K, runner=runner)
+    for fn in counters.values():
+        fn.launches = 0
+    pol, rew1, loss1, secs = sc.train_scenarios_chunked(
+        cfg, policy, pol, ratings, 1, 1, K, runner=runner, episode0=1
+    )
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    expect = {name: (K * T if name == "merged_min_sums" else 0) for name in counters}
+    if launches != expect:
+        fail(f"{what}: launches {launches}, expected {expect}")
+    if rew1.shape != (1, K * S) or not (np.isfinite(rew1).all() and np.isfinite(loss1).all()):
+        fail(f"{what}: rewards {rew1.shape} or losses not finite")
+    if not all(bool(torch.isfinite(x).all()) for x, _ in sc.learner_leaves(pol)):
+        fail(f"{what}: non-finite learner state")
+    lrs = sc._learning_rates(pol)
+    scaled = sc.auto_scale_ddpg_lrs(cfg, S).ddpg
+    if lrs != (scaled.actor_lr, scaled.critic_lr):
+        fail(f"{what}: learning rates {lrs}, expected {scaled.actor_lr, scaled.critic_lr}")
+    (captured,) = runner.graphs.values()
+    graph = graph_stats(captured[0])
+    steps = T * S * K
+    log(
+        f"phase 5: {what} ({card}): env-steps/s {steps / secs:.1f} (timed episode {secs:.3f} s, "
+        f"{secs / K:.4f} s per chunk; warm episode with the capture {warm_s:.3f} s), "
+        f"peak device memory {peak / 2**30:.3f} GiB, graph {json.dumps(graph)}"
+    )
+    del runner
+    torch.cuda.empty_cache()
+    # One chunk under the profiler: the graph's replay, then the eager loop
+    # with the learn step inside a record_function range.
+    policy, ratings, runner1 = chunked_runner(cfg, True, 1)
+    kernels, _, chunk_s = profile_chunk(cfg, runner1, policy, pol, ratings, T)
+    del runner1
+    torch.cuda.empty_cache()
+    busy_ms = k1_ms = None
+    if kernels is not None:
+        busy_ms = sum(ms for _, ms in kernels.values())
+        k1_ms = profiled_kernel_ms(kernels, T)["merged_min_sums"]
+    update = sc._ddpg_update_shared
+
+    def labelled_update(*args, **kwargs):
+        with torch.profiler.record_function(LEARN_SPAN):
+            return update(*args, **kwargs)
+
+    sc._ddpg_update_shared = labelled_update
+    try:
+        policy, ratings, runner_e = chunked_runner(cfg, False, 1)
+        kernels_e, learn_ms, eager_s = profile_chunk(cfg, runner_e, policy, pol, ratings, T, LEARN_SPAN)
+    finally:
+        sc._ddpg_update_shared = update
+    busy_e = None if kernels_e is None else sum(ms for _, ms in kernels_e.values())
+    row = dict(
+        row="northstar", card=card, A=A, S=S, K=K, T=T, market=resolve_market_impl(cfg, "cuda"),
+        market_dtype=resolve_market_dtype(cfg, "cuda"),
+        env_steps_per_s=steps / secs, episode_s=secs, s_per_chunk=secs / K,
+        warm_episode_s=warm_s, graph=graph,
+        busy_ms_per_chunk=busy_ms, one_chunk_episode_s=chunk_s,
+        idle_share=None if busy_ms is None else 1 - busy_ms / (chunk_s * 1e3),
+        idle_share_of_timed_episode=None if busy_ms is None else 1 - busy_ms / (secs / K * 1e3),
+        k1_launches=launches["merged_min_sums"], k1_device_ms_per_call=k1_ms,
+        peak_memory_gib=peak / 2**30,
+        eager_chunk_s=eager_s, eager_busy_ms=busy_e,
+        learn_device_ms_per_slot=None if learn_ms is None else learn_ms / T,
+        learn_share_of_busy=None if learn_ms is None or not busy_e else learn_ms / busy_e,
+        pooled_batch=sc.ddpg_pooled_batch(cfg),
+        rewards_mean=float(rew1.mean()), final_loss=float(loss1.mean()),
+    )
+    log(f"phase 5: {json.dumps(row)}")
+    return row, launches
+
+
+def phase_cfg4_chunked(counters, card):
+    """The DDPG cfg4 row (A=1000, S=64, B=4, ring 256) through the chunked
+    graph path at K=1: one warm episode, one timed, beside phase 4's eager
+    row in this call."""
+    import torch
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+
+    cfg = chunked_config(tc, "ddpg", 1000, 64, buffer_size=256, batch_size=4)
+    policy, ratings, runner = chunked_runner(cfg, True, 1)
+    T = runner.episode_fn.n_slots
+    pol = sc.init_shared_pol_state(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    pol, _, _, warm_s = sc.train_scenarios_chunked(cfg, policy, pol, ratings, 0, 1, 1, runner=runner)
+    for fn in counters.values():
+        fn.launches = 0
+    pol, rew, _, secs = sc.train_scenarios_chunked(cfg, policy, pol, ratings, 1, 1, 1, runner=runner, episode0=1)
+    if counters["merged_min_sums"].launches != T:
+        fail(f"cfg4 chunked: K1 launched {counters['merged_min_sums'].launches} times, expected {T}")
+    row = dict(row="ddpg cfg4 chunked graph", card=card, A=1000, S=64, K=1, env_steps_per_s=64 * T / secs,
+               ms_per_slot=secs / T * 1e3, warm_episode_s=warm_s)
+    log(f"phase 5: {json.dumps(row)}")
+    del runner
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> None:
     import torch
 
@@ -1409,15 +1736,39 @@ def main() -> None:
         "prep_mean": mm.prep_mean,
         "slot_step_fused": slot_step_fused,
     }
+    # With no arguments every phase runs (the check); a comma-separated list
+    # of phase numbers (e.g. "2,5") runs only those, builds first, and prints
+    # no result line.
+    phases = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else {"2", "3", "4", "5"}
     start = time.perf_counter()
-    phase_device_and_build()
-    records = [phase_kernels()] + phase_matrix_kernels() + [phase_slot_kernel()]
-    log(f"phase 2: kernels match their plain versions ({time.perf_counter() - start:.1f} s)")
-    phase_small_parity()
-    phase_ddpg_parity()
-    log(f"phase 3 done ({time.perf_counter() - start:.1f} s)")
-    launches, profiled, ddpg_rows = phase_main_path(counters)
-    on_path = {name for run in MAIN_RUNS for name in run[7]}
+    card = phase_device_and_build()
+    if "2" in phases:
+        records = [phase_kernels()] + phase_matrix_kernels() + [phase_slot_kernel()]
+        log(f"phase 2: kernels match their plain versions ({time.perf_counter() - start:.1f} s)")
+    if "3" in phases:
+        phase_small_parity()
+        phase_ddpg_parity()
+        log(f"phase 3 done ({time.perf_counter() - start:.1f} s)")
+    launches, profiled, ddpg_rows = {name: 0 for name in counters}, {}, []
+    if "4" in phases:
+        launches, profiled, ddpg_rows = phase_main_path(counters)
+        log(f"phase 4 done ({time.perf_counter() - start:.1f} s)")
+    chunked = {}
+    if "5" in phases:
+        chunked["graph_vs_eager"], chunk_launches = phase_graph_vs_eager(counters)
+        phase_chunked_small_parity()
+        chunked["northstar"], northstar_launches = phase_northstar(counters, card)
+        chunked["cfg4_chunked_graph"] = phase_cfg4_chunked(counters, card)
+        for name in launches:
+            launches[name] += chunk_launches[name] + northstar_launches[name]
+        log(json.dumps({"chunked": chunked}))
+        log(f"phase 5 done ({time.perf_counter() - start:.1f} s)")
+    if phases != {"2", "3", "4", "5"}:
+        log(f"partial run of phases {sorted(phases)}: no result ({time.perf_counter() - start:.1f} s)")
+        return
+    on_path = {name for run in MAIN_RUNS for name in run[7]} | {
+        name for run in CHUNK_RUNS for name in run[4]
+    }
     for name in on_path:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
@@ -1436,6 +1787,7 @@ def main() -> None:
             if name == "merged_min_sums":
                 rec["at_2048x50"][key] = profiled[name].get((2048, 50, "ddpg", 1))
                 rec["ddpg_64x1000"] = {key: profiled[name].get((64, 1000, "ddpg", 1))}
+                rec["at_128x1000"][key] = chunked["northstar"]["k1_device_ms_per_call"]
             if name == "slot_step_fused":
                 rec["dqn_64x1000"][key] = profiled[name].get((64, 1000, "dqn", 1))
                 rec["matrix_r2_64x1000"][key] = profiled[name].get((64, 1000, "tabular", 2))

@@ -7,7 +7,9 @@ the factored market, whose merged min pass is the hand-written CUDA kernel
 ``csrc/merged_min.cu``, with the multi-round matrix negotiation, whose split
 and clearing passes are the CUDA kernels of ``csrc/matrix_market.cu``, and
 with the fused slot, the whole slot as the one CUDA kernel
-``csrc/slot_fused.cu``.
+``csrc/slot_fused.cu``; and chunked aggregate-scenario training, its traces
+made on the device and each chunk episode replayed as one CUDA graph
+(``parallel/device_gen.py``, ``parallel/graph.py``).
 Entry points default to ``device="cuda"`` and raise without a card unless the
 caller passes ``device="cpu"``.
 """

@@ -102,8 +102,10 @@ def _load_adam(opt: torch.optim.Adam, net, opt_state) -> None:
     for name in _LAYERS:
         for field in ("kernel", "bias"):
             p = getattr(getattr(net, name), field)
+            # A capturable Adam (on the card) keeps its count on the device.
+            on = p.device if opt.defaults["capturable"] else "cpu"
             opt.state[p] = {
-                "step": torch.tensor(float(counts[0]), dtype=torch.float32),
+                "step": torch.tensor(float(counts[0]), dtype=torch.float32, device=on),
                 "exp_avg": _tensor(adam.mu[name][field], p.device),
                 "exp_avg_sq": _tensor(adam.nu[name][field], p.device),
             }

@@ -78,6 +78,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <mutex>
 
 #include "slot_ops.cuh"
 
@@ -1051,10 +1052,9 @@ cudaError_t opt_in(int dev) {
 // once, or as the largest phase has work items if fewer. grid gets (blocks,
 // blocks per SM, SMs, shared memory bytes per block).
 template <int kPolicy>
-cudaError_t grid_of(int S, int A, int R, int market, int* grid) {
-  int dev = 0, coop = 0, sms = 0, limit = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+cudaError_t query_grid(int dev, int S, int A, int R, int market, int* grid) {
+  int coop = 0, sms = 0, limit = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
@@ -1075,6 +1075,39 @@ cudaError_t grid_of(int S, int A, int R, int market, int* grid) {
   return cudaSuccess;
 }
 
+// The grid of query_grid, asked of the device once per (device, shape,
+// rounds, market) and kept: a launch then makes no device query, which also
+// keeps the launch path free of calls that a CUDA graph capture would not
+// record (parallel/graph.py captures K7 inside a whole episode).
+template <int kPolicy>
+cudaError_t grid_of(int S, int A, int R, int market, int* grid) {
+  struct Entry {
+    int dev, S, A, R, market;
+    int grid[4];
+  };
+  constexpr int kEntries = 64;
+  static Entry cache[kEntries];
+  static int filled = 0;
+  static std::mutex lock;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> guard(lock);
+  for (int k = 0; k < filled; ++k) {
+    const Entry& e = cache[k];
+    if (e.dev == dev && e.S == S && e.A == A && e.R == R && e.market == market) {
+      for (int j = 0; j < 4; ++j) grid[j] = e.grid[j];
+      return cudaSuccess;
+    }
+  }
+  err = query_grid<kPolicy>(dev, S, A, R, market, grid);
+  if (err == cudaSuccess && filled < kEntries) {
+    Entry& e = cache[filled++];
+    e = Entry{dev, S, A, R, market, {grid[0], grid[1], grid[2], grid[3]}};
+  }
+  return err;
+}
+
 cudaError_t check_ints(const int* ints) {
   const int S = ints[I_S], A = ints[I_A], R = ints[I_R];
   if (S <= 0 || A <= 0 || R <= 0 || (ints[I_MARKET] == kFactored && R > 2))
@@ -1089,9 +1122,21 @@ cudaError_t launch_policy(const Args& g, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   Args a = g;
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(slot_fused_kernel<kPolicy>),
-                                    dim3(grid[0]), dim3(kThreads), args,
-                                    static_cast<size_t>(grid[3]), stream);
+  // A cooperative launch through the extensible launch API: stream capture
+  // keeps the cooperative attribute on the graph's kernel node, so a replay
+  // launches the whole grid co-resident, as the grid barriers need.
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(grid[0]);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = static_cast<size_t>(grid[3]);
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelExC(&config, reinterpret_cast<const void*>(slot_fused_kernel<kPolicy>),
+                            args);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -28,7 +28,7 @@ import torch
 
 from p2pmicrogrid_tpu_torch.config import DDPGConfig
 from p2pmicrogrid_tpu_torch.device import resolve_device
-from p2pmicrogrid_tpu_torch.models.networks import Actor, Critic
+from p2pmicrogrid_tpu_torch.models.networks import Actor, Critic, adam
 from p2pmicrogrid_tpu_torch.ops._f32 import sqrt as f32_sqrt
 
 OBS_DIM = 4
@@ -58,10 +58,7 @@ class DDPGParams(NamedTuple):
 def make_optimizers(
     cfg: DDPGConfig, actor: Actor, critic: Critic
 ) -> Tuple[torch.optim.Adam, torch.optim.Adam]:
-    """optax.adam defaults (b1=0.9, b2=0.999, eps=1e-8) at the config's lrs."""
-    adam = lambda net, lr: torch.optim.Adam(
-        net.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8
-    )
+    """One Adam (``adam``) per network at the config's lrs."""
     return adam(actor, cfg.actor_lr), adam(critic, cfg.critic_lr)
 
 
@@ -167,7 +164,8 @@ def polyak(tau: float, target: torch.nn.Module, online: torch.nn.Module) -> None
 
 def adam_count(opt: torch.optim.Adam) -> int:
     """The optimizer's step count (optax's ``ScaleByAdamState.count``), read
-    on the host: a step count that is not on the device."""
+    on the host (a capturable Adam's count is on the device: reading it
+    waits for the device)."""
     state = opt.state.get(opt.param_groups[0]["params"][0])
     return int(state["step"]) if state else 0
 
@@ -179,6 +177,7 @@ def ddpg_learn_batch(
     a: torch.Tensor,
     r: torch.Tensor,
     ns: torch.Tensor,
+    actor_step: Optional[bool] = None,
 ) -> torch.Tensor:
     """One DDPG gradient step on a transition batch, in place: the critic's
     TD(0) step toward the target bootstrap, then the actor's policy gradient
@@ -188,6 +187,9 @@ def ddpg_learn_batch(
     [A, N, 4], [A, N, 1], [A, N]. With ``actor_delay_updates`` the actor and
     its Adam state hold still while the critic's step count, read after its
     step, is below it; the actor target still moves toward the held actor.
+    ``actor_step`` gives that decision from a count the caller knows on the
+    host; None reads the count, except at ``actor_delay_updates=0``, where
+    the actor always steps and nothing is read.
 
     Returns the per-sample squared critic residual, [N] or [A, N].
     """
@@ -199,7 +201,12 @@ def ddpg_learn_batch(
     sq.mean(dim=-1).sum().backward()
     params.critic_opt.step()
 
-    if adam_count(params.critic_opt) >= cfg.actor_delay_updates:
+    if actor_step is None:
+        actor_step = (
+            cfg.actor_delay_updates <= 0
+            or adam_count(params.critic_opt) >= cfg.actor_delay_updates
+        )
+    if actor_step:
         actor_params = list(params.actor.parameters())
         q_pi = params.critic(s, params.actor(s))[..., 0]
         grads = torch.autograd.grad(-q_pi.mean(dim=-1).sum(), actor_params)

@@ -26,7 +26,7 @@ import torch
 
 from p2pmicrogrid_tpu_torch.config import DQNConfig
 from p2pmicrogrid_tpu_torch.device import resolve_device
-from p2pmicrogrid_tpu_torch.models.networks import QNetwork
+from p2pmicrogrid_tpu_torch.models.networks import QNetwork, adam
 from p2pmicrogrid_tpu_torch.models.replay import ReplayState, replay_init
 
 ACTION_VALUES = (0.0, 0.5, 1.0)  # rl.py:153
@@ -52,10 +52,9 @@ class DQNState(NamedTuple):
 
 
 def make_optimizer(cfg: DQNConfig, online: QNetwork) -> torch.optim.Adam:
-    """optax.adam(learning_rate) defaults: b1=0.9, b2=0.999, eps=1e-8."""
-    return torch.optim.Adam(
-        online.parameters(), lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8
-    )
+    """optax.adam(learning_rate), capturable on the card
+    (``models/networks.py::adam``)."""
+    return adam(online, cfg.learning_rate)
 
 
 def dqn_init(

@@ -137,3 +137,16 @@ class Actor(_ThreeLayer):
 
     def forward(self, state: torch.Tensor) -> torch.Tensor:
         return torch.sigmoid(self._layers(state))
+
+
+def adam(net: torch.nn.Module, lr: float) -> torch.optim.Adam:
+    """optax.adam's defaults (b1=0.9, b2=0.999, eps=1e-8) over ``net``'s
+    parameters. On the card it is ``capturable``: its step count lives on the
+    device and every step is device work, so a CUDA graph can hold it
+    (``parallel/graph.py``); its bias correction then rounds in float32 on
+    the device rather than in double on the host. On the CPU the step count
+    is a host number."""
+    on_card = next(net.parameters()).is_cuda
+    return torch.optim.Adam(
+        net.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, capturable=on_card
+    )

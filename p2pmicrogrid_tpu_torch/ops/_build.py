@@ -17,7 +17,7 @@ import os
 import re
 import subprocess
 import threading
-from typing import Callable, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -126,3 +126,25 @@ def launch(what: str, device: torch.device, c_fn, *args) -> None:
         err = c_fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+# Launches recorded into a CUDA graph by the capture under way
+# (``parallel/graph.py::capture``), by wrapper; None outside a capture.
+_capture_tally: Optional[Dict[Callable, int]] = None
+
+
+def count_launch(wrapper: Callable) -> None:
+    """Add one to ``wrapper.launches`` where the wrapper launches its kernel
+    on the card. Under CUDA graph capture the kernel is recorded, not run:
+    the capture tallies it, and each replay of the graph adds the tally
+    (``parallel/graph.py``). A capture that ``parallel/graph.py`` did not
+    start raises."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
+        return
+    if _capture_tally is None:
+        raise RuntimeError(
+            f"{wrapper.__name__}: a kernel launch under a CUDA graph capture that "
+            "parallel/graph.py::capture did not start would go uncounted"
+        )
+    _capture_tally[wrapper] = _capture_tally.get(wrapper, 0) + 1

@@ -41,7 +41,7 @@ from typing import Tuple
 
 import torch
 
-from p2pmicrogrid_tpu_torch.ops._build import KernelLibrary, launch
+from p2pmicrogrid_tpu_torch.ops._build import KernelLibrary, count_launch, launch
 from p2pmicrogrid_tpu_torch.ops._f32 import recip
 from p2pmicrogrid_tpu_torch.ops.market import clear_market, divide_power
 
@@ -274,7 +274,7 @@ def prep_mean(p2p: torch.Tensor) -> torch.Tensor:
         "prep_mean", p2p.device, LIBRARY.load().prep_mean_launch, p2p.data_ptr(),
         mean.data_ptr(), s, a, int(p2p.dtype == torch.bfloat16),
     )
-    prep_mean.launches += 1
+    count_launch(prep_mean)
     return mean
 
 
@@ -311,7 +311,7 @@ def divide_power_fused(p2p: torch.Tensor, out_power: torch.Tensor) -> torch.Tens
     if p2p.device.type != "cuda":
         return divide_power_fused_plain(p2p, out_power)
     new, _ = _divide("divide_power_fused", p2p, out_power, with_mean=False)
-    divide_power_fused.launches += 1
+    count_launch(divide_power_fused)
     return new
 
 
@@ -323,7 +323,7 @@ def divide_power_fused_with_mean(
     if p2p.device.type != "cuda":
         return divide_power_fused_with_mean_plain(p2p, out_power)
     out = _divide("divide_power_fused_with_mean", p2p, out_power, with_mean=True)
-    divide_power_fused_with_mean.launches += 1
+    count_launch(divide_power_fused_with_mean)
     return out
 
 
@@ -343,7 +343,7 @@ def divide_rank1_fused(
     _check_vec(fn, "prev_out", prev_out, (s, a), prev_out.device)
     _check_vec(fn, "out_power", out_power, (s, a), prev_out.device)
     out = _divide_rank1(prev_out, out_power, out_dtype)
-    divide_rank1_fused.launches += 1
+    count_launch(divide_rank1_fused)
     return out
 
 
@@ -384,7 +384,7 @@ def clear_market_fused(p2p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         p2p.data_ptr(), grid.data_ptr(), peer.data_ptr(), parts.data_ptr(), s, a,
         int(p2p.dtype == torch.bfloat16),
     )
-    clear_market_fused.launches += 1
+    count_launch(clear_market_fused)
     return grid, peer
 
 

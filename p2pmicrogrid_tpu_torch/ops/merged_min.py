@@ -27,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from p2pmicrogrid_tpu_torch.ops._build import KernelLibrary, launch
+from p2pmicrogrid_tpu_torch.ops._build import KernelLibrary, count_launch, launch
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -112,7 +112,7 @@ def merged_min_sums(
         *(x.data_ptr() for x in args), row.data_ptr(), col.data_ptr(),
         None if partial is None else partial.data_ptr(), s, a,
     )
-    merged_min_sums.launches += 1
+    count_launch(merged_min_sums)
     return row, col
 
 

@@ -40,7 +40,7 @@ import torch
 from p2pmicrogrid_tpu_torch.config import CENTS_PER_EURO, HOURS_PER_DAY, ExperimentConfig
 from p2pmicrogrid_tpu_torch.models.dqn import _q_all_actions, action_values_on
 from p2pmicrogrid_tpu_torch.models.tabular import q_rows
-from p2pmicrogrid_tpu_torch.ops._build import KernelLibrary, launch
+from p2pmicrogrid_tpu_torch.ops._build import KernelLibrary, count_launch, launch
 from p2pmicrogrid_tpu_torch.ops._f32 import recip, sqrt
 from p2pmicrogrid_tpu_torch.ops.battery import battery_rule_update
 from p2pmicrogrid_tpu_torch.ops.factored_market import (
@@ -442,7 +442,7 @@ def slot_raw(
     raw = _launch_kernel(
         cfg, pol_state, phys_s, xs, draws, ratings, explore, market_impl, compute_dtype
     )
-    slot_step_fused.launches += 1
+    count_launch(slot_step_fused)
     return raw
 
 

@@ -16,19 +16,25 @@ An episode is a Python loop over the 96 slots on the device; it makes no
 host synchronisation inside the loop. Randomness comes from an explicit
 ``torch.Generator``, or from precomputed ``EpisodeDraws`` (the tests feed the
 JAX package's own draws through them).
+
+The chunked mode (``train_scenarios_chunked``) runs K chunks of S scenarios
+an episode, each with traces made on the device (``device_gen.py``) and a
+fresh per-chunk state, and applies the mean of the chunks' parameter
+deltas; on the card each chunk is one CUDA graph replay (``graph.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time as _time
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from p2pmicrogrid_tpu_torch.config import ExperimentConfig
 from p2pmicrogrid_tpu_torch.data.traces import (
+    SLOTS_PER_DAY,
     TraceSet,
     agent_profiles,
     next_slot,
@@ -46,6 +52,7 @@ from p2pmicrogrid_tpu_torch.envs.community import (
 )
 from p2pmicrogrid_tpu_torch.models.ddpg import (
     DDPGParams,
+    adam_count,
     ddpg_learn_batch,
     set_learning_rates,
 )
@@ -68,6 +75,7 @@ from p2pmicrogrid_tpu_torch.models.replay import (
 from p2pmicrogrid_tpu_torch.models.tabular import TabularState, q_rows
 from p2pmicrogrid_tpu_torch.ops._f32 import recip
 from p2pmicrogrid_tpu_torch.ops.obs import discretize
+from p2pmicrogrid_tpu_torch.parallel.device_gen import TraceDraws, device_episode_arrays, draw_traces
 from p2pmicrogrid_tpu_torch.train.policies import init_policy_state
 
 
@@ -87,6 +95,9 @@ class EpisodeDraws(NamedTuple):
     stripe_starts: [T, n_stripes] integer in [0, B * S * A) — DDPG's stripe
         offsets into the pooled batch where ``learn_batch_cap`` caps it
         (``ddpg_stripes``; None otherwise)
+    traces: ``TraceDraws`` — the draws the episode's traces are made from
+        where its episode function makes them on the device (``arrays_fn``;
+        None otherwise)
     """
 
     uniform: Optional[torch.Tensor]
@@ -95,6 +106,7 @@ class EpisodeDraws(NamedTuple):
     replay_idx: Optional[torch.Tensor] = None
     ou_normals: Optional[torch.Tensor] = None
     stripe_starts: Optional[torch.Tensor] = None
+    traces: Optional[TraceDraws] = None
 
 
 def make_scenario_traces(
@@ -320,6 +332,7 @@ def _ddpg_update_shared(
     tr,
     idx: torch.Tensor,
     starts: Optional[torch.Tensor] = None,
+    actor_step: Optional[bool] = None,
 ) -> Tuple[DDPGParams, DDPGScenState, torch.Tensor]:
     """Shared DDPG parameters, per-scenario replay (JAX source, :547-708):
     add the slot's transitions (the action as its clipped fraction), sample
@@ -333,6 +346,9 @@ def _ddpg_update_shared(
       A]`` batch, or, where ``ddpg_stripes`` caps it, on the stripes at
       offsets ``starts`` [n_stripes] into that flattened batch, the rows
       gathered by ``index_select`` on the device.
+
+    ``actor_step`` is ``ddpg_learn_batch``'s (the delayed actor's decision
+    from a count known on the host).
 
     Returns (params, scen, loss [S]): the per-scenario mean of the per-sample
     squared critic residuals; under the cap, the mean over each scenario's
@@ -349,7 +365,7 @@ def _ddpg_update_shared(
         pool = s.shape[0] * S * A
         rows = (starts[:, None] + torch.arange(length, device=starts.device)).reshape(-1) % pool
         take = lambda x: x.reshape((pool,) + tuple(x.shape[3:])).index_select(0, rows)
-        sq = ddpg_learn_batch(d, params, take(s), take(a), take(r), take(ns))
+        sq = ddpg_learn_batch(d, params, take(s), take(a), take(r), take(ns), actor_step)
         # Row i of the flattened [B, S, A] sample is scenario (i // A) % S.
         scenario = (rows // A) % S
         one_hot = (scenario[:, None] == torch.arange(S, device=rows.device)).to(sq.dtype)
@@ -357,11 +373,11 @@ def _ddpg_update_shared(
         loss = torch.where(hit > 0, (sq @ one_hot) / hit.clamp(min=1.0), sq.mean())
     elif d.share_across_agents:
         flat = lambda x: x.reshape((-1,) + tuple(x.shape[3:]))
-        sq = ddpg_learn_batch(d, params, flat(s), flat(a), flat(r), flat(ns))
+        sq = ddpg_learn_batch(d, params, flat(s), flat(a), flat(r), flat(ns), actor_step)
         loss = sq.reshape(-1, S, A).mean(dim=(0, 2))  # [B * S * A] in (B, S, A) order
     else:
         pool = lambda x: x.movedim(2, 0).reshape((A, -1) + tuple(x.shape[3:]))
-        sq = ddpg_learn_batch(d, params, pool(s), pool(a), pool(r), pool(ns))
+        sq = ddpg_learn_batch(d, params, pool(s), pool(a), pool(r), pool(ns), actor_step)
         loss = sq.reshape(A, -1, S).mean(dim=(0, 1))  # [A, B * S] in (B, S) order
     return params, scen._replace(replay=replay), loss
 
@@ -413,67 +429,97 @@ def auto_scale_ddpg_lrs(
 def make_shared_episode_fn(
     cfg: ExperimentConfig,
     policy: Policy,
-    arrays_s: EpisodeArrays,
+    arrays_s: Optional[EpisodeArrays],
     ratings: AgentRatings,
     record_only: bool = False,
     fused: Optional[bool] = None,
+    arrays_fn: Optional[Callable[[TraceDraws], EpisodeArrays]] = None,
+    n_scenarios: Optional[int] = None,
+    device="cuda",
 ) -> Callable:
     """One shared-parameter training episode over S scenarios.
 
-    Returns ``episode(carry, generator=None, draws=None) -> (carry,
-    (rewards [S], losses [S]))`` with ``carry = (pol_state, scen_state)``
-    (``init_shared_state``). Draws come from ``generator`` (a
-    ``torch.Generator`` on the arrays' device: the initial-temperature
-    normals, then per slot the exploration draws of every round (tabular and
-    DQN: uniforms and random actions; DDPG: OU normals) and, for a learn
-    step, the B replay indices and DDPG's stripe offsets), or, when
-    ``draws`` (``EpisodeDraws``) is given, from it alone. Rewards are the
-    per-scenario sums over slots of the agent-mean reward; losses the
+    Returns ``episode(carry, generator=None, draws=None, learn_steps=None)
+    -> (carry, (rewards [S], losses [S]))`` with ``carry = (pol_state,
+    scen_state)`` (``init_shared_state``). Draws come from ``generator`` (a
+    ``torch.Generator`` on the episode's device: the initial-temperature
+    normals, the trace draws where ``arrays_fn`` makes the traces, then per
+    slot the exploration draws of every round (tabular and DQN: uniforms and
+    random actions; DDPG: OU normals) and, for a learn step, the B replay
+    indices and DDPG's stripe offsets, each drawn as the slot needs it), or,
+    when ``draws`` (``EpisodeDraws``) is given, from it alone. Rewards are
+    the per-scenario sums over slots of the agent-mean reward; losses the
     per-scenario means over slots of the learn loss. The learner state
     updates in place.
 
+    The episode's inputs are ``arrays_s`` (fixed arrays [S, T, ...] on the
+    device), or, given ``arrays_fn(trace_draws) -> EpisodeArrays`` with
+    ``n_scenarios`` instead, made anew every episode on ``device`` from the
+    episode's ``TraceDraws`` (``device_gen.py``; one day, T = 96). Either way
+    each slot reads time-major buffers allocated here once, so a CUDA graph
+    of the episode reads fixed addresses (``parallel/graph.py``).
+
     DDPG learns at the lrs of ``auto_scale_ddpg_lrs`` for this S, which the
     episode sets on its optimizers each time it runs (the JAX package bakes
-    them into its episode program).
+    them into its episode program). With ``actor_delay_updates`` the actor
+    steps once the critic's count reaches it: ``learn_steps``, the critic's
+    count before the episode as the caller knows it on the host, decides
+    each slot's step there; None reads the count once, before the slots.
 
     ``fused`` runs every slot through the fused slot (kernel K7 on the card;
     tabular and DQN only); None resolves ``SimConfig.fused_slot``.
     ``record_only=True`` (DQN only) builds the replay-warmup episode: act and
     record transitions, no parameter update, loss 0 (the reference's
     ``init_buffers``, community.py:125-147).
+
+    ``episode.draw(generator, replay_count=0)`` makes every draw of one
+    episode up front, on the device, as one ``EpisodeDraws`` (what a CUDA
+    graph of the episode reads; the chunked trainer's, ``ChunkDraws``):
+    ``replay_count`` is the ring's fill count when the episode starts, which
+    bounds each slot's replay indices. The generator path above draws slot
+    by slot instead, which keeps the episode's draws out of device memory
+    (at A=1000, S=64, rounds=2 they would be 221 MB). ``episode.n_scenarios``,
+    ``episode.n_slots`` and ``episode.device`` say what it runs on.
     """
     impl = cfg.train.implementation
     if impl not in ("tabular", "dqn", "ddpg"):
         raise ValueError(f"shared-scenario training supports tabular/dqn/ddpg, got {impl!r}")
     if record_only and impl != "dqn":
         raise ValueError("record_only warmup applies to dqn only")
+    if (arrays_s is None) == (arrays_fn is None):
+        raise ValueError("pass exactly one of arrays_s or arrays_fn")
+    if arrays_fn is not None and n_scenarios is None:
+        raise ValueError("arrays_fn requires an explicit n_scenarios")
     if fused is None:
         fused = resolve_use_fused(cfg)
     if fused and impl == "ddpg":
         raise ValueError(f"fused episodes support tabular/dqn, got {impl!r}")
-    device = arrays_s.load_w.device
-    S, T, A = arrays_s.load_w.shape
+    A = cfg.sim.n_agents
+    if arrays_s is not None:
+        device = arrays_s.load_w.device
+        S, T, A = arrays_s.load_w.shape
+    else:
+        device = resolve_device(device)
+        S, T = n_scenarios, SLOTS_PER_DAY
     R = cfg.sim.rounds + 1 if cfg.sim.trading else 1
     cfg = auto_scale_ddpg_lrs(cfg, S)
     stripes = ddpg_stripes(cfg, S, A) if impl == "ddpg" else None
     ratings_d = ratings_to(ratings, device)
-    # Time-major copies, so each slot reads contiguous [S, ...] rows.
-    xs = tuple(
-        x.transpose(0, 1).contiguous()
-        for x in (
-            arrays_s.time,
-            arrays_s.t_out,
-            arrays_s.load_w,
-            arrays_s.pv_w,
-            arrays_s.next_time,
-            arrays_s.next_load_w,
-            arrays_s.next_pv_w,
+    # Time-major buffers, so each slot reads contiguous [S, ...] rows at
+    # addresses fixed for the episode function's life.
+    if arrays_s is not None:
+        xs = tuple(x.transpose(0, 1).contiguous() for x in arrays_s)
+    else:
+        per_agent = ("load_w", "pv_w", "next_load_w", "next_pv_w")
+        xs = tuple(
+            torch.empty((T, S, A) if f in per_agent else (T, S), dtype=torch.float32, device=device)
+            for f in EpisodeArrays._fields
         )
-    )
     # The random-action bound (pallas_slot.py:339-341).
     n_actions = cfg.qlearning.num_actions if impl == "tabular" else len(ACTION_VALUES)
     learns_from_replay = impl == "ddpg" or (impl == "dqn" and not record_only)
     batch_size = cfg.ddpg.batch_size if impl == "ddpg" else cfg.dqn.batch_size
+    delay = cfg.ddpg.actor_delay_updates if impl == "ddpg" else 0
 
     def check_draws(draws):
         missing = []
@@ -483,6 +529,8 @@ def make_shared_episode_fn(
             missing.append("ou_normals")
         if stripes is not None and draws.stripe_starts is None:
             missing.append("stripe_starts")
+        if arrays_fn is not None and draws.traces is None:
+            missing.append("traces")
         if missing:
             raise ValueError(f"a {impl} episode needs EpisodeDraws.{' and '.join(missing)}")
 
@@ -509,7 +557,37 @@ def make_shared_episode_fn(
         pool = batch_size * S * A
         return idx, torch.randint(0, pool, (stripes[0],), generator=generator, device=device)
 
-    def episode(carry, generator: Optional[torch.Generator] = None, draws=None):
+    def draw(generator: torch.Generator, replay_count: int = 0) -> EpisodeDraws:
+        """Every draw of one episode from ``generator``, made up front."""
+        normals = torch.randn((S, 2, A), generator=generator, device=device)
+        traces = None if arrays_fn is None else draw_traces(S, generator, device=device)
+        uniform = randint = ou = idx = starts = None
+        if impl == "ddpg":
+            ou = torch.randn((T, R, S, A), generator=generator, device=device)
+        else:
+            uniform = torch.rand((T, R, S, A), generator=generator, device=device)
+            randint = torch.randint(0, n_actions, (T, R, S, A), generator=generator, device=device)
+        if learns_from_replay:
+            # Slot t samples the ring after its add: uniform over its first
+            # min(replay_count + t + 1, capacity) entries.
+            cap = cfg.ddpg.buffer_size if impl == "ddpg" else cfg.dqn.buffer_size
+            count = (torch.arange(1, T + 1, device=device) + replay_count).clamp_(max=cap)[:, None]
+            u = torch.rand((T, batch_size), generator=generator, device=device)
+            idx = torch.minimum((u * count).long(), count - 1)
+            if stripes is not None:
+                pool = batch_size * S * A
+                starts = torch.randint(0, pool, (T, stripes[0]), generator=generator, device=device)
+        return EpisodeDraws(
+            uniform=uniform, randint=randint, normals=normals, replay_idx=idx,
+            ou_normals=ou, stripe_starts=starts, traces=traces,
+        )
+
+    def episode(
+        carry,
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[EpisodeDraws] = None,
+        learn_steps: Optional[int] = None,
+    ):
         pol_state, scen_state = carry
         if draws is None and generator is None:
             raise ValueError("episode needs a torch.Generator or EpisodeDraws")
@@ -518,8 +596,14 @@ def make_shared_episode_fn(
             normals = draws.normals
         else:
             normals = torch.randn((S, 2, A), generator=generator, device=device)
+        if arrays_fn is not None:
+            traces = draws.traces if draws is not None else draw_traces(S, generator, device=device)
+            for buf, x in zip(xs, arrays_fn(traces)):
+                buf.copy_(x.transpose(0, 1))
         if impl == "ddpg":
             set_learning_rates(cfg.ddpg, pol_state)
+            if delay > 0 and learn_steps is None:
+                learn_steps = adam_count(pol_state.critic_opt)
         phys_s = init_physical(cfg, normals, (S,), device=device)
         rewards = torch.empty((T, S), dtype=torch.float32, device=device)
         losses = torch.empty((T, S), dtype=torch.float32, device=device)
@@ -541,13 +625,19 @@ def make_shared_episode_fn(
                 )
             else:
                 idx, starts = learn_draws(t, generator, draws, scen_state.replay)
+                # The critic steps once a slot: its count after slot t's step.
+                actor_step = None if delay <= 0 else learn_steps + t + 1 >= delay
                 pol_state, scen_state, loss = _ddpg_update_shared(
-                    cfg, pol_state, scen_state._replace(ou=ou), tr, idx, starts
+                    cfg, pol_state, scen_state._replace(ou=ou), tr, idx, starts, actor_step
                 )
             rewards[t] = outputs.reward.mean(dim=-1)
             losses[t] = loss
         return (pol_state, scen_state), (rewards.sum(dim=0), losses.mean(dim=0))
 
+    episode.draw = draw
+    episode.n_scenarios = S
+    episode.n_slots = T
+    episode.device = device
     return episode
 
 
@@ -630,3 +720,367 @@ def train_scenarios_shared(
     seconds = _time.perf_counter() - start
     pol_state, scen_state = carry
     return pol_state, scen_state, rewards_np, losses_np, seconds
+
+
+# --- chunked aggregate-scenario training --------------------------------------
+
+
+class ChunkDraws(NamedTuple):
+    """Every random draw of one chunk, made up front.
+
+    ou_init: [S, A] float32 standard normals — DDPG's initial OU noise (None
+        otherwise)
+    warmup: one ``EpisodeDraws`` per DQN record-only pass (empty otherwise)
+    episode: the learning episode's ``EpisodeDraws``, with its ``traces``
+    """
+
+    ou_init: Optional[torch.Tensor]
+    warmup: Tuple[EpisodeDraws, ...]
+    episode: EpisodeDraws
+
+
+def _splitmix64(x: np.ndarray) -> np.ndarray:
+    """splitmix64's finaliser on uint64 arrays (wrapping arithmetic)."""
+    x = x + np.uint64(0x9E3779B97F4A7C15)
+    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+def chunk_seed_schedule(seed: int, episode0: int, n_episodes: int, n_chunks: int) -> np.ndarray:
+    """Every (episode, chunk) seed of a chunked run at once: [E, K] int64,
+    chunk c of episode ``episode0 + e`` hashing (seed, episode, chunk) with
+    splitmix64, on the host. The counterpart of the JAX package's
+    ``chunk_key_schedule`` (``fold_in(fold_in(key, episode), chunk)``): the
+    port draws from ``torch.Generator``s seeded with these, not from
+    threefry keys."""
+    if seed < 0:
+        raise ValueError(f"seed must be non-negative, got {seed}")
+    episodes = np.arange(episode0, episode0 + n_episodes, dtype=np.uint64)[:, None]
+    chunks = np.arange(n_chunks, dtype=np.uint64)[None, :]
+    mixed = _splitmix64(_splitmix64(_splitmix64(np.array([seed], np.uint64)) + episodes) + chunks)
+    return (mixed >> np.uint64(1)).astype(np.int64)
+
+
+def _adam_leaves(opt: torch.optim.Adam, net: torch.nn.Module) -> List[Tuple[torch.Tensor, bool]]:
+    """Adam's moments and step count for each of ``net``'s parameters, with
+    the state torch would make at the first step made now where there is none
+    yet, so that the chunk average and a CUDA graph see it."""
+    leaves = []
+    for p in net.parameters():
+        st = opt.state[p]
+        if not st:
+            on = p.device if opt.defaults["capturable"] else "cpu"
+            st["step"] = torch.zeros((), dtype=torch.float32, device=on)
+            st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        leaves += [(st["exp_avg"], False), (st["exp_avg_sq"], False), (st["step"], True)]
+    return leaves
+
+
+def learner_leaves(pol_state) -> List[Tuple[torch.Tensor, bool]]:
+    """Every tensor of a shared learner state that the chunked update
+    averages (what the JAX package's ``tree_map`` covers), each with whether
+    it is an Adam step count: the tabular Q-table; DQN's online and target
+    networks; DDPG's actor, critic and both targets; each Adam's moments and
+    count; and the exploration scale (``epsilon``, ``noise_scale``)."""
+    if isinstance(pol_state, TabularState):
+        return [(pol_state.q_table, False), (pol_state.epsilon, False)]
+    if isinstance(pol_state, DQNState):
+        nets = (pol_state.online, pol_state.target)
+        opts = ((pol_state.opt_state, pol_state.online),)
+        scale = pol_state.epsilon
+    elif isinstance(pol_state, DDPGParams):
+        nets = (pol_state.actor, pol_state.critic, pol_state.actor_target, pol_state.critic_target)
+        opts = ((pol_state.actor_opt, pol_state.actor), (pol_state.critic_opt, pol_state.critic))
+        scale = pol_state.noise_scale
+    else:
+        raise TypeError(f"no chunked update for {type(pol_state).__name__}")
+    leaves = [(p.data, False) for net in nets for p in net.parameters()]
+    for opt, net in opts:
+        leaves += _adam_leaves(opt, net)
+    return leaves + [(scale, False)]
+
+
+def _learning_rates(pol_state) -> Tuple[float, ...]:
+    """Every learning rate of the learner's optimisers (none for tabular)."""
+    if isinstance(pol_state, DDPGParams):
+        opts = (pol_state.actor_opt, pol_state.critic_opt)
+    elif isinstance(pol_state, DQNState):
+        opts = (pol_state.opt_state,)
+    else:
+        opts = ()
+    return tuple(g["lr"] for opt in opts for g in opt.param_groups)
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    """The tensors of a tree of NamedTuples and tuples, in order (other
+    leaves, such as a ring's integer cursor, are skipped)."""
+    if torch.is_tensor(tree):
+        return [tree]
+    if not isinstance(tree, tuple):
+        return []
+    return [t for x in tree for t in _tensors(x)]
+
+
+def _map_tensors(fn: Callable, tree):
+    """The tree with ``fn`` applied to each tensor."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if not isinstance(tree, tuple):
+        return tree
+    items = [_map_tensors(fn, x) for x in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+
+
+def make_device_episode_fn(
+    cfg: ExperimentConfig,
+    policy: Policy,
+    ratings: AgentRatings,
+    record_only: bool = False,
+    device="cuda",
+) -> Callable:
+    """``make_shared_episode_fn`` over ``cfg.sim.n_scenarios`` scenarios
+    whose traces are made on ``device`` each episode
+    (``device_gen.py::device_episode_arrays``), the ratings copied there
+    once: the chunked trainer's episode function (``SimConfig.fused_slot``
+    selects the fused slot)."""
+    dev = resolve_device(device)
+    S = cfg.sim.n_scenarios
+    ratings_d = ratings_to(ratings, dev)
+    return make_shared_episode_fn(
+        cfg, policy, None, ratings, record_only=record_only,
+        arrays_fn=lambda d: device_episode_arrays(cfg, ratings_d, S, draws=d),
+        n_scenarios=S, device=dev,
+    )
+
+
+def make_chunked_episode_runner(
+    cfg: ExperimentConfig,
+    episode_fn: Callable,
+    n_chunks: int,
+    warmup_fn: Optional[Callable] = None,
+    chunk_parallel: int = 1,
+    graph: Optional[bool] = None,
+) -> Callable:
+    """The K-chunk episode: each chunk runs one episode from the episode's
+    starting state theta0 on its own fresh per-chunk state, and the update is
+    theta0 + mean_c(theta_c - theta0) over every leaf of ``learner_leaves``
+    (JAX source :1099-1255).
+
+    ``runner(theta0, seeds=None, draws=None, learn_steps=None) -> (state,
+    rewards [K*S], losses [K*S])`` in chunk-major order. Chunk c's draws come
+    from a ``torch.Generator`` seeded with ``seeds[c]`` (``ChunkDraws``:
+    DDPG's initial OU normals, then each DQN warmup pass's draws, then the
+    learning episode's), or are ``draws[c]`` (``ChunkDraws``; the tests feed
+    the JAX package's own through them). A chunk zeroes the runner's replay
+    ring (``init_scen_state_only``'s fresh state, its buffers allocated
+    once), runs ``cfg.dqn.warmup_passes`` record-only passes of
+    ``warmup_fn`` for DQN (JAX source :1173-1182; only the ring fills), then
+    ``episode_fn`` (a ``make_shared_episode_fn``). ``learn_steps`` is the DDPG
+    critic's Adam count at theta0, where ``actor_delay_updates`` needs it
+    (None reads it once).
+
+    The deltas are summed in chunk order from zero and scaled by the float32
+    reciprocal of K; Adam's step counts are truncated back to integers, as
+    the JAX package's ``(b + a / K).astype(b.dtype)`` does. The state
+    updates in place: the runner returns the learner state it holds.
+
+    ``graph`` (default: on a CUDA device) runs each chunk as the replay of
+    one CUDA graph of the whole chunk (``parallel/graph.py``), captured at
+    the first call, one for each pattern of the delayed actor's steps;
+    ``runner.graphs`` holds the captures. Without it the chunks run eagerly:
+    the reference the graph is held to.
+
+    ``chunk_parallel`` other than 1 (the JAX package's vmapped chunks) is
+    not ported: it raises ``NotImplementedError`` (ROADMAP.md, Queue 1).
+    """
+    if chunk_parallel != 1:
+        raise NotImplementedError(
+            f"chunk_parallel={chunk_parallel}: only chunk_parallel=1 is ported "
+            "(ROADMAP.md, Queue 1, chunk_parallel > 1)"
+        )
+    if n_chunks < 1:
+        raise ValueError(f"n_chunks must be >= 1, got {n_chunks}")
+    from p2pmicrogrid_tpu_torch.parallel import graph as cuda_graph
+
+    impl = cfg.train.implementation
+    device = episode_fn.device
+    S, T, A = episode_fn.n_scenarios, episode_fn.n_slots, cfg.sim.n_agents
+    use_graph = device.type == "cuda" if graph is None else graph
+    if use_graph and device.type != "cuda":
+        raise ValueError(f"a CUDA graph needs an episode on a CUDA device, got {device}")
+    n_warm = cfg.dqn.warmup_passes if impl == "dqn" and warmup_fn is not None else 0
+    delay = cfg.ddpg.actor_delay_updates if impl == "ddpg" else 0
+    # The per-chunk replay ring, allocated once and zeroed by every chunk.
+    capacity = {"dqn": cfg.dqn.buffer_size, "ddpg": cfg.ddpg.buffer_size}.get(impl)
+    ring = None if capacity is None else lockstep_replay_init(S, A, capacity, OBS_DIM, 1, device=device)
+    generator = torch.Generator(device=device)
+    graphs = {}
+
+    def draw_chunk(seed: int) -> ChunkDraws:
+        generator.manual_seed(int(seed))
+        ou = torch.randn((S, A), generator=generator, device=device) if impl == "ddpg" else None
+        warm = tuple(warmup_fn.draw(generator) for _ in range(n_warm))
+        return ChunkDraws(ou, warm, episode_fn.draw(generator, replay_count=n_warm * T))
+
+    def fresh_scen(ou_init):
+        """The chunk's fresh per-scenario state (``init_scen_state_only``'s)
+        in the runner's ring."""
+        if ring is None:
+            return None
+        for buf in _tensors(ring):
+            buf.zero_()
+        if impl == "dqn":
+            return ring
+        return DDPGScenState(replay=ring, ou=cfg.ddpg.ou_init_sd * ou_init)
+
+    def run_chunk(theta, cd: ChunkDraws, learn_steps):
+        carry = (theta, fresh_scen(cd.ou_init))
+        for wd in cd.warmup:
+            carry, _ = warmup_fn(carry, draws=wd)
+        _, (r, l) = episode_fn(carry, draws=cd.episode, learn_steps=learn_steps)
+        return r, l
+
+    def captured_for(key, theta0, snap, cd0, learn_steps):
+        """The chunk graph for this actor-step pattern, captured on first use
+        with theta0 as the state it holds."""
+        if key not in graphs:
+            live = [x for x, _ in learner_leaves(theta0)]
+            static = _map_tensors(torch.clone, cd0)
+
+            def stage():
+                torch._foreach_copy_(live, snap)
+                torch._foreach_copy_(_tensors(static), _tensors(cd0))
+
+            cap = cuda_graph.capture(lambda: run_chunk(theta0, static, learn_steps), stage)
+            graphs[key] = (cap, theta0, static, _learning_rates(theta0))
+        return graphs[key]
+
+    def runner(theta0, seeds=None, draws=None, learn_steps: Optional[int] = None):
+        if (seeds is None) == (draws is None):
+            raise ValueError("pass exactly one of seeds or draws")
+        chunks = list(seeds if draws is None else draws)
+        if len(chunks) != n_chunks:
+            raise ValueError(f"need {n_chunks} chunk seeds or ChunkDraws, got {len(chunks)}")
+        chunk_draws = (lambda c: chunks[c]) if draws is not None else (lambda c: draw_chunk(chunks[c]))
+        if delay > 0 and learn_steps is None:
+            learn_steps = adam_count(theta0.critic_opt)
+        snap = [x.clone() for x, _ in learner_leaves(theta0)]
+        cd = chunk_draws(0)
+        live = theta0
+        if use_graph:
+            # The delayed actor steps from slot `key` on in every chunk.
+            key = 0 if delay <= 0 else min(max(delay - learn_steps - 1, 0), T)
+            cap, live, static, lrs = captured_for(key, theta0, snap, cd, learn_steps)
+        leaves = learner_leaves(live)
+        live_t = [x for x, _ in leaves]
+        acc = [torch.zeros_like(x) for x in snap]
+        rewards = torch.empty((n_chunks, S), dtype=torch.float32, device=device)
+        losses = torch.empty((n_chunks, S), dtype=torch.float32, device=device)
+        for c in range(n_chunks):
+            if c:
+                cd = chunk_draws(c)
+            torch._foreach_copy_(live_t, snap)
+            if use_graph:
+                if _learning_rates(live) != lrs:
+                    raise RuntimeError(
+                        f"learning rates {_learning_rates(live)} differ from the captured {lrs}"
+                    )
+                torch._foreach_copy_(_tensors(static), _tensors(cd))
+                cuda_graph.replay(cap)
+                r, l = cap.outputs
+            else:
+                r, l = run_chunk(live, cd, learn_steps)
+            rewards[c].copy_(r)
+            losses[c].copy_(l)
+            torch._foreach_add_(acc, torch._foreach_sub(live_t, snap))
+        scale = recip(n_chunks)
+        for (x, is_count), b, a in zip(leaves, snap, acc):
+            new = b + a * scale
+            x.copy_(torch.trunc(new) if is_count else new)
+        return live, rewards.reshape(-1), losses.reshape(-1)
+
+    runner.graphs = graphs
+    runner.episode_fn = episode_fn
+    return runner
+
+
+def train_scenarios_chunked(
+    cfg: ExperimentConfig,
+    policy: Policy,
+    pol_state,
+    ratings: AgentRatings,
+    seed: int,
+    n_episodes: int,
+    n_chunks: int,
+    episode0: int = 0,
+    chunk_seed_fn: Optional[Callable[[int, int, int], int]] = None,
+    runner: Optional[Callable] = None,
+    chunk_parallel: int = 1,
+    draws: Optional[Sequence[Sequence[ChunkDraws]]] = None,
+    graph: Optional[bool] = None,
+    device="cuda",
+) -> Tuple[object, np.ndarray, np.ndarray, float]:
+    """Aggregate-scenario training: ``n_chunks x cfg.sim.n_scenarios``
+    Monte-Carlo scenarios an episode through one chunk-sized episode
+    function (JAX source :1257-1470).
+
+    Each chunk makes its own traces on ``device`` (``device_gen.py``) and
+    trains a whole episode from the episode's starting state; the applied
+    update is the mean of the chunks' parameter deltas
+    (``make_chunked_episode_runner``). Exploration decays after episode e
+    when ``(episode0 + e) % min_episodes_criterion == 0``. Chunk c of
+    episode e draws from ``chunk_seed_schedule(seed, ...)[e, c]``, or from
+    ``chunk_seed_fn(seed, episode0 + e, c)`` (the tests collapse chunks onto
+    one draw with it), or from ``draws[e][c]`` (``ChunkDraws``). Pass a
+    prebuilt ``runner`` to reuse it, and its captured graphs, across calls;
+    otherwise one is built on ``device`` with ``graph`` (default: a CUDA
+    graph on the card, ``parallel/graph.py``). DQN chunks warm their fresh
+    replay with ``cfg.dqn.warmup_passes`` record-only passes.
+    ``chunk_parallel`` other than 1 raises ``NotImplementedError``.
+
+    Returns (pol_state, rewards [episodes, K*S], losses [episodes, K*S],
+    seconds): chunk-major per-scenario records, read back once at the end;
+    the seconds end after the device finished. The learner state updates in
+    place.
+    """
+    if chunk_parallel != 1:
+        raise NotImplementedError(
+            f"chunk_parallel={chunk_parallel}: only chunk_parallel=1 is ported "
+            "(ROADMAP.md, Queue 1, chunk_parallel > 1)"
+        )
+    if draws is not None and len(draws) != n_episodes:
+        raise ValueError(f"need {n_episodes} lists of ChunkDraws, got {len(draws)}")
+    if runner is None:
+        episode_fn = make_device_episode_fn(cfg, policy, ratings, device=device)
+        warmup_fn = None
+        if cfg.train.implementation == "dqn" and cfg.dqn.warmup_passes > 0:
+            warmup_fn = make_device_episode_fn(cfg, policy, ratings, record_only=True, device=device)
+        runner = make_chunked_episode_runner(cfg, episode_fn, n_chunks, warmup_fn, graph=graph)
+    if draws is None and chunk_seed_fn is None:
+        seeds = chunk_seed_schedule(seed, episode0, n_episodes, n_chunks)
+    elif draws is None:
+        seeds = [[chunk_seed_fn(seed, episode0 + e, c) for c in range(n_chunks)] for e in range(n_episodes)]
+    learn_steps = None
+    if cfg.train.implementation == "ddpg" and cfg.ddpg.actor_delay_updates > 0:
+        # Read once: each episode adds one critic step a slot.
+        learn_steps = adam_count(pol_state.critic_opt)
+    decay_every = cfg.train.min_episodes_criterion
+    rewards, losses = [], []
+    start = _time.perf_counter()
+    for e in range(n_episodes):
+        if draws is None:
+            pol_state, r, l = runner(pol_state, seeds=seeds[e], learn_steps=learn_steps)
+        else:
+            pol_state, r, l = runner(pol_state, draws=draws[e], learn_steps=learn_steps)
+        if learn_steps is not None:
+            learn_steps += runner.episode_fn.n_slots
+        if decay_every and (episode0 + e) % decay_every == 0:
+            pol_state = policy.decay(pol_state)
+        rewards.append(r)
+        losses.append(l)
+    # One readback for the whole run; it also waits for the device.
+    rewards_np = torch.stack(rewards).cpu().numpy()
+    losses_np = torch.stack(losses).cpu().numpy()
+    return pol_state, rewards_np, losses_np, _time.perf_counter() - start

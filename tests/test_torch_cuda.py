@@ -320,7 +320,9 @@ def _ddpg_pair(share, cap):
 def test_ddpg_act_and_learn_step_match_cpu(cuda_generator, share, cap):
     """ddpg_shared_act and one _ddpg_update_shared step on the card against
     the port on the CPU, from the same state and draws, at the CPU tests'
-    tolerances (tests/test_torch_ddpg.py): actions and q rtol=1e-5,
+    tolerances (tests/test_torch_ddpg.py); on the card both optimisers are
+    capturable Adam (the step count on the device, the bias correction in
+    float32), on the CPU torch's host-count Adam: actions and q rtol=1e-5,
     atol=1e-6, the OU state bit for bit (its fused multiply-adds are emulated
     in float64 on both); after the step parameters and targets rtol=1e-5,
     atol=1e-7 (1e-2 of a learning-rate step where the gradient is within two
@@ -373,3 +375,63 @@ def test_ddpg_act_and_learn_step_match_cpu(cuda_generator, share, cap):
             getattr(pol_c, f"{name}_target").parameters(), getattr(pol_g, f"{name}_target").parameters()
         ):
             torch.testing.assert_close(pg.cpu(), pc, rtol=1e-5, atol=1e-7)
+
+
+# --- the chunked trainer: CUDA graph replay against the eager loop -----------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "impl,sim,kernel",
+    [
+        ("ddpg", dict(rounds=1, market_impl="factored"), "merged_min_sums"),
+        ("tabular", dict(rounds=1, market_impl="factored", fused_slot=True), "slot_step_fused"),
+        ("tabular", dict(rounds=2, market_impl="matrix"), "clear_market_fused"),
+        ("dqn", dict(rounds=1, market_impl="factored", fused_slot=True), "slot_step_fused"),
+    ],
+    ids=["ddpg_k1", "fused_k7", "matrix_k6", "dqn_fused_warmup"],
+)
+def test_chunked_graph_matches_eager(cuda_generator, impl, sim, kernel):
+    """Two chunks (A=8, S=4) as CUDA graph replays and eagerly, from the same
+    state and seeds: rewards, losses and every averaged leaf bit-identical;
+    each replay launches the path's kernel once a slot of each of its
+    episodes (DQN: one record-only warmup pass, then the learning episode),
+    and the count says so."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.convert import state_from_jax, state_to_numpy
+    from p2pmicrogrid_tpu_torch.envs.community import make_ratings
+    from p2pmicrogrid_tpu_torch.ops.slot_fused import slot_step_fused
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+    from p2pmicrogrid_tpu_torch.train import make_policy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tc.default_config(
+        sim=tc.SimConfig(n_agents=8, n_scenarios=4, **sim),
+        battery=tc.BatteryConfig(enabled=True),
+        train=tc.TrainConfig(implementation=impl),
+        ddpg=tc.DDPGConfig(buffer_size=16, batch_size=4, share_across_agents=True),
+        dqn=tc.DQNConfig(buffer_size=256, batch_size=4, warmup_passes=1),
+    )
+    episodes = 2 if impl == "dqn" else 1  # a chunk's episodes, warmup included
+    wrapper = {"merged_min_sums": merged_min_sums, "slot_step_fused": slot_step_fused,
+               "clear_market_fused": mm.clear_market_fused}[kernel]
+    ratings = make_ratings(cfg, np.random.default_rng(0))
+    policy = make_policy(cfg)
+    pol0 = sc.init_shared_pol_state(cfg, device="cuda", generator=cuda_generator)
+    sub = {"ddpg": cfg.ddpg, "dqn": cfg.dqn}.get(impl)
+    out = {}
+    for graph in (False, True):
+        episode_fn = sc.make_device_episode_fn(cfg, policy, ratings)
+        warmup_fn = sc.make_device_episode_fn(cfg, policy, ratings, record_only=True) if impl == "dqn" else None
+        runner = sc.make_chunked_episode_runner(cfg, episode_fn, 2, warmup_fn, graph=graph)
+        pol = state_from_jax(state_to_numpy(pol0), device="cuda", cfg=sub)
+        wrapper.launches = 0
+        pol, rew, loss, _ = sc.train_scenarios_chunked(cfg, policy, pol, ratings, 5, 1, 2, runner=runner)
+        # The graph's capture runs one chunk eagerly first.
+        assert wrapper.launches == (3 if graph else 2) * episodes * 96
+        out[graph] = (rew, loss, [x.clone() for x, _ in sc.learner_leaves(pol)])
+    (re_, le, pe), (rg, lg, pg) = out[False], out[True]
+    assert np.isfinite(rg).all() and np.array_equal(rg, re_) and np.array_equal(lg, le)
+    assert all(torch.equal(a, b) for a, b in zip(pg, pe))

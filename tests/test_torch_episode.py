@@ -11,7 +11,8 @@ per-scenario init splits, ``envs/community.py:212-214``), ``:941`` (per-slot
 (``k_mask, k_rand``). Tolerances: episode rewards ``rtol=2e-4``
 (tests/test_golden.py:74-81); losses ``rtol=1e-3, atol=1e-3`` and the final
 Q-table ``rtol=1e-3, atol=1e-4`` (tests/test_factored_market.py:203-214);
-every slot's tabular actions exactly equal.
+every slot's tabular actions exactly equal. The episodes run slots 36-59
+(``WINDOW``), where the JAX programs step a quarter of the day.
 """
 
 import jax
@@ -34,7 +35,10 @@ from p2pmicrogrid_tpu_torch.ops import matrix_market as tmm
 from p2pmicrogrid_tpu_torch.parallel import scenarios as tsc
 from p2pmicrogrid_tpu_torch.train import make_policy as t_make_policy
 
-S, A, E, T = 3, 6, 2, 96
+S, A, E, T = 3, 6, 2, 24
+# The episodes run slots 36-59 (9:00-14:45): morning load, the PV peak and
+# the battery at work, a quarter of the day the JAX programs step through.
+WINDOW = slice(36, 36 + T)
 # The matrix negotiation at rounds=2 through the Pallas kernels, which run in
 # interpret mode on the CPU.
 MATRIX = dict(rounds=2, market_impl="matrix", use_pallas=True)
@@ -95,13 +99,18 @@ def _to_draws(normals, u, r):
     )
 
 
+def _window(arrays):
+    """Episode arrays [S, 96, ...] cut to the tests' slots ``WINDOW``."""
+    return type(arrays)(*(x[:, WINDOW] for x in arrays))
+
+
 def _jax_run(sim):
     """Two JAX episodes of train_scenarios_shared, their draws, and every
     slot's actions from the same slot functions."""
     cfg = _cfg(jcfg, **sim)
     ratings = make_ratings(cfg, np.random.default_rng(0))
     policy = j_make_policy(cfg)
-    arrays = jsc.stack_scenario_arrays(cfg, jsc.make_scenario_traces(cfg, seed=0), ratings)
+    arrays = _window(jsc.stack_scenario_arrays(cfg, jsc.make_scenario_traces(cfg, seed=0), ratings))
     pol0, scen = jsc.init_shared_state(cfg, jax.random.PRNGKey(0))
     pol0_np = jax.tree.map(np.asarray, pol0)
     pol, _, rewards, losses, _ = jsc.train_scenarios_shared(
@@ -110,13 +119,14 @@ def _jax_run(sim):
     )
     R = cfg.sim.rounds + 1
     keys = jsc._episode_key_schedule(jax.random.PRNGKey(1), E)
-    draws = [jax.jit(_jax_episode_draws, static_argnums=1)(k, R) for k in keys]
 
     ratings_j = JAgentRatings(*(jnp.asarray(a) for a in ratings))
     xs = tuple(jnp.swapaxes(x, 0, 1) for x in arrays)
 
     @jax.jit
-    def episode_actions(pol_state, k_phys, k_acts):
+    def episode_actions(pol_state, key):
+        """One episode's draws and its slot-by-slot replay, in one program."""
+        normals, u, r, k_phys, k_acts = _jax_episode_draws(key, R)
         phys = jax.vmap(lambda k: j_init_physical(cfg, k))(jax.random.split(k_phys, S))
 
         def body(carry, x):
@@ -129,14 +139,15 @@ def _jax_run(sim):
             return (pol_state, phys), (tr.aux, jnp.mean(out.reward, axis=-1))
 
         (pol_state, _), (aux, rew) = jax.lax.scan(body, (pol_state, phys), (xs, k_acts))
-        return pol_state, aux, jnp.sum(rew, axis=0)
+        return pol_state, aux, jnp.sum(rew, axis=0), (normals, u, r)
 
-    actions, p = [], pol0
-    for e, (_, _, _, k_phys, k_acts) in enumerate(draws):
-        p, aux, rew = episode_actions(p, k_phys, k_acts)
+    actions, draws, p = [], [], pol0
+    for e, key in enumerate(keys):
+        p, aux, rew, d = episode_actions(p, key)
         # The action replay is the same computation as the episode program.
         np.testing.assert_allclose(np.asarray(rew), rewards[e], rtol=1e-6)
         actions.append(np.asarray(aux))
+        draws.append(d)
         p = policy.decay(p)
     return dict(
         ratings=ratings,
@@ -145,7 +156,7 @@ def _jax_run(sim):
         pol=jax.tree.map(np.asarray, pol),
         rewards=rewards,
         losses=losses,
-        draws=[_to_draws(*d[:3]) for d in draws],
+        draws=[_to_draws(*d) for d in draws],
         actions=np.stack(actions),  # [E, T, S, A]
     )
 
@@ -290,7 +301,7 @@ def test_generator_path_is_deterministic():
     finite and epsilon decays once over two episodes."""
     cfg = _cfg(tcfg)
     ratings = tcom.make_ratings(cfg, np.random.default_rng(0))
-    arrays = tsc.stack_scenario_arrays(cfg, tsc.make_scenario_traces(cfg, seed=0), ratings, device="cpu")
+    arrays = _window(tsc.stack_scenario_arrays(cfg, tsc.make_scenario_traces(cfg, seed=0), ratings, device="cpu"))
     policy = t_make_policy(cfg)
 
     def run():
@@ -313,7 +324,7 @@ def test_matrix_episode_matches_jax_jnp_path(jax_run_matrix):
     sim = dict(MATRIX, use_pallas=False)
     cfg_j = _cfg(jcfg, **sim)
     ratings = make_ratings(cfg_j, np.random.default_rng(0))
-    arrays = jsc.stack_scenario_arrays(cfg_j, jsc.make_scenario_traces(cfg_j, seed=0), ratings)
+    arrays = _window(jsc.stack_scenario_arrays(cfg_j, jsc.make_scenario_traces(cfg_j, seed=0), ratings))
     pol0, scen = jsc.init_shared_state(cfg_j, jax.random.PRNGKey(0))
     _, _, rewards_j, _, _ = jsc.train_scenarios_shared(
         cfg_j, j_make_policy(cfg_j), pol0, arrays, ratings, jax.random.PRNGKey(1),
@@ -335,7 +346,7 @@ def test_auto_market_on_cpu_runs_the_matrix_path():
     cfg = _cfg(tcfg, market_impl="auto")
     assert tcom.resolve_market_impl(cfg, "cpu") == "matrix"
     ratings = tcom.make_ratings(cfg, np.random.default_rng(0))
-    arrays = tsc.stack_scenario_arrays(cfg, tsc.make_scenario_traces(cfg, seed=0), ratings, device="cpu")
+    arrays = _window(tsc.stack_scenario_arrays(cfg, tsc.make_scenario_traces(cfg, seed=0), ratings, device="cpu"))
     episode = tsc.make_shared_episode_fn(cfg, t_make_policy(cfg), arrays, ratings)
     before = (tmm.divide_rank1_fused.launches, tmm.clear_market_fused.launches)
     _, (rewards, losses) = episode(tsc.init_shared_state(cfg, device="cpu"), torch.Generator().manual_seed(0))

@@ -17,7 +17,9 @@ from p2pmicrogrid_tpu_torch.models.ddpg import ddpg_params_init
 from p2pmicrogrid_tpu_torch.models.dqn import dqn_init
 from p2pmicrogrid_tpu_torch.models.replay import lockstep_replay_init
 from p2pmicrogrid_tpu_torch.models.tabular import tabular_init
+from p2pmicrogrid_tpu_torch.parallel import device_gen as tdg
 from p2pmicrogrid_tpu_torch.parallel import scenarios as tsc
+from p2pmicrogrid_tpu_torch.train import make_policy
 from p2pmicrogrid_tpu_torch.train.policies import init_policy_state
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(p2pmicrogrid_tpu_torch.__file__)))
@@ -36,6 +38,8 @@ def test_every_module_imports_without_jax():
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
+        assert {"p2pmicrogrid_tpu_torch.parallel.device_gen",
+                "p2pmicrogrid_tpu_torch.parallel.graph"} <= set(names), names
         leaked = sorted(
             n for n, m in sys.modules.items()
             if m is not None and (n == "jax" or n.startswith(("jax.", "jaxlib", "flax", "optax"))
@@ -77,10 +81,21 @@ def _cfg(impl="tabular"):
         lambda cfg: lockstep_replay_init(2, 4, 8),
         lambda cfg: tsc.init_shared_state(_cfg("ddpg")),
         lambda cfg: ddpg_params_init(cfg.ddpg, 4),
+        lambda cfg: tdg.draw_traces(2),
+        lambda cfg: tdg.device_scenario_traces(2),
+        lambda cfg: tdg.device_episode_arrays(cfg, tcom.make_ratings(cfg, np.random.default_rng(0)), 2),
+        lambda cfg: tsc.make_device_episode_fn(
+            cfg, make_policy(cfg), tcom.make_ratings(cfg, np.random.default_rng(0))
+        ),
+        lambda cfg: tsc.train_scenarios_chunked(
+            cfg, make_policy(cfg), None, tcom.make_ratings(cfg, np.random.default_rng(0)), 0, 1, 2
+        ),
     ],
     ids=["init_shared_state", "init_policy_state", "tabular_init", "init_physical",
          "ratings_to", "stack_scenario_arrays", "init_shared_state_dqn", "dqn_init",
-         "lockstep_replay_init", "init_shared_state_ddpg", "ddpg_params_init"],
+         "lockstep_replay_init", "init_shared_state_ddpg", "ddpg_params_init", "draw_traces",
+         "device_scenario_traces", "device_episode_arrays", "make_device_episode_fn",
+         "train_scenarios_chunked"],
 )
 def test_entry_points_default_to_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -25,6 +25,8 @@ compares.
 * ``resolve_use_fused``: off by default, DDPG refused.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -97,6 +99,15 @@ def _assert_two_sided(p_p2p, min_share):
     assert (p != 0).mean() >= min_share, f"only {(p != 0).mean():.3f} of the agents trade"
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_state(impl):
+    """The JAX package's initial shared state from ``PRNGKey(0)``, one
+    program per learner (flax's init runs op by op otherwise); the market
+    settings of the cases do not enter it."""
+    cfg = _cfg(jcfg, impl)
+    return jax.jit(lambda k: jsc.init_shared_state(cfg, k))(jax.random.PRNGKey(0))
+
+
 SLOT_CASES = [
     pytest.param("tabular", dict(market_impl="factored"), True, id="tabular-factored-r1"),
     pytest.param("tabular", dict(market_impl="factored", rounds=0), True, id="tabular-factored-r0"),
@@ -113,7 +124,7 @@ def test_fused_slot_matches_jax_fused(impl, sim, explore):
     rng = np.random.default_rng(5)
     ratings = make_ratings(cfg_j, np.random.default_rng(42))
     arrays = jsc.stack_scenario_arrays(cfg_j, jsc.make_scenario_traces(cfg_j, seed=0), ratings)
-    pol = jsc.init_shared_state(cfg_j, jax.random.PRNGKey(0))[0]
+    pol = _jax_state(impl)[0]
     if impl == "tabular":
         q = rng.standard_normal(pol.q_table.shape).astype(np.float32) * 0.1
         pol = pol._replace(q_table=jnp.asarray(q))
@@ -156,12 +167,14 @@ def test_fused_slot_matches_jax_fused(impl, sim, explore):
             )
 
 
-def _jax_episode_draws(cfg, pol, scen, arrays, ratings_j, key, learn):
+def _jax_episode_draws(cfg, arrays, ratings_j, learn):
     """One JAX episode of the unfused chain, replayed slot by slot with the
-    episode program's key chain (parallel/scenarios.py:941,982-985): its
-    draws (as the port's ``EpisodeDraws``), every slot's actions, p_p2p and
-    balance feature, and the episode reward. ``learn`` is the update: tabular, DQN, or the DQN
-    warmup's record-only add."""
+    episode program's key chain (parallel/scenarios.py:941,982-985), as a
+    function ``(pol, scen, key) -> (pol, scen, draws, actions, (p_p2p,
+    balance feature), episode reward)`` jitted once for every episode it
+    replays: the draws as the port's ``EpisodeDraws``, every slot's actions,
+    p_p2p and balance feature. ``learn`` is the update: tabular, DQN, or the
+    DQN warmup's record-only add."""
     policy = j_make_policy(cfg)
     R = cfg.sim.rounds + 1
     xs = tuple(jnp.swapaxes(x, 0, 1) for x in arrays)
@@ -191,12 +204,15 @@ def _jax_episode_draws(cfg, pol, scen, arrays, ratings_j, key, learn):
         u, r, idx, aux, p2p, bal, rew = outs
         return pol, scen, normals, u, r, idx, aux, p2p, bal, jnp.sum(rew, axis=0)
 
-    pol, scen, normals, u, r, idx, aux, p2p, bal, rew = run(pol, scen, key)
-    draws = tsc.EpisodeDraws(
-        uniform=_t(u), randint=_t(r), normals=_t(normals),
-        replay_idx=None if idx is None else _t(idx),
-    )
-    return pol, scen, draws, np.asarray(aux), (np.asarray(p2p), np.asarray(bal)), np.asarray(rew)
+    def episode(pol, scen, key):
+        pol, scen, normals, u, r, idx, aux, p2p, bal, rew = run(pol, scen, key)
+        draws = tsc.EpisodeDraws(
+            uniform=_t(u), randint=_t(r), normals=_t(normals),
+            replay_idx=None if idx is None else _t(idx),
+        )
+        return pol, scen, draws, np.asarray(aux), (np.asarray(p2p), np.asarray(bal)), np.asarray(rew)
+
+    return episode
 
 
 def _learners(cfg):
@@ -226,7 +242,7 @@ def test_fused_episodes_match_jax_chain(impl):
     arrays = jax.tree.map(lambda x: x[:, MIDDAY : MIDDAY + T], arrays)
     ratings_j = JAgentRatings(*(jnp.asarray(a) for a in ratings))
     policy_j = j_make_policy(cfg_j)
-    pol0, scen0 = jsc.init_shared_state(cfg_j, jax.random.PRNGKey(0))
+    pol0, scen0 = _jax_state(impl)
     if impl == "tabular":
         q = np.random.default_rng(1).standard_normal(pol0.q_table.shape).astype(np.float32) * 0.01
         pol0 = pol0._replace(q_table=jnp.asarray(q))
@@ -246,8 +262,8 @@ def test_fused_episodes_match_jax_chain(impl):
         from p2pmicrogrid_tpu.models.dqn import dqn_initialize_target
 
         (k_pass,) = jax.random.split(jax.random.PRNGKey(7), 1)
-        pol_w, scen_w, d, aux, (p2p, _), _ = _jax_episode_draws(
-            cfg_j, pol0, scen0, arrays, ratings_j, k_pass, record
+        pol_w, scen_w, d, aux, (p2p, _), _ = _jax_episode_draws(cfg_j, arrays, ratings_j, record)(
+            pol0, scen0, k_pass
         )
         pol_w = dqn_initialize_target(pol_w)
         warm = [(d._replace(replay_idx=None), aux, p2p)]
@@ -256,10 +272,9 @@ def test_fused_episodes_match_jax_chain(impl):
         replay_s=scen_w, pipeline=False,
     )
     episodes, p, sc_ = [], pol_w, scen_w
+    episode_j = _jax_episode_draws(cfg_j, arrays, ratings_j, tabular if impl == "tabular" else dqn)
     for e, k in enumerate(jsc._episode_key_schedule(jax.random.PRNGKey(1), 2)):
-        p, sc_, d, aux, (p2p, bal), rew = _jax_episode_draws(
-            cfg_j, p, sc_, arrays, ratings_j, k, tabular if impl == "tabular" else dqn
-        )
+        p, sc_, d, aux, (p2p, bal), rew = episode_j(p, sc_, k)
         np.testing.assert_allclose(rew, rewards_j[e], rtol=1e-6)  # the replay is the episode
         _assert_two_sided(p2p, 0.05)
         assert (np.abs(bal) > 1e-3).mean() >= 0.5  # the balance input is real
