@@ -23,7 +23,11 @@ Phases (each failure exits non-zero):
    and no-trading; one cooperative launch whose grid and blocks per SM are
    logged), whose differing decisions are counted, each explained (a bin
    edge, a Q near-tie, or a cascade from an earlier round), and held below
-   1e-4.
+   1e-4. Each also at the single community's shapes: K5, K4 and K6 in
+   float32 at [1,2], [1,10] and [13,2] (the evaluation's 13 days), K7 at
+   [1,2] and [1,10] (tabular and DQN, matrix at rounds 1 and 2, no
+   trading), a one-community case drawing its inputs at other hours until
+   buyers and sellers meet.
 3. Small-path parity: the A=6, S=3 shared episodes with fixed draws on the
    card against the port on the CPU (rewards, every slot's actions): tabular
    with the factored market (rounds=1) and the matrix negotiation
@@ -60,9 +64,23 @@ Phases (each failure exits non-zero):
    idle share, capture and instantiate seconds, the graph's pool, peak
    memory, K1 at [128,1000], the learn step's share of busy); and ``cfg4``
    through the graph (K=1, S=64), timed beside phase 4's eager row.
-6. One JSON line with the DDPG rows' numbers, one with the chunked rows',
-   one with every kernel's, then the last line ``{"ok": true, "device":
-   {...}}``.
+6. The single community (``train/loop.py``, ``envs/community.py::
+   run_episode``; the matrix negotiation in float32 at any round count, K1
+   never): tests/test_golden.py's pinned greedy episode reproduced on the
+   card, unfused (K5, K6 at [1,2]) and fused (K7 at [1,2]); the card against
+   the CPU from one state and the same injected draws (cfg1 tabular A=2 over
+   two episodes, unfused and fused; tabular rounds=2 through K4; DQN with
+   one warmup pass, unfused and fused; the JAX bench's cfg2 per-agent DDPG
+   at A=10, buffer 1024, batch 32), fused against unfused on the card; then
+   the timed rows, each one warm, one timed and one profiled
+   ``train_community`` episode: cfg1 unfused and fused, DQN at A=2, cfg2;
+   and ``evaluate_community`` over the 13 days of the synthetic traces side
+   by side (K5, K6 at [13,2]), held to the CPU's. Each run sets the launch
+   counts to 0 first and reads them after: its path's kernels once a slot,
+   no other.
+7. One JSON line with the DDPG rows' numbers, one with the chunked rows',
+   one with the single rows', one with every kernel's, then the last line
+   ``{"ok": true, "device": {...}}``.
 
 With arguments (a comma-separated list of phase numbers, e.g. ``5``) it
 builds and runs only those phases and prints no result line.
@@ -87,6 +105,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # cores, and HBM3 bandwidth. Used for each kernel's bound_ms.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+
+# The days of the synthetic traces (``synthetic_traces()``'s default, days
+# 8-20), which phase 6's evaluation runs side by side.
+EVAL_DAYS = 13
 
 
 def fail(msg: str) -> None:
@@ -496,12 +518,18 @@ def phase_matrix_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4321)
     bf16, f32 = torch.bfloat16, torch.float32
+    # The single community's shapes last (phase 6): one community of 2 or 10
+    # agents, and the evaluation's days side by side.
     cases = [
         (64, 1000, bf16), (64, 1000, f32), (256, 50, f32), (5, 257, bf16), (5, 257, f32),
         (2, 65, f32), (3, 7, f32), (3, 7, bf16), (1, 50, f32), (2, 1, f32),
+        (1, 2, f32), (1, 10, f32), (EVAL_DAYS, 2, f32),
     ]
     redesigned = ("divide_rank1_fused", "divide_power_fused_with_mean", "clear_market_fused")
-    timed = {(64, 1000, bf16): "main", (64, 1000, f32): "at_64x1000_f32", (256, 50, f32): "at_256x50"}
+    timed = {
+        (64, 1000, bf16): "main", (64, 1000, f32): "at_64x1000_f32", (256, 50, f32): "at_256x50",
+        (1, 2, f32): "at_1x2", (1, 10, f32): "at_1x10", (EVAL_DAYS, 2, f32): f"at_{EVAL_DAYS}x2",
+    }
     specs = matrix_kernel_specs()
     records = {
         sp["name"]: {
@@ -591,7 +619,7 @@ def phase_matrix_kernels():
                 dev = "not measured" if dev_ms is None else f"{dev_ms:.6f} ms"
                 log(
                     f"{sp['name']} [{S},{A}] {str(dt)[6:]} kernel {k_ms:.6f} ms events, "
-                    f"{dev} device  plain {p_ms:.6f} ms  bound {t['bound_ms']:.6f} ms "
+                    f"{dev} device  plain {p_ms:.6f} ms  bound {t['bound_ms']:.3e} ms "
                     f"({t['bound_by']})"
                 )
         log(f"matrix kernels [{S},{A}] {str(dt)[6:]} ok, bit-identical repeats")
@@ -699,13 +727,20 @@ def slot_inputs(cfg, gen, t=44, epsilon=0.3):
     return (pol, phys, xs, draws, com.ratings_to(ratings, "cuda"), True, market, f_dtype)
 
 
+def two_sided(ref):
+    """(whether buyers and sellers both trade and at least 2% of the agents
+    do, the share that trades) in the plain version's result."""
+    p = ref.p_p2p
+    share = float((p != 0).float().mean())
+    return bool((p > 0).any()) and bool((p < 0).any()) and share >= 0.02, share
+
+
 def trading_share(what, ref):
     """The share of agents that trade peer to peer in the plain version's
     result; fails unless buyers and sellers both trade and at least 2% of
     the agents do, so that the comparison runs the clearing on real work."""
-    p = ref.p_p2p
-    share = float((p != 0).float().mean())
-    if not (bool((p > 0).any()) and bool((p < 0).any())) or share < 0.02:
+    ok, share = two_sided(ref)
+    if not ok:
         fail(f"{what}: a one-sided market ({share:.4f} of the agents trade): the inputs test nothing")
     return share
 
@@ -786,7 +821,22 @@ SLOT_CASES = (
     ("tabular no trading", "tabular", 5, 33, 1, None, None),
     ("dqn no trading", "dqn", 2, 7, 1, None, None),
     ("tabular matrix rounds=3", "tabular", 3, 129, 3, "matrix", None),
+    # The single community (phase 6): one scenario of 2 or 10 agents, the
+    # matrix negotiation, and no trading.
+    ("single tabular matrix", "tabular", 1, 2, 1, "matrix", "single_1x2"),
+    ("single dqn matrix", "dqn", 1, 2, 1, "matrix", None),
+    ("single tabular matrix", "tabular", 1, 10, 1, "matrix", "single_1x10"),
+    ("single dqn matrix", "dqn", 1, 10, 1, "matrix", None),
+    ("single tabular matrix rounds=2", "tabular", 1, 2, 2, "matrix", None),
+    ("single tabular matrix rounds=2", "tabular", 1, 10, 2, "matrix", None),
+    ("single dqn matrix rounds=2", "dqn", 1, 10, 2, "matrix", None),
+    ("single tabular no trading", "tabular", 1, 2, 1, None, None),
+    ("single dqn no trading", "dqn", 1, 10, 1, None, None),
 )
+# The slots a one-community case draws its inputs at, in turn, until buyers
+# and sellers meet (11:00 first, then other hours with PV): one community of
+# 2 agents trades at a share of its draws only.
+TRADING_SLOTS = (44, 48, 40, 52, 36, 56, 42, 46, 50, 54, 38, 58)
 
 
 def slot_bound(cfg, S, A, R, impl, market):
@@ -834,12 +884,17 @@ def phase_slot_kernel():
     }
     for label, impl, S, A, rounds, market, timed in SLOT_CASES:
         cfg = slot_config(tc, impl, S, A, rounds, market)
-        args = slot_inputs(cfg, gen)
+        # One community draws again, at the next slot of TRADING_SLOTS, until
+        # its market is two-sided; a batch of scenarios takes its first draw.
+        for t in TRADING_SLOTS if S == 1 and market is not None else TRADING_SLOTS[:1]:
+            args = slot_inputs(cfg, gen, t=t)
+            ref = sf.slot_step_fused_plain(cfg, *args)
+            if market is None or two_sided(ref)[0]:
+                break
         got = sf.slot_raw(cfg, *args)
         again = sf.slot_raw(cfg, *args)
         torch.cuda.synchronize()
-        ref = sf.slot_step_fused_plain(cfg, *args)
-        what = f"K7 {label} [{S},{A}]"
+        what = f"K7 {label} [{S},{A}] slot {t}"
         grid = sf.kernel_grid(cfg, S, A, market)
         rec["grids"][f"{label} [{S},{A}]"] = grid
         log(
@@ -898,7 +953,7 @@ def phase_slot_kernel():
             dev = "not measured" if dev_ms is None else f"{dev_ms:.6f} ms"
             log(
                 f"{what}: kernel {k_ms:.6f} ms (events, 50 calls), device {dev}, plain "
-                f"{p_ms:.6f} ms, bound {bound:.6f} ms ({by})"
+                f"{p_ms:.6f} ms, bound {bound:.3e} ms ({by})"
             )
         del args, got, again, ref
         torch.cuda.empty_cache()
@@ -1715,6 +1770,429 @@ def phase_cfg4_chunked(counters, card):
     return row
 
 
+# --- phase 6 ---------------------------------------------------------------
+
+# tests/test_golden.py's pinned greedy episode (A=2, rounds=1, ratings from
+# default_rng(42), traces of day 11): its first 4 slots.
+GOLDEN = {
+    "cost": [[0.002175, 0.087167], [0.082664, 0.001432], [0.042346, 0.039303],
+             [0.037923, 0.036898]],
+    "p_grid": [[77.043663, 3087.079102], [3103.469238, 53.755768],
+               [1687.529175, 1566.260376], [1604.566772, 1561.177368]],
+    "t_in": [[21.301205, 20.728098], [20.790424, 21.540831], [21.560457, 21.001354],
+             [21.548647, 21.147606]],
+    "hp_power_w": [[0.0, 3000.0], [3000.0, 0.0], [1500.0, 1500.0], [1500.0, 1500.0]],
+    "max_in": [4565.099121, 4606.924316],
+}
+# Its seeds' draws, which the JAX package makes from jax.random keys: the
+# initial (t_in, t_bm) normals of PRNGKey(0), and the rows of the Q-table
+# (normals of PRNGKey(5)) that the first 4 slots read, by flat row of the
+# [2 * 20^4, 3] table; every other row is 0 here.
+GOLDEN_NORMALS = [[1.004014253616333, -0.9063372015953064],
+                  [-2.442455768585205, -2.0356805324554443]]
+GOLDEN_Q_ROWS = {
+    3409: [-0.756546139717102, 0.1413765698671341, 0.9392719268798828],
+    3410: [1.721746802330017, 1.1290353536605835, 1.130327582359314],
+    5008: [1.2963895797729492, -0.2898291349411011, 0.21245968341827393],
+    5010: [0.1404062807559967, -0.6803865432739258, -2.2597553730010986],
+    5808: [-0.0015089332591742277, 0.33904868364334106, -1.3912242650985718],
+    5810: [0.06303822994232178, -0.9245172142982483, 0.34371718764305115],
+    6209: [1.0131232738494873, 1.571183443069458, -0.2754097282886505],
+    6210: [0.2750616669654846, 0.5095898509025574, -0.8745958209037781],
+    163009: [-0.859297513961792, 0.0849846825003624, 1.5183526277542114],
+    163010: [-0.29312247037887573, 0.11667506396770477, 0.8300866484642029],
+    164209: [0.5862355828285217, 1.3173832893371582, -0.08808014541864395],
+    164210: [1.1982723474502563, -1.0902260541915894, 0.7564707398414612],
+    164608: [-0.3609241545200348, 1.6176408529281616, -0.3296067416667938],
+    164610: [1.011909008026123, 0.4638766646385193, 2.0535407066345215],
+    165809: [-0.07881727814674377, -0.8921489715576172, -0.4731638729572296],
+    165810: [0.9441831111907959, 0.1661885678768158, 0.8257968425750732],
+}
+# The kernels one single-community slot launches: the matrix negotiation in
+# float32 (K5 for round 1, K4 for each later round, K6), or K7 fused.
+SINGLE_R1 = ("divide_rank1_fused", "clear_market_fused")
+SINGLE_R2 = MATRIX_PATH
+
+
+def single_config(tc, impl, A, rounds=1, fused=False, **train):
+    """The JAX bench's single-community rows (benchmarks.py:255-260): cfg1's
+    defaults (battery off, rounds=1), cfg2's DDPGConfig(buffer_size=1024,
+    batch_size=32); DQN with one warmup pass (a cut of depth)."""
+    return tc.default_config(
+        sim=tc.SimConfig(n_agents=A, rounds=rounds, fused_slot=fused or None),
+        train=tc.TrainConfig(implementation=impl, **train),
+        dqn=tc.DQNConfig(warmup_passes=1),
+        ddpg=tc.DDPGConfig(buffer_size=1024, batch_size=32),
+    )
+
+
+def single_inputs(cfg):
+    """cfg1's traces (day 11) and ratings (default_rng(42))."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.data.traces import synthetic_traces
+    from p2pmicrogrid_tpu_torch.envs.community import make_ratings
+
+    return synthetic_traces(n_days=1, start_day=11).normalized(), make_ratings(cfg, np.random.default_rng(42))
+
+
+def expect_launches(what, counters, expected):
+    """Each counter's launches since it was set to 0 against ``expected``
+    ({name: n}, every other kernel 0); K1's must be 0 on the single path."""
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: expected.get(name, 0) for name in counters}
+    if launches["merged_min_sums"]:
+        fail(f"{what}: K1 launched {launches['merged_min_sums']} times on the single path")
+    if launches != want:
+        fail(f"{what}: launches {launches}, expected {want}")
+    return launches
+
+
+def reset(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def phase_single_golden(counters):
+    """tests/test_golden.py's greedy episode on the card, unfused (K5, K6 at
+    [1,2]) and fused (K7 at [1,2]): the first 4 slots at rtol=2e-4,
+    atol=1e-5, the reward -cost there. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.envs import community as com
+    from p2pmicrogrid_tpu_torch.models.tabular import tabular_init
+    from p2pmicrogrid_tpu_torch.train import make_policy
+
+    cfg = single_config(tc, "tabular", 2)
+    traces, ratings = single_inputs(cfg)
+    if not np.allclose(ratings.max_in, GOLDEN["max_in"], rtol=1e-5):
+        fail(f"golden: max_in {ratings.max_in} vs {GOLDEN['max_in']}")
+    arrays = com.build_episode_arrays(cfg, traces, ratings, "cuda")
+    q = tabular_init(cfg.qlearning, 2, "cpu").q_table
+    rows = q.view(-1, cfg.qlearning.num_actions)
+    for r, v in GOLDEN_Q_ROWS.items():
+        rows[r] = torch.tensor(v)
+    ps = tabular_init(cfg.qlearning, 2, "cuda")._replace(q_table=q.cuda())
+    phys = com.init_physical(cfg, torch.tensor(GOLDEN_NORMALS), device="cuda")
+    totals = {name: 0 for name in counters}
+    for fused in (False, True):
+        what = f"golden greedy episode ({'fused' if fused else 'unfused'})"
+        reset(counters)
+        _, _, out = com.run_episode(cfg, make_policy(cfg), ps, phys, arrays, ratings, training=False, fused=fused)
+        launches = expect_launches(what, counters, {k: 96 for k in (FUSED_PATH if fused else SINGLE_R1)})
+        for name, n in launches.items():
+            totals[name] += n
+        worst = 0.0
+        for name in ("cost", "p_grid", "t_in", "hp_power_w", "reward"):
+            got = getattr(out, name)[:4].cpu().numpy()
+            ref = -np.asarray(GOLDEN["cost"]) if name == "reward" else np.asarray(GOLDEN[name])
+            if not np.allclose(got, ref, rtol=2e-4, atol=1e-5):
+                fail(f"{what}: {name} {got.tolist()} vs GOLDEN {ref.tolist()}")
+            worst = max(worst, float((np.abs(got - ref) / np.maximum(np.abs(ref), 1e-30)).max()))
+        log(f"phase 6: {what} on the card reproduces GOLDEN (max rel err {worst:.3e})")
+    return totals
+
+
+def single_draws(cfg, n_passes, T, count0, learn, seed):
+    """CPU draws for ``n_passes`` single-community passes of T slots, each a
+    ``SingleEpisodeDraws`` with its normals; replay indices (where ``learn``)
+    uniform over the ring after each slot's add, the ring holding ``count0``
+    entries before the first pass."""
+    import torch
+
+    from p2pmicrogrid_tpu_torch.envs.community import SingleEpisodeDraws
+
+    impl, A, R = cfg.train.implementation, cfg.sim.n_agents, cfg.sim.rounds + 1
+    sub = cfg.ddpg if impl == "ddpg" else cfg.dqn
+    n_actions = cfg.qlearning.num_actions if impl == "tabular" else 3
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for e in range(n_passes):
+        d = dict(normals=torch.randn((2, A), generator=gen))
+        if impl == "ddpg":
+            d["ou_normals"] = torch.randn((T, R, A), generator=gen)
+        else:
+            d["uniform"] = torch.rand((T, R, A), generator=gen)
+            d["randint"] = torch.randint(0, n_actions, (T, R, A), generator=gen)
+        if learn and impl != "tabular":
+            count = (torch.arange(1, T + 1) + count0 + e * T).clamp(max=sub.buffer_size)[:, None, None]
+            u = torch.rand((T, A, sub.batch_size), generator=gen)
+            d["replay_idx"] = torch.minimum((u * count).long(), count - 1)
+        out.append(SingleEpisodeDraws(**d))
+    return out
+
+
+def run_single(cfg, device, pol0, draws, warm, fused=False):
+    """The single community's episodes from one state (``pol0`` on the CPU,
+    copied) and injected draws: DQN's warmup passes first; exploration
+    decays after episode e when e % min_episodes_criterion == 0. Returns
+    (every slot's decisions [E, T, R, A], episode rewards [E], the final
+    state's learner weights)."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch.envs import community as com
+    from p2pmicrogrid_tpu_torch.train import init_dqn_buffers, make_policy
+
+    traces, ratings = single_inputs(cfg)
+    arrays = com.build_episode_arrays(cfg, traces, ratings, device)
+    policy = make_policy(cfg)
+    pol = copy_state(cfg, pol0, device)
+    to = lambda d: com.SingleEpisodeDraws(*(None if x is None else x.to(device) for x in d))
+    if warm:
+        pol = init_dqn_buffers(cfg, policy, pol, arrays, ratings, draws=[to(d) for d in warm])
+    decisions, rewards = [], []
+    for e, d in enumerate(draws):
+        d = to(d)
+        phys = com.init_physical(cfg, d.normals, device=device)
+        _, pol, out = com.run_episode(
+            cfg, policy, pol, phys, arrays, ratings, training=True, draws=d, fused=fused
+        )
+        decisions.append(out.decisions)
+        rewards.append(out.reward.mean(dim=-1).sum())
+        if e % cfg.train.min_episodes_criterion == 0:
+            pol = policy.decay(pol)
+    learned = {
+        "tabular": lambda: pol.q_table,
+        "dqn": lambda: pol.online.Dense_0.kernel,
+        "ddpg": lambda: pol.actor.Dense_0.kernel,
+    }[cfg.train.implementation]()
+    return (
+        torch.stack(decisions).cpu().numpy(),
+        torch.stack(rewards).cpu().numpy(),
+        learned.detach().cpu().numpy(),
+    )
+
+
+# (label, implementation, A, rounds, fused, training episodes): the card
+# against the CPU from one seed and the same injected draws.
+SINGLE_PARITY = (
+    ("cfg1 tabular", "tabular", 2, 1, False, 2),
+    ("cfg1 tabular fused", "tabular", 2, 1, True, 2),
+    ("tabular rounds=2", "tabular", 2, 2, False, 1),
+    ("dqn", "dqn", 2, 1, False, 1),
+    ("dqn fused", "dqn", 2, 1, True, 1),
+    ("cfg2 ddpg per agent", "ddpg", 10, 1, False, 1),
+)
+
+
+def phase_single_parity(counters):
+    """SINGLE_PARITY's runs on the card against the port on the CPU:
+    discrete decisions identical (DDPG's within 1e-5 of the heat pump's
+    power), episode rewards rtol=2e-4, learner weights rtol=1e-3,
+    atol=1e-4; each slot launches its path's kernels once, K1 never. Then
+    fused against unfused on the card (tabular and DQN), phase 4's
+    convention: episode rewards rtol=2e-4, differing decisions counted.
+    Returns the card's launches."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.train import init_policy_state
+
+    totals = {name: 0 for name in counters}
+    card = {}
+    T = 96
+    for label, impl, A, rounds, fused, E in SINGLE_PARITY:
+        cfg = single_config(tc, impl, A, rounds, fused)
+        pol0 = init_policy_state(cfg, "cpu", torch.Generator().manual_seed(5))
+        if impl == "tabular":
+            # A random table and epsilon 0.5: greedy and explored actions.
+            q = torch.randn(pol0.q_table.shape, generator=torch.Generator().manual_seed(6))
+            pol0 = pol0._replace(q_table=q, epsilon=torch.tensor(0.5))
+        if impl == "dqn":
+            pol0 = pol0._replace(epsilon=torch.tensor(0.5))
+        n_warm = cfg.dqn.warmup_passes if impl == "dqn" else 0
+        warm = single_draws(cfg, n_warm, T, 0, False, seed=7)
+        draws = single_draws(cfg, E, T, n_warm * T, True, seed=8)
+        reset(counters)
+        dec_g, rew_g, w_g = run_single(cfg, "cuda", pol0, draws, warm, fused=fused)
+        path = FUSED_PATH if fused else (SINGLE_R1 if rounds == 1 else SINGLE_R2)
+        launches = expect_launches(f"single {label}", counters, {k: (E + n_warm) * T for k in path})
+        for name, n in launches.items():
+            totals[name] += n
+        dec_c, rew_c, w_c = run_single(cfg, "cpu", pol0, draws, warm, fused=fused)
+        what = f"single {label} A={A} rounds={rounds}"
+        if not (np.isfinite(rew_g).all() and np.isfinite(w_g).all()):
+            fail(f"{what}: non-finite rewards or weights on the card")
+        if impl == "ddpg":
+            hp = cfg.thermal.hp_max_power
+            if not np.allclose(dec_g, dec_c, rtol=0, atol=1e-5 * hp):
+                fail(f"{what}: actions differ card vs CPU by {np.abs(dec_g - dec_c).max() / hp}")
+        elif not np.array_equal(dec_g, dec_c):
+            fail(f"{what}: {int((dec_g != dec_c).sum())} decisions differ card vs CPU")
+        if not np.allclose(rew_g, rew_c, rtol=2e-4, atol=0.0):
+            fail(f"{what}: rewards differ card vs CPU: {rew_g} vs {rew_c}")
+        if not np.allclose(w_g, w_c, rtol=1e-3, atol=1e-4):
+            fail(f"{what}: learner weights differ card vs CPU by {np.abs(w_g - w_c).max()}")
+        card[(impl, rounds, fused)] = (dec_g, rew_g)
+        log(
+            f"phase 6: {what} card vs CPU: {dec_g.size} decisions, max reward rel err "
+            f"{float(np.abs((rew_g - rew_c) / rew_c).max()):.3e}, weights max abs diff "
+            f"{np.abs(w_g - w_c).max():.3e}; launches {({k: v for k, v in launches.items() if v})}"
+        )
+    for impl in ("tabular", "dqn"):
+        (dec_u, rew_u), (dec_f, rew_f) = card[(impl, 1, False)], card[(impl, 1, True)]
+        rel = float(np.abs((rew_f - rew_u) / rew_u).max())
+        differ = int((dec_f != dec_u).sum())
+        log(f"phase 6: {impl} A=2 fused vs unfused on the card: {differ} of {dec_u.size} decisions differ, "
+            f"max episode reward rel diff {rel:.3e}")
+        if not np.allclose(rew_f, rew_u, rtol=2e-4, atol=0.0):
+            fail(f"single {impl}: fused vs unfused rewards differ by {rel:.3e} (rtol 2e-4)")
+    return totals
+
+
+def single_row_common(label, cfg, secs, env_steps, kernels, peak, base, launches, T):
+    """A phase-6 row; ``peak`` and ``base`` are the bytes allocated at the
+    timed run's peak and before it (what earlier phases still hold)."""
+    busy_ms = None if kernels is None else sum(ms for _, ms in kernels.values())
+    per_call = {} if kernels is None else profiled_kernel_ms(kernels, T)
+    return dict(
+        row=label, A=cfg.sim.n_agents, impl=cfg.train.implementation, rounds=cfg.sim.rounds,
+        fused=bool(cfg.sim.fused_slot), env_steps_per_s=env_steps / secs, seconds=secs,
+        ms_per_slot=secs / T * 1e3, busy_ms=busy_ms,
+        idle_share=None if busy_ms is None else 1 - busy_ms / (secs * 1e3),
+        device_ops_per_slot=None if kernels is None else sum(n for n, _ in kernels.values()) / T,
+        launches={k: v for k, v in launches.items() if v},
+        kernel_device_ms_per_call={k: v for k, v in per_call.items() if k in launches and launches[k]},
+        peak_memory_mib=peak / 2**20,
+        run_peak_memory_mib=(peak - base) / 2**20,
+    )
+
+
+# (label, implementation, A, fused, path kernels): the timed training rows.
+SINGLE_ROWS = (
+    ("cfg1", "tabular", 2, False, SINGLE_R1),
+    ("cfg1 fused", "tabular", 2, True, FUSED_PATH),
+    ("dqn", "dqn", 2, False, SINGLE_R1),
+    ("cfg2", "ddpg", 10, False, SINGLE_R1),
+)
+
+
+def phase_single_rows(counters, card):
+    """``train_community`` at the JAX bench's single-community rows: one warm
+    episode (DQN: with its warmup pass), one timed, one under the profiler;
+    then ``evaluate_community`` over every day of the synthetic traces with
+    cfg1's trained table (warm, timed, profiled), held to the CPU's. Returns
+    (rows, launches, {kernel: {shape: device ms per call}})."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.data.traces import synthetic_traces
+    from p2pmicrogrid_tpu_torch.train import evaluate_community, init_policy_state, make_policy, train_community
+
+    T = 96
+    rows, totals, shapes = [], {name: 0 for name in counters}, {}
+    trained = None
+    for label, impl, A, fused, path in SINGLE_ROWS:
+        cfg = single_config(tc, impl, A, 1, fused, max_episodes=1)
+        at = lambda e0: dataclasses.replace(
+            cfg, train=dataclasses.replace(cfg.train, starting_episodes=e0, max_episodes=e0 + 1)
+        )
+        traces, ratings = single_inputs(cfg)
+        policy = make_policy(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        pol = init_policy_state(cfg, "cuda", gen)
+        warm = train_community(cfg, policy, pol, traces, ratings, gen, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset(counters)
+        res = train_community(at(1), policy, warm.pol_state, traces, ratings, gen, warmup=False, device="cuda")
+        peak = torch.cuda.max_memory_allocated()
+        launches = expect_launches(f"single row {label}", counters, {k: T for k in path})
+        if not np.isfinite(res.episode_rewards + res.episode_losses).all():
+            fail(f"single row {label}: non-finite reward or loss")
+        kernels, _ = profile_episode(
+            lambda: train_community(at(2), policy, res.pol_state, traces, ratings, gen, warmup=False,
+                                    device="cuda"),
+            T, res.train_seconds,
+        )
+        for name, n in launches.items():
+            totals[name] += n
+        row = single_row_common(label, cfg, res.train_seconds, res.env_steps, kernels, peak, base, launches, T)
+        row.update(card=card, episode_reward=res.episode_rewards[0], warm_episode_s=warm.train_seconds)
+        for name, ms in row["kernel_device_ms_per_call"].items():
+            shapes.setdefault(name, {})[(1, A)] = ms
+        rows.append(row)
+        log(f"phase 6: {json.dumps(row)}")
+        if label == "cfg1":
+            trained = res.pol_state
+
+    # Greedy evaluation over every day, days side by side: K5, K6 at [13, 2].
+    cfg = single_config(tc, "tabular", 2)
+    traces = synthetic_traces().normalized()
+    _, ratings = single_inputs(cfg)
+    policy = make_policy(cfg)
+    normals = torch.randn((EVAL_DAYS, 2, 2), generator=torch.Generator().manual_seed(3))
+
+    def evaluate(device, pol, cfg=cfg):
+        _, out, _ = evaluate_community(cfg, policy, pol, traces, ratings, normals=normals.to(device),
+                                       device=device)
+        return out
+
+    evaluate("cuda", trained)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset(counters)
+    start = time.perf_counter()
+    out = evaluate("cuda", trained)
+    rewards = out.reward.sum(dim=(1, 2)).cpu().numpy()
+    secs = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    launches = expect_launches("single evaluation", counters, {k: T for k in SINGLE_R1})
+    for name, n in launches.items():
+        totals[name] += n
+    if out.reward.shape != (EVAL_DAYS, T, 2) or not np.isfinite(rewards).all():
+        fail(f"single evaluation: rewards {tuple(out.reward.shape)} not finite")
+    ref = evaluate("cpu", copy_state(cfg, trained, "cpu"))
+    ref_rewards = ref.reward.sum(dim=(1, 2)).numpy()
+    if not np.array_equal(out.decisions.cpu().numpy(), ref.decisions.numpy()):
+        fail("single evaluation: decisions differ card vs CPU")
+    if not np.allclose(rewards, ref_rewards, rtol=2e-4, atol=0.0):
+        fail(f"single evaluation: day rewards differ card vs CPU: {rewards} vs {ref_rewards}")
+
+    def run_eval():
+        evaluate("cuda", trained).reward.sum().item()
+
+    # The fused evaluation (SimConfig.fused_slot): K7 at [13, 2], held to
+    # the CPU's and, by phase 4's convention, to the unfused days.
+    cfg_f = single_config(tc, "tabular", 2, 1, True)
+    reset(counters)
+    out_f = evaluate("cuda", trained, cfg_f)
+    fused_launches = expect_launches("single evaluation fused", counters, {k: T for k in FUSED_PATH})
+    for name, n in fused_launches.items():
+        totals[name] += n
+    ref_f = evaluate("cpu", copy_state(cfg, trained, "cpu"), cfg_f)
+    rewards_f = out_f.reward.sum(dim=(1, 2)).cpu().numpy()
+    if not np.array_equal(out_f.decisions.cpu().numpy(), ref_f.decisions.numpy()):
+        fail("single evaluation fused: decisions differ card vs CPU")
+    if not np.allclose(rewards_f, ref_f.reward.sum(dim=(1, 2)).numpy(), rtol=2e-4, atol=0.0):
+        fail(f"single evaluation fused: day rewards differ card vs CPU: {rewards_f}")
+    if not np.allclose(rewards_f, rewards, rtol=2e-4, atol=0.0):
+        fail(f"single evaluation: fused vs unfused day rewards differ: {rewards_f} vs {rewards}")
+    differ = int((out_f.decisions != out.decisions).sum())
+    log(f"phase 6: fused evaluation at [{EVAL_DAYS}, 2]: {differ} of {out.decisions.numel()} decisions "
+        f"differ from the unfused days, max day reward rel diff "
+        f"{float(np.abs((rewards_f - rewards) / rewards).max()):.3e}")
+
+    kernels, _ = profile_episode(run_eval, T, secs)
+    row = single_row_common("evaluation", cfg, secs, EVAL_DAYS * T, kernels, peak, base, launches, T)
+    row.update(card=card, days=EVAL_DAYS, day_rewards=rewards.tolist())
+    for name, ms in row["kernel_device_ms_per_call"].items():
+        shapes.setdefault(name, {})[(EVAL_DAYS, 2)] = ms
+    rows.append(row)
+    log(f"phase 6: {json.dumps(row)}")
+    return rows, totals, shapes
+
+
+
 def main() -> None:
     import torch
 
@@ -1739,7 +2217,8 @@ def main() -> None:
     # With no arguments every phase runs (the check); a comma-separated list
     # of phase numbers (e.g. "2,5") runs only those, builds first, and prints
     # no result line.
-    phases = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else {"2", "3", "4", "5"}
+    all_phases = {"2", "3", "4", "5", "6"}
+    phases = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else all_phases
     start = time.perf_counter()
     card = phase_device_and_build()
     if "2" in phases:
@@ -1763,12 +2242,22 @@ def main() -> None:
             launches[name] += chunk_launches[name] + northstar_launches[name]
         log(json.dumps({"chunked": chunked}))
         log(f"phase 5 done ({time.perf_counter() - start:.1f} s)")
-    if phases != {"2", "3", "4", "5"}:
+    single_rows, single_shapes = [], {}
+    if "6" in phases:
+        golden_launches = phase_single_golden(counters)
+        parity_launches = phase_single_parity(counters)
+        single_rows, row_launches, single_shapes = phase_single_rows(counters, card)
+        for name in launches:
+            launches[name] += golden_launches[name] + parity_launches[name] + row_launches[name]
+        log(f"phase 6 done ({time.perf_counter() - start:.1f} s)")
+    if phases != all_phases:
         log(f"partial run of phases {sorted(phases)}: no result ({time.perf_counter() - start:.1f} s)")
         return
-    on_path = {name for run in MAIN_RUNS for name in run[7]} | {
-        name for run in CHUNK_RUNS for name in run[4]
-    }
+    on_path = (
+        {name for run in MAIN_RUNS for name in run[7]}
+        | {name for run in CHUNK_RUNS for name in run[4]}
+        | set(SINGLE_R2) | set(FUSED_PATH)
+    )
     for name in on_path:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
@@ -1791,7 +2280,14 @@ def main() -> None:
             if name == "slot_step_fused":
                 rec["dqn_64x1000"][key] = profiled[name].get((64, 1000, "dqn", 1))
                 rec["matrix_r2_64x1000"][key] = profiled[name].get((64, 1000, "tabular", 2))
+        # Phase 6's shapes: device time per call on the single path's
+        # profiled episodes (the single community [1,A], the evaluation's
+        # days [13,2]).
+        prefix = "single" if name == "slot_step_fused" else "at"
+        for (S, A), ms in single_shapes.get(name, {}).items():
+            rec.setdefault(f"{prefix}_{S}x{A}", {})["main_path_profiled_ms"] = ms
     log(json.dumps({"ddpg_rows": ddpg_rows}))
+    log(json.dumps({"single_rows": single_rows}))
     log(json.dumps({"kernels": records}))
     log(f"total {time.perf_counter() - start:.1f} s")
     print(

@@ -4,18 +4,19 @@
 leaves already converted to numpy (``jax.tree.map(np.asarray, state)``) and
 returns the port's NamedTuple of the same name with tensors on ``device``:
 ``TabularState``, ``PhysState``, ``AgentRatings``, ``EpisodeArrays``,
-``ReplayState``, ``LockstepReplay``, ``DQNState``, ``DDPGParams`` or
-``DDPGScenState``. The match is by class name and field names, so this module
-imports nothing of the JAX package.
+``ReplayState``, ``LockstepReplay``, ``DQNState``, ``DDPGParams``,
+``DDPGState`` or ``DDPGScenState``. The match is by class name and field
+names, so this module imports nothing of the JAX package.
 
-A ``DQNState`` or ``DDPGParams`` carries flax parameter trees,
+A ``DQNState``, ``DDPGParams`` or ``DDPGState`` carries flax parameter trees,
 ``{"Dense_i": {"kernel", "bias"}}`` with the kernel ``[A, in, out]`` per
 agent or ``[in, out]`` shared, which load in place into the port's networks
 (the same layout), and optax's Adam states ``(ScaleByAdamState(count, mu,
 nu), EmptyState())``, which become ``torch.optim.Adam`` states at the same
 step count (``count`` is ``[A]`` per agent, a scalar shared). Adam's
 learning rate is not part of that state, so these need their config
-(``DQNConfig``, ``DDPGConfig``).
+(``DQNConfig``, ``DDPGConfig``). A ``DDPGState`` also carries its per-agent
+replay ring, OU noise and noise scale.
 
 ``state_to_numpy`` does the reverse for comparisons: these come back with
 flax-shaped trees and optax-shaped Adam states (the NamedTuples below, named
@@ -32,7 +33,7 @@ import torch
 from p2pmicrogrid_tpu_torch.config import DDPGConfig, DQNConfig
 from p2pmicrogrid_tpu_torch.device import resolve_device
 from p2pmicrogrid_tpu_torch.envs.community import AgentRatings, EpisodeArrays, PhysState
-from p2pmicrogrid_tpu_torch.models.ddpg import DDPGParams, make_optimizers
+from p2pmicrogrid_tpu_torch.models.ddpg import DDPGParams, DDPGState, make_optimizers
 from p2pmicrogrid_tpu_torch.models.dqn import DQNState, make_optimizer
 from p2pmicrogrid_tpu_torch.models.networks import Actor, QNetwork
 from p2pmicrogrid_tpu_torch.models.replay import LockstepReplay, ReplayState
@@ -147,7 +148,23 @@ def _ddpg_params(np_tree, dev, cfg: DDPGConfig) -> DDPGParams:
     )
 
 
-_LEARNER_STATES = {"DQNState": (_dqn_state, DQNConfig), "DDPGParams": (_ddpg_params, DDPGConfig)}
+def _ddpg_state(np_tree, dev, cfg: DDPGConfig) -> DDPGState:
+    _check_fields(np_tree, DDPGState)
+    params = _ddpg_params(
+        DDPGParams(*(getattr(np_tree, f) for f in DDPGParams._fields)), dev, cfg
+    )
+    return DDPGState(
+        **params._asdict(),
+        replay=_ring(np_tree.replay, ReplayState, dev),
+        ou_state=_tensor(np_tree.ou_state, dev),
+    )
+
+
+_LEARNER_STATES = {
+    "DQNState": (_dqn_state, DQNConfig),
+    "DDPGParams": (_ddpg_params, DDPGConfig),
+    "DDPGState": (_ddpg_state, DDPGConfig),
+}
 
 
 def state_from_jax(np_tree, device="cuda", cfg=None):
@@ -207,7 +224,8 @@ def _adam_to_numpy(opt: torch.optim.Adam, net) -> tuple:
 
 def state_to_numpy(tree):
     """A port NamedTuple (or tensor) with its tensors copied to numpy; a
-    ``DQNState`` or ``DDPGParams`` in the JAX package's tree shapes."""
+    ``DQNState``, ``DDPGParams`` or ``DDPGState`` in the JAX package's tree
+    shapes."""
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     if isinstance(tree, DQNState):
@@ -218,8 +236,8 @@ def state_to_numpy(tree):
             replay=state_to_numpy(tree.replay),
             epsilon=state_to_numpy(tree.epsilon),
         )
-    if isinstance(tree, DDPGParams):
-        return DDPGParams(
+    if isinstance(tree, (DDPGParams, DDPGState)):
+        params = dict(
             actor=_tree_to_numpy(tree.actor),
             critic=_tree_to_numpy(tree.critic),
             actor_target=_tree_to_numpy(tree.actor_target),
@@ -227,6 +245,11 @@ def state_to_numpy(tree):
             actor_opt=_adam_to_numpy(tree.actor_opt, tree.actor),
             critic_opt=_adam_to_numpy(tree.critic_opt, tree.critic),
             noise_scale=state_to_numpy(tree.noise_scale),
+        )
+        if isinstance(tree, DDPGParams):
+            return DDPGParams(**params)
+        return DDPGState(
+            **params, replay=state_to_numpy(tree.replay), ou_state=state_to_numpy(tree.ou_state)
         )
     if isinstance(tree, (ReplayState, LockstepReplay)):
         *bufs, cursor, count = tree

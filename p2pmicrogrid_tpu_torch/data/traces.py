@@ -1,15 +1,16 @@
 """Environment and agent traces as time-major numpy arrays.
 
 The port's own copy of the numpy-only part of the JAX package's
-``data/traces.py``: ``TraceSet``, the seeded synthetic October-like
-generator, the per-agent profile assignment and the (state, next_state)
-roll. Values are identical to the JAX package's for the same seed. The
-native C++ generator and the SQLite loader are not ported yet.
+``data/traces.py``: ``TraceSet`` (with its per-day split), the seeded
+synthetic October-like generator, the per-agent profile assignment and the
+(state, next_state) roll. Values are identical to the JAX package's for the
+same seed. The native C++ generator and the SQLite loader are not ported
+yet.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 
@@ -36,6 +37,13 @@ class TraceSet(NamedTuple):
     @property
     def n_profiles(self) -> int:
         return self.load.shape[1]
+
+    def select_days(self, days: Sequence[int]) -> "TraceSet":
+        mask = np.isin(self.day, np.asarray(days))
+        return TraceSet(*(a[mask] for a in self))
+
+    def split_by_day(self) -> Dict[int, "TraceSet"]:
+        return {int(d): self.select_days([int(d)]) for d in np.unique(self.day)}
 
     def normalized(self) -> "TraceSet":
         """Per-column divide-by-max of load/pv (dataset.py:47-49).

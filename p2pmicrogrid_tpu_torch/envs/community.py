@@ -1,9 +1,12 @@
-"""The P2P community simulator: one scenario-batched slot step.
+"""The P2P community simulator: the scenario-batched slot step and the
+single community's episode.
 
-The port of the JAX package's ``envs/community.py`` for the shared-scenario
-training path. All per-agent state is a NamedTuple of tensors with leading
-scenario and agent axes ``[S, A]``; an episode is a Python loop over slots
-(``parallel/scenarios.py``). Reference semantics kept (SURVEY.md section 7):
+The port of the JAX package's ``envs/community.py``. All per-agent state is
+a NamedTuple of tensors with leading scenario and agent axes ``[S, A]``; an
+episode is a Python loop over slots (``parallel/scenarios.py`` for the
+shared trainers, ``run_episode`` here for one community, whose ``[A]`` state
+runs as a one-scenario batch). Reference semantics kept (SURVEY.md section
+7):
 
 * Within a negotiation round every agent sees the previous round's proposals
   (community.py:75-86); round 0's mean has a closed form because round 0
@@ -18,11 +21,15 @@ scenario and agent axes ``[S, A]``; an episode is a Python loop over slots
 The market branches are the factored clearing (``rounds <= 1``, kernel K1),
 the matrix negotiation (any ``rounds``, kernels K5, K4 and K6 of
 ``ops/matrix_market.py``) and the no-trading community. ``fused=True`` runs
-the whole slot as the one kernel K7 instead (``ops/slot_fused.py``).
+the whole slot as the one kernel K7 instead (``ops/slot_fused.py``). The
+single community always negotiates through the matrix path in float32, as
+the JAX package's single chain does (``single_chain_config``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -30,6 +37,7 @@ import torch
 
 from p2pmicrogrid_tpu_torch.config import ExperimentConfig
 from p2pmicrogrid_tpu_torch.device import resolve_device
+from p2pmicrogrid_tpu_torch.models.replay import sample_indices
 from p2pmicrogrid_tpu_torch.ops._f32 import recip
 from p2pmicrogrid_tpu_torch.ops.battery import battery_rule_update
 from p2pmicrogrid_tpu_torch.ops.factored_market import (
@@ -58,15 +66,23 @@ class Policy(NamedTuple):
         explore_state) -> (hp_frac [S, A], aux [S, A], q [S, A],
         explore_state'); ``draws`` is the round's exploration draws, each
         [S, A]: ``(uniform, randint)`` for tabular and DQN, ``(normals,)`` for
-        DDPG. ``explore_state`` is per-scenario exploration state that
-        threads through the rounds (DDPG's OU noise [S, A]; None otherwise).
-    learn(pol_state, obs, aux, reward, next_obs) -> (pol_state, loss)
+        DDPG; None when ``explore`` is false. ``explore_state`` is
+        per-scenario exploration state that threads through the rounds
+        (DDPG's OU noise [S, A]; None otherwise).
+    learn(pol_state, obs [A, 4], aux [A], reward [A], next_obs [A, 4], idx)
+        -> (pol_state, loss [A]): the single-community learn step; ``idx``
+        [A, replay_batch] are the per-agent replay indices it samples (None
+        where ``replay_batch`` is None).
     decay(pol_state) -> pol_state   (exploration schedule, community.py:283-285)
+    replay_batch: the per-agent batch ``learn`` samples from its replay ring
+        (DQN, DDPG), or None where it samples nothing (tabular, the DQN
+        record-only warmup).
     """
 
     act: Callable
     learn: Callable
     decay: Callable
+    replay_batch: Optional[int] = None
 
 
 class AgentRatings(NamedTuple):
@@ -280,9 +296,9 @@ def slot_dynamics_batched(
     ``xs`` = (time [S], t_out [S], load_w [S, A], pv_w [S, A], next_time [S],
     next_load_w, next_pv_w); ``draws``, the exploration draws of every round,
     each [rounds+1, S, A]: (uniform, randint) for tabular and DQN, (normals,)
-    for DDPG; ``ratings`` as tensors on the state's device.
-    ``explore_state`` (DDPG's OU noise [S, A]) threads through every
-    negotiation round's act and is returned.
+    for DDPG, or None when ``explore`` is false; ``ratings`` as tensors on
+    the state's device. ``explore_state`` (DDPG's OU noise [S, A]) threads
+    through every negotiation round's act and is returned.
 
     ``fused=True`` runs the slot through ``ops/slot_fused.py::
     slot_step_fused`` (kernel K7 on the card, its plain version on the CPU),
@@ -333,9 +349,8 @@ def slot_dynamics_batched(
     def round_obs_act(p2p_mean, hp_frac, r):
         nonlocal ex
         obs = make_observation(time_s[:, None], norm_temp, norm_balance, p2p_mean)
-        hp_frac, aux, q, ex = policy.act(
-            pol_state, obs, hp_frac, tuple(d[r] for d in draws), explore, ex
-        )
+        round_draws = None if draws is None else tuple(d[r] for d in draws)
+        hp_frac, aux, q, ex = policy.act(pol_state, obs, hp_frac, round_draws, explore, ex)
         return obs, hp_frac, aux, q, balance_w + hp_frac * th.hp_max_power
 
     market_impl = resolve_market_impl(cfg, device) if cfg.sim.trading else None
@@ -447,3 +462,351 @@ def slot_dynamics_batched(
     phys_s = PhysState(t_in=t_in_new, t_bm=t_bm_new, soc=soc, hp_frac=hp_frac)
     transition = SlotTransition(obs=obs, aux=aux, reward=reward, next_obs=next_obs)
     return phys_s, pol_state, outputs, transition, ex
+
+
+# --- the single community ------------------------------------------------------
+
+
+class SingleEpisodeDraws(NamedTuple):
+    """Every random draw of one single-community episode, in the JAX
+    package's single key structure: one draw per negotiation round, with no
+    per-scenario split (envs/community.py:259-260). R is ``rounds + 1`` with
+    trading, 1 without.
+
+    uniform: [T, R, A] float32 in [0, 1) — the exploration coin per round
+        (tabular, DQN; None for DDPG)
+    randint: [T, R, A] integer in [0, n_actions) — the random action
+        (``num_actions`` for tabular, 3 for DQN; None for DDPG)
+    ou_normals: [T, R, A] float32 — DDPG's OU noise normals per round (None
+        otherwise)
+    replay_idx: [T, A, B] integer — each agent's replay sample indices per
+        slot, in [0, max(count, 1)) of its ring after the slot's add (DQN and
+        DDPG learning; None otherwise)
+    normals: [2, A] float32 — the initial (t_in, t_bm) standard normals,
+        which the training loop reads (``run_episode`` takes a state)
+    """
+
+    uniform: Optional[torch.Tensor] = None
+    randint: Optional[torch.Tensor] = None
+    ou_normals: Optional[torch.Tensor] = None
+    replay_idx: Optional[torch.Tensor] = None
+    normals: Optional[torch.Tensor] = None
+
+
+def build_episode_arrays(
+    cfg: ExperimentConfig, traces, ratings: AgentRatings, device="cuda"
+) -> EpisodeArrays:
+    """One community's episode inputs as float32 tensors on ``device``: the
+    denormalised per-agent profiles [T, A] and the next-slot pairing
+    (community.py:157-176)."""
+    from p2pmicrogrid_tpu_torch.data.traces import agent_profiles, next_slot
+
+    dev = resolve_device(device)
+    load_w, pv_w = agent_profiles(
+        traces,
+        cfg.sim.n_agents,
+        np.asarray(ratings.load_rating_w),
+        np.asarray(ratings.pv_rating_w),
+        homogeneous=cfg.sim.homogeneous,
+    )
+    to = lambda x: torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev)
+    return EpisodeArrays(
+        time=to(traces.time),
+        t_out=to(traces.t_out),
+        load_w=to(load_w),
+        pv_w=to(pv_w),
+        next_time=to(next_slot(traces.time)),
+        next_load_w=to(next_slot(load_w)),
+        next_pv_w=to(next_slot(pv_w)),
+    )
+
+
+def with_pv_drop(
+    arrays: EpisodeArrays, agent: int, start_slot: int = 0, factor: float = 0.0
+) -> EpisodeArrays:
+    """Fault injection: scale one agent's PV production by ``factor`` from
+    ``start_slot`` on (the reference's "PV drop" scenario,
+    data_analysis.py:1099-1211). ``next_pv_w`` takes the rolled scale, so
+    the transition of slot ``start_slot - 1`` already sees the fault."""
+    n_agents = arrays.pv_w.shape[1]
+    if not 0 <= agent < n_agents:
+        raise ValueError(f"agent {agent} out of range [0, {n_agents})")
+    T = arrays.time.shape[0]
+    mask = (torch.arange(T, device=arrays.pv_w.device) >= start_slot).to(torch.float32)
+    scale = 1.0 - (1.0 - factor) * mask  # 1 before the drop, `factor` after
+    pv_w = arrays.pv_w.clone()
+    pv_w[:, agent] *= scale
+    next_pv_w = arrays.next_pv_w.clone()
+    next_pv_w[:, agent] *= torch.roll(scale, -1)
+    return arrays._replace(pv_w=pv_w, next_pv_w=next_pv_w)
+
+
+@functools.lru_cache(maxsize=None)
+def single_chain_config(cfg: ExperimentConfig) -> ExperimentConfig:
+    """The config the single community's slot runs: ``cfg`` with the matrix
+    negotiation in float32 (``market_impl="matrix"``,
+    ``market_dtype="float32"``), the only market the JAX package's single
+    chain implements (envs/community.py:320-326), whatever ``cfg`` resolves
+    to on the card."""
+    sim = dataclasses.replace(cfg.sim, market_impl="matrix", market_dtype="float32")
+    return dataclasses.replace(cfg, sim=sim)
+
+
+def lift(tree):
+    """A NamedTuple of tensors as a one-scenario batch: each leaf [1, ...]."""
+    return type(tree)(*(x[None] for x in tree))
+
+
+def squeeze(tree):
+    """``lift``'s inverse: each leaf's leading axis of 1 dropped."""
+    return type(tree)(*(x[0] for x in tree))
+
+
+def lift_slot_inputs(xs):
+    """One slot's inputs (time [], t_out [], load_w [A], pv_w [A], next_time
+    [], next_load_w [A], next_pv_w [A]) as a one-scenario batch."""
+    return tuple(x[None] for x in xs)
+
+
+def slot_dynamics(
+    cfg: ExperimentConfig,
+    policy: Policy,
+    pol_state,
+    phys: PhysState,
+    xs,
+    draws,
+    ratings: AgentRatings,
+    explore: bool,
+    fused: bool = False,
+):
+    """One slot of one community except learning (community.py:285-379):
+    negotiate, clear, settle, reward, step assets.
+
+    The one-scenario lift of ``slot_dynamics_batched``, as the JAX package
+    lifts its fused single slot (ops/pallas_slot.py:566-604): the [A] state
+    becomes [1, A], each round's draws ``draws`` (each [R, A], or None when
+    ``explore`` is false) go to the policy as they are, and the market is
+    the matrix negotiation in float32 (K5, K4 and K6 on the card), the only
+    market the JAX single chain implements, whatever the config resolves to.
+    A DDPG state's OU noise (``ou_state`` [A]) threads through the rounds.
+    ``fused=True`` runs ``ops/slot_fused.py::slot_step_fused_single`` (K7 at
+    [1, A]; tabular and DQN).
+
+    Returns (phys', pol_state', outputs, transition), [A]-shaped.
+    """
+    if fused:
+        from p2pmicrogrid_tpu_torch.ops.slot_fused import slot_step_fused_single
+
+        phys, outputs, tr = slot_step_fused_single(
+            cfg, pol_state, phys, xs, draws, ratings, explore
+        )
+        return phys, pol_state, outputs, tr
+    ou = getattr(pol_state, "ou_state", None)
+    phys_b, pol_state, outputs, tr, ou = slot_dynamics_batched(
+        single_chain_config(cfg), policy, pol_state, lift(phys), lift_slot_inputs(xs),
+        None if draws is None else tuple(d[:, None] for d in draws),
+        ratings, explore, explore_state=None if ou is None else ou[None],
+    )
+    if ou is not None:
+        pol_state = pol_state._replace(ou_state=ou[0])
+    return squeeze(phys_b), pol_state, squeeze(outputs), squeeze(tr)
+
+
+def community_slot(
+    cfg: ExperimentConfig,
+    policy: Policy,
+    pol_state,
+    phys: PhysState,
+    xs,
+    draws,
+    replay_idx: Optional[torch.Tensor],
+    training: bool,
+    ratings: AgentRatings,
+    fused: bool = False,
+):
+    """One 15-minute slot (community.py:793-826): the dynamics, then, when
+    training, the learn step on the last round's transition with the
+    per-agent replay indices ``replay_idx`` [A, B] (DQN, DDPG). Returns
+    (phys', pol_state', outputs)."""
+    phys, pol_state, outputs, tr = slot_dynamics(
+        cfg, policy, pol_state, phys, xs, draws, ratings, explore=training, fused=fused
+    )
+    if training:
+        pol_state, loss = policy.learn(
+            pol_state, tr.obs, tr.aux, tr.reward, tr.next_obs, replay_idx
+        )
+        outputs = outputs._replace(loss=loss)
+    return phys, pol_state, outputs
+
+
+def _n_round_draws(cfg: ExperimentConfig) -> int:
+    return cfg.sim.rounds + 1 if cfg.sim.trading else 1
+
+
+def run_episode(
+    cfg: ExperimentConfig,
+    policy: Policy,
+    pol_state,
+    phys: PhysState,
+    arrays: EpisodeArrays,
+    ratings: AgentRatings,
+    generator: Optional[torch.Generator] = None,
+    training: bool = True,
+    draws: Optional[SingleEpisodeDraws] = None,
+    collect_device_metrics: bool = False,
+    fused: Optional[bool] = None,
+) -> Tuple[PhysState, object, SlotOutputs]:
+    """One episode of one community (community.py:829-894): a Python loop
+    over the slots of ``arrays`` ([T, ...] tensors on the state's device).
+
+    Training explores and learns every slot; a greedy episode
+    (``training=False``) does neither and draws nothing. A training
+    episode's draws come from ``generator`` (a ``torch.Generator`` on the
+    state's device: per slot each round's exploration draws, then the
+    learn step's replay indices where ``policy.replay_batch`` is set) or
+    from ``draws`` (``SingleEpisodeDraws``). The learner state updates in
+    place.
+
+    ``fused`` runs every slot through K7 at [1, A] (tabular and DQN); None
+    resolves ``SimConfig.fused_slot``. ``collect_device_metrics`` is not
+    ported (ROADMAP.md, Queue 1, item 7: device telemetry).
+
+    Returns (final physical state, policy state, outputs with a leading [T]
+    axis on every leaf).
+    """
+    if collect_device_metrics:
+        raise NotImplementedError(
+            "collect_device_metrics: device telemetry is not ported yet "
+            "(ROADMAP.md, Queue 1, item 7)"
+        )
+    use_fused = resolve_use_fused(cfg) if fused is None else bool(fused)
+    impl = cfg.train.implementation
+    if use_fused and impl not in ("tabular", "dqn"):
+        raise ValueError("run_episode(fused=True) supports tabular/dqn policies only")
+    device = arrays.load_w.device
+    T, A = arrays.load_w.shape
+    R = _n_round_draws(cfg)
+    if training and draws is None and generator is None:
+        raise ValueError("a training episode needs a torch.Generator or SingleEpisodeDraws")
+    if training and draws is not None:
+        need = ("ou_normals",) if impl == "ddpg" else ("uniform", "randint")
+        need += ("replay_idx",) if policy.replay_batch is not None else ()
+        missing = [f for f in need if getattr(draws, f) is None]
+        if missing:
+            raise ValueError(f"a {impl} training episode needs SingleEpisodeDraws.{', '.join(missing)}")
+    n_actions = cfg.qlearning.num_actions if impl == "tabular" else 3
+    ratings_d = ratings_to(ratings, device)
+    outs = []
+    for t in range(T):
+        xs = tuple(x[t] for x in arrays)
+        slot_draws = idx = None
+        if training and draws is not None:
+            slot_draws = (
+                (draws.ou_normals[t],) if impl == "ddpg" else (draws.uniform[t], draws.randint[t])
+            )
+            if policy.replay_batch is not None:
+                idx = draws.replay_idx[t]
+        elif training:
+            if impl == "ddpg":
+                slot_draws = (torch.randn((R, A), generator=generator, device=device),)
+            else:
+                slot_draws = (
+                    torch.rand((R, A), generator=generator, device=device),
+                    torch.randint(0, n_actions, (R, A), generator=generator, device=device),
+                )
+            if policy.replay_batch is not None:
+                # The ring holds this slot's transition when it is sampled.
+                ring = pol_state.replay
+                count = min(ring.count + 1, ring.capacity)
+                idx = sample_indices(count, A, policy.replay_batch, generator, device)
+        phys, pol_state, out = community_slot(
+            cfg, policy, pol_state, phys, xs, slot_draws, idx, training, ratings_d,
+            fused=use_fused,
+        )
+        outs.append(out)
+    outputs = SlotOutputs(*(torch.stack(leaf) for leaf in zip(*outs)))
+    return phys, pol_state, outputs
+
+
+def _thermostat_episode(
+    cfg: ExperimentConfig, phys: PhysState, arrays: EpisodeArrays, hp_rule: Callable
+) -> Tuple[PhysState, SlotOutputs]:
+    """The rule baselines' scaffold: grid-only settlement, no learning, no
+    draws; ``hp_rule(phys, buy_price) -> hp_frac [A]`` is the heat-pump
+    policy (community.py:897-946)."""
+    th = cfg.thermal
+    outs = []
+    for t in range(arrays.time.shape[0]):
+        time_n, t_out, load_w, pv_w = (x[t] for x in arrays[:4])
+        buy, inj = grid_prices(cfg.tariff, time_n)
+        trade = p2p_price_fn(buy, inj)
+        hp_frac = hp_rule(phys, buy)
+        hp_power = hp_frac * th.hp_max_power
+        balance_w = load_w - pv_w
+        soc = phys.soc
+        if cfg.battery.enabled:
+            soc, balance_w = battery_rule_update(cfg.battery, soc, balance_w, cfg.sim.dt_seconds)
+        p_grid = balance_w + hp_power
+        p_p2p = torch.zeros_like(p_grid)
+        cost = compute_costs(p_grid, p_p2p, buy, inj, trade, cfg.sim.slot_hours)
+        penalty = comfort_penalty(th, phys.t_in)
+        reward = -(cost + 10.0 * penalty)
+        t_in_new, t_bm_new = thermal_step(
+            th, cfg.sim.dt_seconds, t_out, phys.t_in, phys.t_bm, hp_power
+        )
+        outs.append(SlotOutputs(
+            cost=cost,
+            reward=reward,
+            loss=torch.zeros_like(reward),
+            p_grid=p_grid,
+            p_p2p=p_p2p,
+            buy_price=buy,
+            injection_price=inj,
+            trade_price=trade,
+            t_in=phys.t_in,
+            hp_power_w=hp_power,
+            decisions=hp_power[None, :],
+            q=torch.zeros_like(reward),
+        ))
+        phys = PhysState(t_in=t_in_new, t_bm=t_bm_new, soc=soc, hp_frac=hp_frac)
+    return phys, SlotOutputs(*(torch.stack(leaf) for leaf in zip(*outs)))
+
+
+def _bang_bang(cfg: ExperimentConfig, phys: PhysState) -> torch.Tensor:
+    """Bang-bang thermostat (agent.py:130-136): full power at or below the
+    comfort band, off at or above it, the previous command inside it."""
+    th = cfg.thermal
+    one = torch.ones_like(phys.hp_frac)
+    return torch.where(
+        phys.t_in <= th.lower_bound,
+        one,
+        torch.where(phys.t_in >= th.upper_bound, torch.zeros_like(one), phys.hp_frac),
+    )
+
+
+def rule_baseline_episode(
+    cfg: ExperimentConfig, phys: PhysState, arrays: EpisodeArrays
+) -> Tuple[PhysState, SlotOutputs]:
+    """Thermostat bang-bang baseline, grid-only settlement: the reference's
+    ``RuleAgent`` (agent.py:106-136)."""
+    return _thermostat_episode(cfg, phys, arrays, lambda phys, buy: _bang_bang(cfg, phys))
+
+
+def semi_intelligent_baseline_episode(
+    cfg: ExperimentConfig, phys: PhysState, arrays: EpisodeArrays
+) -> Tuple[PhysState, SlotOutputs]:
+    """Price-aware thermostat baseline, grid-only settlement
+    (community.py:949-978): the bang-bang rule, plus pre-heating at half
+    power up to the comfort band's upper bound whenever the buy price is
+    below its daily average (the tariff's ``cost_avg``)."""
+    th = cfg.thermal
+    avg_price = cfg.tariff.cost_avg / 100.0
+
+    def rule(phys, buy):
+        hp_frac = _bang_bang(cfg, phys)
+        cheap = buy < avg_price
+        return torch.where(
+            cheap & (phys.t_in < th.upper_bound), torch.clamp_min(hp_frac, 0.5), hp_frac
+        )
+
+    return _thermostat_episode(cfg, phys, arrays, rule)

@@ -1,21 +1,23 @@
-"""DDPG for the scenario-shared trainer: a continuous-action actor-critic with
-Ornstein-Uhlenbeck exploration.
+"""DDPG: a continuous-action actor-critic with Ornstein-Uhlenbeck
+exploration.
 
-The port of the JAX package's ``models/ddpg.py`` for shared-scenario training
-(the reference carries the capability as rl_backup.py: actor with a sigmoid
-head, critic, OU noise, rl_backup.py:14-85): feed-forward actor and critic
-over the 4-feature observation (``models/networks.py``), Polyak targets, one
-Adam per network. ``DDPGConfig.share_across_agents`` selects one actor-critic
-for the whole community (unbatched networks) or one per agent (``[A, ...]``
-stacks). The learn step updates the networks, the targets and Adam in place.
+The port of the JAX package's ``models/ddpg.py`` (the reference carries the
+capability as rl_backup.py: actor with a sigmoid head, critic, OU noise,
+rl_backup.py:14-85): feed-forward actor and critic over the 4-feature
+observation (``models/networks.py``), Polyak targets, one Adam per network.
+The learn step updates the networks, the targets and Adam in place.
+
+* The shared-scenario trainer carries ``DDPGParams``:
+  ``DDPGConfig.share_across_agents`` selects one actor-critic for the whole
+  community (unbatched networks) or one per agent (``[A, ...]`` stacks).
+* The single community carries ``DDPGState``: per-agent stacks, each
+  agent's replay ring and its OU noise (``ddpg_init``, ``ddpg_act``,
+  ``ddpg_update``).
 
 Adam is element-wise, so one ``torch.optim.Adam`` over a stack of per-agent
 parameters is optax's Adam vmapped over agents; and since agent a's loss
 depends on agent a's parameters alone, summing the per-agent mean losses
 before differentiating gives each agent exactly its own gradient.
-
-The single-scenario ``DDPGState``/``ddpg_init``/``ddpg_act``/``ddpg_update``
-wait for the single-scenario simulator (ROADMAP.md, Queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -29,6 +31,12 @@ import torch
 from p2pmicrogrid_tpu_torch.config import DDPGConfig
 from p2pmicrogrid_tpu_torch.device import resolve_device
 from p2pmicrogrid_tpu_torch.models.networks import Actor, Critic, adam
+from p2pmicrogrid_tpu_torch.models.replay import (
+    ReplayState,
+    replay_add,
+    replay_init,
+    replay_sample,
+)
 from p2pmicrogrid_tpu_torch.ops._f32 import sqrt as f32_sqrt
 
 OBS_DIM = 4
@@ -52,6 +60,27 @@ class DDPGParams(NamedTuple):
     critic_target: Critic
     actor_opt: torch.optim.Adam
     critic_opt: torch.optim.Adam
+    noise_scale: torch.Tensor
+
+
+class DDPGState(NamedTuple):
+    """The single community's DDPG learner (JAX source ``models/ddpg.py:41``):
+    ``DDPGParams``' fields with per-agent ``[A, ...]`` networks, plus each
+    agent's replay ring and OU noise.
+
+    replay: ``ReplayState`` with ``[A, cap, ...]`` rings
+    ou_state: [A] float32, the current OU noise of each agent
+    noise_scale: 0-dim float32, the exploration annealing factor
+    """
+
+    actor: Actor
+    critic: Critic
+    actor_target: Actor
+    critic_target: Critic
+    actor_opt: torch.optim.Adam
+    critic_opt: torch.optim.Adam
+    replay: ReplayState
+    ou_state: torch.Tensor
     noise_scale: torch.Tensor
 
 
@@ -80,8 +109,40 @@ def ddpg_params_init(
     the actor, then the critic), targets equal to them, fresh Adam: per-agent
     stacks ``[A, ...]``, or one unbatched set when
     ``cfg.share_across_agents``."""
-    dev = resolve_device(device)
     a = None if cfg.share_across_agents else n_agents
+    return _params_init(cfg, a, generator, resolve_device(device))
+
+
+def ddpg_init(
+    cfg: DDPGConfig,
+    n_agents: int,
+    generator: Optional[torch.Generator] = None,
+    device="cuda",
+) -> DDPGState:
+    """The single community's fresh learner (JAX source :70-84): per-agent
+    networks whatever ``share_across_agents`` says, drawn from ``generator``
+    (the actor, then the critic), empty rings, and the OU noise at
+    ``ou_init_sd`` times standard normals drawn after them
+    (rl_backup.py:81,102)."""
+    dev = resolve_device(device)
+    p = _params_init(cfg, n_agents, generator, dev)
+    normals = torch.randn((n_agents,), generator=generator, device=dev)
+    return DDPGState(
+        actor=p.actor,
+        critic=p.critic,
+        actor_target=p.actor_target,
+        critic_target=p.critic_target,
+        actor_opt=p.actor_opt,
+        critic_opt=p.critic_opt,
+        replay=replay_init(n_agents, cfg.buffer_size, OBS_DIM, 1, device=dev),
+        ou_state=cfg.ou_init_sd * normals,
+        noise_scale=p.noise_scale,
+    )
+
+
+def _params_init(
+    cfg: DDPGConfig, a: Optional[int], generator: Optional[torch.Generator], dev: torch.device
+) -> DDPGParams:
     actor = Actor(a, cfg.actor_hidden, OBS_DIM, device=dev)
     critic = Critic(a, cfg.critic_hidden, OBS_DIM, device=dev)
     actor.reset_parameters(generator)
@@ -129,7 +190,8 @@ def ddpg_shared_act(
     explore: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Scenario-batched act: obs_s [S, A, 4], ou_s [S, A] and the round's OU
-    normals [S, A] -> (action_frac [S, A], q [S, A], ou_s').
+    normals [S, A] -> (action_frac [S, A], q [S, A], ou_s'); ``params`` is a
+    ``DDPGParams`` or a ``DDPGState``.
 
     Shared parameters run one ``[S * A, 4]`` application; per-agent ones run
     agent-major ``[A, S, 4]`` stacks. ``q`` is the critic's value of the
@@ -151,6 +213,24 @@ def ddpg_shared_act(
         return a, q, ou_s
     ou_s = ou_step(cfg, ou_s, normals)
     return torch.clamp(a + params.noise_scale * ou_s, 0.0, 1.0), q, ou_s
+
+
+def ddpg_act(
+    cfg: DDPGConfig,
+    state: DDPGState,
+    obs: torch.Tensor,
+    normals: Optional[torch.Tensor],
+    explore: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, DDPGState]:
+    """The single community's act (JAX source :97-123): obs [A, 4] and the
+    OU step's normals [A] -> (action_frac [A], q [A], state'). Exploring, the
+    OU noise steps once and the action is ``clip(a + noise_scale * ou, 0,
+    1)``; greedy, the actor's action and the state unchanged."""
+    a, q, ou = ddpg_shared_act(
+        cfg, state, obs[None], state.ou_state[None],
+        None if normals is None else normals[None], explore,
+    )
+    return a[0], q[0], state._replace(ou_state=ou[0])
 
 
 def polyak(tau: float, target: torch.nn.Module, online: torch.nn.Module) -> None:
@@ -219,7 +299,31 @@ def ddpg_learn_batch(
     return sq.detach()
 
 
-def ddpg_decay(cfg: DDPGConfig, params: DDPGParams) -> DDPGParams:
+def ddpg_update(
+    cfg: DDPGConfig,
+    state: DDPGState,
+    obs: torch.Tensor,
+    action_frac: torch.Tensor,
+    reward: torch.Tensor,
+    next_obs: torch.Tensor,
+    idx: torch.Tensor,
+) -> Tuple[DDPGState, torch.Tensor]:
+    """The single community's per-slot learn step (JAX source :281-324): add
+    the transition to each agent's ring, sample each agent's batch at
+    ``idx`` [A, B], and take one ``ddpg_learn_batch`` step on the per-agent
+    stacks, in place.
+
+    obs/next_obs: [A, 4]; action_frac: [A] in [0, 1]; reward: [A].
+    Returns (state, critic loss [A]): each agent's mean squared residual.
+    """
+    replay = replay_add(state.replay, obs, action_frac[:, None], reward, next_obs)
+    s, a, r, ns = replay_sample(replay, idx)
+    sq = ddpg_learn_batch(cfg, state, s, a, r, ns)
+    return state._replace(replay=replay), sq.mean(dim=-1)
+
+
+def ddpg_decay(cfg: DDPGConfig, params):
     """Anneal the OU noise on the reference's decay cadence
-    (community.py:279-287); the default ``noise_decay=1.0`` keeps it."""
+    (community.py:279-287), on a ``DDPGParams`` or a ``DDPGState``; the
+    default ``noise_decay=1.0`` keeps it."""
     return params._replace(noise_scale=params.noise_scale * cfg.noise_decay)

@@ -13,8 +13,9 @@ forward and the learn step run in full float32 (``QNetwork`` refuses TF32 on
 the card).
 
 Exploration starts at epsilon = 1.0: the reference instantiates
-``ActorModel(1)`` (agent.py:304), overriding the class default of 0.1. The
-single-scenario ``dqn_update`` is not ported yet (ROADMAP.md, Queue 1).
+``ActorModel(1)`` (agent.py:304), overriding the class default of 0.1.
+``dqn_update`` is the single community's per-slot learn step on the agents'
+own rings; the shared trainer's lives in ``parallel/scenarios.py``.
 """
 
 from __future__ import annotations
@@ -27,7 +28,12 @@ import torch
 from p2pmicrogrid_tpu_torch.config import DQNConfig
 from p2pmicrogrid_tpu_torch.device import resolve_device
 from p2pmicrogrid_tpu_torch.models.networks import QNetwork, adam
-from p2pmicrogrid_tpu_torch.models.replay import ReplayState, replay_init
+from p2pmicrogrid_tpu_torch.models.replay import (
+    ReplayState,
+    replay_add,
+    replay_init,
+    replay_sample,
+)
 
 ACTION_VALUES = (0.0, 0.5, 1.0)  # rl.py:153
 OBS_DIM = 4
@@ -197,6 +203,37 @@ def apply_td_update(
         for t, o in zip(target.parameters(), online.parameters()):
             t.mul_(1.0 - cfg.tau).add_(o * cfg.tau)
     return loss.detach(), aux
+
+
+def dqn_update(
+    cfg: DQNConfig,
+    state: DQNState,
+    obs: torch.Tensor,
+    action: torch.Tensor,
+    reward: torch.Tensor,
+    next_obs: torch.Tensor,
+    idx: torch.Tensor,
+) -> Tuple[DQNState, torch.Tensor]:
+    """One per-slot learn step for every agent (agent.py:338-342 ->
+    rl.py:299-333): add the transition to each agent's ring (the action as
+    its heat-pump fraction), sample each agent's batch at ``idx`` [A, B],
+    and take one ``apply_td_update`` over the ``[A, ...]`` stacks (clip,
+    Adam, Polyak), in place.
+
+    obs/next_obs: [A, 4]; action: [A] integer index; reward: [A].
+    Returns (state, loss [A]): each agent's mean squared TD residual.
+    """
+    act_frac = action_values_on(obs.device)[action.to(torch.int64)][:, None]
+    replay = replay_add(state.replay, obs, act_frac, reward, next_obs)
+    s, a, r, ns = replay_sample(replay, idx)
+    loss, _ = apply_td_update(
+        cfg,
+        lambda: _td_loss(cfg, state.online, state.target, s, a, r, ns),
+        state.online,
+        state.target,
+        state.opt_state,
+    )
+    return state._replace(replay=replay), loss
 
 
 def dqn_initialize_target(state: DQNState) -> DQNState:

@@ -1,4 +1,4 @@
-"""Fixed-size replay rings for the DQN learner.
+"""Fixed-size replay rings for the DQN and DDPG learners.
 
 The port of the JAX package's ``models/replay.py``: ring buffers of fixed
 size with a write cursor shared by every agent (all agents write in
@@ -7,9 +7,11 @@ lockstep), in place of the reference's ``collections.deque``
 advance by one per slot whatever the data, so the host knows them without
 reading the device.
 
-* ``ReplayState``/``replay_init``: the per-agent ``[A, cap, ...]`` rings that
-  ``DQNState`` carries (the single-scenario learner writes them; its
-  ``replay_add``/``replay_sample`` are not ported yet, ROADMAP.md Queue 1).
+* ``ReplayState``/``replay_init``/``replay_add``/``replay_sample``: the
+  per-agent ``[A, cap, ...]`` rings of the single community's learners
+  (``DQNState``, ``DDPGState``). Each agent samples its own B indices,
+  uniform over the filled region with replacement (``sample_indices``, or
+  injected).
 * ``LockstepReplay``: the time-major ``[cap, S, A, ...]`` rings of the
   scenario-batched shared trainer. One transition per slot is one contiguous
   slab write at the cursor; a sample of B shared indices gathers B
@@ -64,6 +66,54 @@ def replay_init(
         cursor=0,
         count=0,
     )
+
+
+def replay_add(
+    state: ReplayState,
+    obs: torch.Tensor,
+    action: torch.Tensor,
+    reward: torch.Tensor,
+    next_obs: torch.Tensor,
+) -> ReplayState:
+    """Write one transition per agent at the shared cursor, in place
+    (rl.py:209-213).
+
+    obs/next_obs: [A, obs_dim]; action: [A, act_dim]; reward: [A]. Returns
+    the state with the cursor and count advanced.
+    """
+    c = state.cursor
+    state.obs[:, c] = obs
+    state.action[:, c] = action
+    state.reward[:, c] = reward
+    state.next_obs[:, c] = next_obs
+    cap = state.capacity
+    return state._replace(cursor=(c + 1) % cap, count=min(state.count + 1, cap))
+
+
+def sample_indices(
+    count: int, n_agents: int, batch_size: int, generator: Optional[torch.Generator], device
+) -> torch.Tensor:
+    """Each agent's B uniform indices in ``[0, max(count, 1))``, int64
+    [A, B] on ``device`` (``jax.random.randint(key, (A, B), 0, max(count,
+    1))``); ``count`` is the ring's fill count when it is sampled."""
+    return torch.randint(
+        0, max(count, 1), (n_agents, batch_size), generator=generator, device=device
+    )
+
+
+def replay_sample(
+    state: ReplayState, idx: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Agent a's entries at ``idx[a]`` (``idx`` [A, B] integer, on the
+    buffers' device), from its own ring (rl.py:225-244).
+
+    Returns (obs [A,B,obs_dim], action [A,B,act_dim], reward [A,B],
+    next_obs [A,B,obs_dim]).
+    """
+    idx = idx.to(device=state.obs.device, dtype=torch.int64)
+    agent = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    take = lambda buf: buf[agent, idx]
+    return take(state.obs), take(state.action), take(state.reward), take(state.next_obs)
 
 
 class LockstepReplay(NamedTuple):

@@ -5,8 +5,9 @@ training slot of S scenarios (tariff, battery rule, observation features,
 the tabular or DQN act in every negotiation round, the factored, matrix or
 no-trading clearing, settlement, reward and the 2R2C thermal step) as one
 launch. It is a drop-in for the unfused chain of
-``envs/community.py::slot_dynamics_batched`` (``fused=True`` there); learning
-stays outside and consumes the returned transition.
+``envs/community.py::slot_dynamics_batched`` (``fused=True`` there), and
+``slot_step_fused_single`` for the single community's ``slot_dynamics``;
+learning stays outside and consumes the returned transition.
 
 * ``slot_step_fused`` launches the CUDA kernel (``csrc/slot_fused.cu``) for
   tensors on a CUDA device, counted in ``slot_step_fused.launches``, and runs
@@ -513,3 +514,29 @@ def slot_step_fused(
 
 
 slot_step_fused.launches = 0
+
+
+def slot_step_fused_single(
+    cfg: ExperimentConfig,
+    pol_state,
+    phys,
+    xs,
+    draws,
+    ratings,
+    explore: bool,
+):
+    """One fused slot of one community (JAX source pallas_slot.py:566-604):
+    the [A] state lifted to a one-scenario batch, the round draws ``draws``
+    (each [R, A], as the single chain passes each round's draws straight to
+    the act, or None greedy) lifted to [R, 1, A], the matrix negotiation
+    (the only market the single chain implements; K7 at [1, A] on the card),
+    then squeezed. Returns ``slot_dynamics``' (phys', outputs, transition),
+    [A]-shaped."""
+    from p2pmicrogrid_tpu_torch.envs.community import lift, lift_slot_inputs, squeeze
+
+    phys1, outputs1, tr1 = slot_step_fused(
+        cfg, pol_state, lift(phys), lift_slot_inputs(xs),
+        None if draws is None else tuple(d[:, None] for d in draws),
+        ratings, explore, market_impl="matrix",
+    )
+    return squeeze(phys1), squeeze(outputs1), squeeze(tr1)

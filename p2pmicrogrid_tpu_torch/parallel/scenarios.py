@@ -54,6 +54,7 @@ from p2pmicrogrid_tpu_torch.models.ddpg import (
     DDPGParams,
     adam_count,
     ddpg_learn_batch,
+    ddpg_params_init,
     set_learning_rates,
 )
 from p2pmicrogrid_tpu_torch.models.dqn import (
@@ -186,6 +187,8 @@ def init_shared_pol_state(
 ):
     """The shared learnable state (a ``TabularState``, a ``DQNState`` or
     ``DDPGParams``, whose networks draw their weights from ``generator``)."""
+    if cfg.train.implementation == "ddpg":
+        return ddpg_params_init(cfg.ddpg, cfg.sim.n_agents, generator, device=device)
     return init_policy_state(cfg, device=device, generator=generator)
 
 

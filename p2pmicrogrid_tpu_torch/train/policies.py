@@ -3,10 +3,10 @@
 A policy is three closures over the experiment config, selected by
 ``TrainConfig.implementation`` like the reference's ``setup.implementation``
 switch (community.py:241-245): tabular Q-learning, DQN and DDPG. Each
-policy's ``act`` serves the scenario-batched slot. DQN's and DDPG's
-single-scenario ``learn`` steps wait for the single-scenario simulator
-(ROADMAP.md, Queue 1, item 4); the shared trainer learns through
-``parallel/scenarios.py``.
+policy's ``act`` serves the scenario-batched slot (the single community runs
+it as a one-scenario batch); its ``learn`` is the single-community learn
+step (``envs/community.py::run_episode``). The shared trainer learns through
+``parallel/scenarios.py`` instead.
 """
 
 from __future__ import annotations
@@ -19,14 +19,16 @@ from p2pmicrogrid_tpu_torch.config import ExperimentConfig
 from p2pmicrogrid_tpu_torch.envs.community import Policy
 from p2pmicrogrid_tpu_torch.models.ddpg import (
     ddpg_decay,
-    ddpg_params_init,
+    ddpg_init,
     ddpg_shared_act,
+    ddpg_update,
 )
 from p2pmicrogrid_tpu_torch.models.dqn import (
     action_values_on,
     dqn_act,
     dqn_decay,
     dqn_init,
+    dqn_update,
 )
 from p2pmicrogrid_tpu_torch.models.tabular import (
     tabular_act,
@@ -45,11 +47,11 @@ def make_tabular_policy(cfg: ExperimentConfig) -> Policy:
     q = cfg.qlearning
 
     def act(pol_state, obs, prev_frac, draws, explore, ex):
-        uniform, rand_action = draws
+        uniform, rand_action = draws if explore else (None, None)
         action, qv = tabular_act(q, pol_state, obs, uniform, rand_action, explore)
         return action_values_on(obs.device)[action], action.to(torch.float32), qv, ex
 
-    def learn(pol_state, obs, aux, reward, next_obs):
+    def learn(pol_state, obs, aux, reward, next_obs, idx=None):
         pol_state = tabular_update(
             q, pol_state, obs, aux.to(torch.int64), reward, next_obs
         )
@@ -61,26 +63,24 @@ def make_tabular_policy(cfg: ExperimentConfig) -> Policy:
 def make_dqn_policy(cfg: ExperimentConfig) -> Policy:
     """Per-agent DQN (DQNAgent, agent.py:301-342).
 
-    ``act`` as the tabular policy's, over the 3 enumerated actions. The
-    per-slot single-scenario learn step (``dqn_update``) is not ported yet
-    (ROADMAP.md, Queue 1: the single-scenario simulator); the shared trainer
-    learns through ``parallel/scenarios.py::_dqn_update_shared``.
+    ``act`` as the tabular policy's, over the 3 enumerated actions. ``learn``
+    is the per-slot ``dqn_update`` on the agents' own rings, each sampling
+    ``batch_size`` indices ``idx`` [A, B]; the shared trainer learns through
+    ``parallel/scenarios.py::_dqn_update_shared``.
     """
     d = cfg.dqn
 
     def act(pol_state, obs, prev_frac, draws, explore, ex):
-        uniform, rand_action = draws
+        uniform, rand_action = draws if explore else (None, None)
         action, qv = dqn_act(d, pol_state, obs, uniform, rand_action, explore)
         return action_values_on(obs.device)[action], action.to(torch.float32), qv, ex
 
-    def learn(pol_state, obs, aux, reward, next_obs):
-        raise NotImplementedError(
-            "the single-scenario dqn_update is not ported yet (ROADMAP.md, "
-            "Queue 1: the single-scenario simulator); shared-scenario training "
-            "learns through parallel/scenarios.py"
-        )
+    def learn(pol_state, obs, aux, reward, next_obs, idx):
+        return dqn_update(d, pol_state, obs, aux.to(torch.int64), reward, next_obs, idx)
 
-    return Policy(act=act, learn=learn, decay=lambda s: dqn_decay(d, s))
+    return Policy(
+        act=act, learn=learn, decay=lambda s: dqn_decay(d, s), replay_batch=d.batch_size
+    )
 
 
 def make_ddpg_policy(cfg: ExperimentConfig) -> Policy:
@@ -89,25 +89,24 @@ def make_ddpg_policy(cfg: ExperimentConfig) -> Policy:
     ``act(pol_state, obs [S, A, 4], prev_frac, draws, explore, ou [S, A])``
     takes the round's OU normals ``(normals [S, A],)``, advances the OU
     state and returns (hp_frac, hp_frac, q, ou'): the action is the heat-pump
-    fraction itself. The single-scenario ``ddpg_update`` is not ported yet
-    (ROADMAP.md, Queue 1, item 4: the single-scenario simulator); the shared
+    fraction itself; ``pol_state`` is a ``DDPGParams`` or a ``DDPGState``.
+    ``learn`` is the per-agent ``ddpg_update`` on a ``DDPGState``'s rings,
+    each agent sampling ``batch_size`` indices ``idx`` [A, B]; the shared
     trainer learns through ``parallel/scenarios.py::_ddpg_update_shared``.
     """
     d = cfg.ddpg
 
     def act(pol_state, obs, prev_frac, draws, explore, ou):
-        (normals,) = draws
+        (normals,) = draws if explore else (None,)
         frac, qv, ou = ddpg_shared_act(d, pol_state, obs, ou, normals, explore)
         return frac, frac, qv, ou
 
-    def learn(pol_state, obs, aux, reward, next_obs):
-        raise NotImplementedError(
-            "the single-scenario ddpg_update is not ported yet (ROADMAP.md, "
-            "Queue 1, item 4: the single-scenario simulator); shared-scenario "
-            "training learns through parallel/scenarios.py"
-        )
+    def learn(pol_state, obs, aux, reward, next_obs, idx):
+        return ddpg_update(d, pol_state, obs, aux, reward, next_obs, idx)
 
-    return Policy(act=act, learn=learn, decay=lambda s: ddpg_decay(d, s))
+    return Policy(
+        act=act, learn=learn, decay=lambda s: ddpg_decay(d, s), replay_batch=d.batch_size
+    )
 
 
 def make_policy(cfg: ExperimentConfig) -> Policy:
@@ -126,12 +125,15 @@ def make_policy(cfg: ExperimentConfig) -> Policy:
 
 
 def init_policy_state(
-    cfg: ExperimentConfig, device="cuda", generator: Optional[torch.Generator] = None
+    cfg: ExperimentConfig,
+    device="cuda",
+    generator: Optional[torch.Generator] = None,
 ):
-    """Fresh learner state for the configured implementation, as the shared
-    trainer carries it (a ``TabularState``, a ``DQNState``, or DDPG's
-    ``DDPGParams``; the single-scenario ``DDPGState`` waits for ROADMAP.md
-    Queue 1, item 4); the networks draw their initial weights from
+    """Fresh learner state for the configured implementation: a
+    ``TabularState``, a ``DQNState``, or for DDPG the single community's
+    ``DDPGState`` (per-agent networks, rings and OU noise; the shared
+    trainer's ``DDPGParams`` come from ``parallel/scenarios.py::
+    init_shared_pol_state``). The networks (then DDPG's OU noise) draw from
     ``generator``."""
     impl = cfg.train.implementation
     if impl == "tabular":
@@ -139,5 +141,5 @@ def init_policy_state(
     if impl == "dqn":
         return dqn_init(cfg.dqn, cfg.sim.n_agents, generator, device=device)
     if impl == "ddpg":
-        return ddpg_params_init(cfg.ddpg, cfg.sim.n_agents, generator, device=device)
+        return ddpg_init(cfg.ddpg, cfg.sim.n_agents, generator, device=device)
     raise ValueError(f"unknown implementation {impl!r}")

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card against their plain versions: K1
 (``ops/merged_min.py``), K2-K6 (``ops/matrix_market.py``) and K7
-(``ops/slot_fused.py``); and shared DDPG's act and learn step on the card
-against the port on the CPU.
+(``ops/slot_fused.py``); shared DDPG's act and learn step, the chunked
+trainer's graph, and the single community's episodes on the card against
+the port on the CPU.
 
 Marked ``cuda``: it skips without a CUDA device (a CUDA kernel has no CPU
 mode). This file imports neither JAX nor the JAX package, so it also runs on
@@ -435,3 +436,128 @@ def test_chunked_graph_matches_eager(cuda_generator, impl, sim, kernel):
     (re_, le, pe), (rg, lg, pg) = out[False], out[True]
     assert np.isfinite(rg).all() and np.array_equal(rg, re_) and np.array_equal(lg, le)
     assert all(torch.equal(a, b) for a, b in zip(pg, pe))
+
+
+# --- the single community: the card against the CPU ---------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "impl,A,rounds,fused",
+    [("tabular", 2, 1, False), ("tabular", 2, 1, True), ("tabular", 3, 2, False),
+     ("dqn", 2, 1, False), ("dqn", 2, 1, True), ("ddpg", 4, 1, False)],
+    ids=["tabular", "tabular_fused", "tabular_r2", "dqn", "dqn_fused", "ddpg"],
+)
+def test_single_episode_matches_cpu(cuda_generator, impl, A, rounds, fused):
+    """One training episode of one community (slots 36-59; DQN after one
+    warmup pass, fused where the episode is) on the card and on the CPU
+    from one state and the same draws: decisions equal (DDPG's within 1e-5 of the heat pump's power),
+    rewards ``rtol=2e-4``. Each slot launches the matrix kernels at [1, A]
+    (K5, K4 from round 2, K6) or K7 once, and K1 never: the single chain
+    always negotiates through the matrix path in float32."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.convert import state_from_jax, state_to_numpy
+    from p2pmicrogrid_tpu_torch.data.traces import synthetic_traces
+    from p2pmicrogrid_tpu_torch.envs import community as com
+    from p2pmicrogrid_tpu_torch.ops.slot_fused import slot_step_fused
+    from p2pmicrogrid_tpu_torch.train import init_dqn_buffers, init_policy_state, make_policy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tc.default_config(
+        sim=tc.SimConfig(n_agents=A, rounds=rounds, fused_slot=fused or None),
+        train=tc.TrainConfig(implementation=impl),
+        dqn=tc.DQNConfig(buffer_size=64, batch_size=8, warmup_passes=1, epsilon=0.5),
+        ddpg=tc.DDPGConfig(buffer_size=64, batch_size=8),
+    )
+    T, R = 24, rounds + 1
+    ratings = com.make_ratings(cfg, np.random.default_rng(42))
+    policy = make_policy(cfg)
+    pol0 = init_policy_state(cfg, "cpu", torch.Generator().manual_seed(1))
+    if impl == "tabular":
+        pol0 = pol0._replace(q_table=torch.randn(pol0.q_table.shape, generator=torch.Generator().manual_seed(2)),
+                             epsilon=torch.tensor(0.5))
+    gen = torch.Generator().manual_seed(3)
+    count = (torch.arange(1, T + 1) + (T if impl == "dqn" else 0))[:, None, None]
+
+    def draws(learn):
+        if impl == "ddpg":
+            d = dict(ou_normals=torch.randn((T, R, A), generator=gen))
+        else:
+            d = dict(uniform=torch.rand((T, R, A), generator=gen),
+                     randint=torch.randint(0, 3, (T, R, A), generator=gen))
+        if learn and impl != "tabular":
+            d["replay_idx"] = torch.minimum((torch.rand((T, A, 8), generator=gen) * count).long(), count - 1)
+        return com.SingleEpisodeDraws(normals=torch.randn((2, A), generator=gen), **d)
+
+    warm, episode = draws(False), draws(True)
+    kernels = (slot_step_fused,) if fused else (
+        (mm.divide_rank1_fused, mm.clear_market_fused) + ((mm.divide_power_fused_with_mean,) if rounds > 1 else ())
+    )
+    everything = (merged_min_sums, mm.divide_rank1_fused, mm.divide_power_fused_with_mean,
+                  mm.clear_market_fused, mm.divide_power_fused, mm.prep_mean, slot_step_fused)
+    out = {}
+    for device in ("cpu", "cuda"):
+        to = lambda d: com.SingleEpisodeDraws(*(None if x is None else x.to(device) for x in d))
+        traces = synthetic_traces(n_days=1, start_day=11).normalized()
+        arrays = com.EpisodeArrays(*(x[36:36 + T] for x in com.build_episode_arrays(cfg, traces, ratings, device)))
+        sub = {"dqn": cfg.dqn, "ddpg": cfg.ddpg}.get(impl)
+        pol = state_from_jax(state_to_numpy(pol0), device, cfg=sub)
+        for fn in everything:
+            fn.launches = 0
+        passes = 1
+        if impl == "dqn":
+            pol = init_dqn_buffers(cfg, policy, pol, arrays, ratings, draws=[to(warm)])
+            passes = 2
+        d = to(episode)
+        phys = com.init_physical(cfg, d.normals, device=device)
+        _, pol, o = com.run_episode(cfg, policy, pol, phys, arrays, ratings, training=True, draws=d, fused=fused)
+        if device == "cuda":
+            assert merged_min_sums.launches == 0
+            for fn in everything:
+                assert fn.launches == (passes * T if fn in kernels else 0), fn.__name__
+        out[device] = (o.decisions.cpu().numpy(), o.reward.mean(dim=-1).sum().item())
+    (dec_c, rew_c), (dec_g, rew_g) = out["cpu"], out["cuda"]
+    if impl == "ddpg":
+        np.testing.assert_allclose(dec_g, dec_c, rtol=0, atol=1e-5 * cfg.thermal.hp_max_power)
+    else:
+        np.testing.assert_array_equal(dec_g, dec_c)
+    np.testing.assert_allclose(rew_g, rew_c, rtol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_single_evaluation_matches_cpu(cuda_generator, fused):
+    """evaluate_community over 3 days, side by side as a [3, 2] batch (K5 and
+    K6 at [3, 2], or K7 with ``fused_slot``; K1 never), on the card and on
+    the CPU: decisions equal, day rewards ``rtol=2e-4``."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.convert import state_from_jax, state_to_numpy
+    from p2pmicrogrid_tpu_torch.data.traces import synthetic_traces
+    from p2pmicrogrid_tpu_torch.envs.community import make_ratings
+    from p2pmicrogrid_tpu_torch.ops.slot_fused import slot_step_fused
+    from p2pmicrogrid_tpu_torch.train import evaluate_community, init_policy_state, make_policy
+
+    cfg = tc.default_config(
+        sim=tc.SimConfig(n_agents=2, fused_slot=fused or None), train=tc.TrainConfig(implementation="tabular")
+    )
+    pol0 = init_policy_state(cfg, "cpu")
+    pol0 = pol0._replace(q_table=torch.randn(pol0.q_table.shape, generator=torch.Generator().manual_seed(2)))
+    traces = synthetic_traces(n_days=3, start_day=11).normalized()
+    ratings = make_ratings(cfg, np.random.default_rng(42))
+    normals = torch.randn((3, 2, 2), generator=torch.Generator().manual_seed(3))
+    out = {}
+    for device in ("cpu", "cuda"):
+        merged_min_sums.launches = mm.clear_market_fused.launches = slot_step_fused.launches = 0
+        _, o, _ = evaluate_community(
+            cfg, make_policy(cfg), state_from_jax(state_to_numpy(pol0), device), traces, ratings,
+            normals=normals.to(device), device=device,
+        )
+        out[device] = (o.decisions.cpu().numpy(), o.reward.sum(dim=(1, 2)).cpu().numpy())
+    assert merged_min_sums.launches == 0
+    assert (slot_step_fused.launches, mm.clear_market_fused.launches) == ((96, 0) if fused else (0, 96))
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=2e-4)

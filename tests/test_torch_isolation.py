@@ -13,12 +13,14 @@ import torch
 import p2pmicrogrid_tpu_torch
 from p2pmicrogrid_tpu_torch import config as tcfg
 from p2pmicrogrid_tpu_torch.envs import community as tcom
-from p2pmicrogrid_tpu_torch.models.ddpg import ddpg_params_init
+from p2pmicrogrid_tpu_torch.data.traces import synthetic_traces
+from p2pmicrogrid_tpu_torch.models.ddpg import ddpg_init, ddpg_params_init
 from p2pmicrogrid_tpu_torch.models.dqn import dqn_init
 from p2pmicrogrid_tpu_torch.models.replay import lockstep_replay_init
 from p2pmicrogrid_tpu_torch.models.tabular import tabular_init
 from p2pmicrogrid_tpu_torch.parallel import device_gen as tdg
 from p2pmicrogrid_tpu_torch.parallel import scenarios as tsc
+from p2pmicrogrid_tpu_torch.train import loop as tloop
 from p2pmicrogrid_tpu_torch.train import make_policy
 from p2pmicrogrid_tpu_torch.train.policies import init_policy_state
 
@@ -39,7 +41,8 @@ def test_every_module_imports_without_jax():
         for name in names:
             importlib.import_module(name)
         assert {"p2pmicrogrid_tpu_torch.parallel.device_gen",
-                "p2pmicrogrid_tpu_torch.parallel.graph"} <= set(names), names
+                "p2pmicrogrid_tpu_torch.parallel.graph",
+                "p2pmicrogrid_tpu_torch.train.loop"} <= set(names), names
         leaked = sorted(
             n for n, m in sys.modules.items()
             if m is not None and (n == "jax" or n.startswith(("jax.", "jaxlib", "flax", "optax"))
@@ -90,12 +93,26 @@ def _cfg(impl="tabular"):
         lambda cfg: tsc.train_scenarios_chunked(
             cfg, make_policy(cfg), None, tcom.make_ratings(cfg, np.random.default_rng(0)), 0, 1, 2
         ),
+        lambda cfg: tcom.build_episode_arrays(
+            cfg, synthetic_traces(n_days=1), tcom.make_ratings(cfg, np.random.default_rng(0))
+        ),
+        lambda cfg: init_policy_state(_cfg("ddpg")),
+        lambda cfg: ddpg_init(cfg.ddpg, 4),
+        lambda cfg: tloop.train_community(
+            cfg, make_policy(cfg), None, synthetic_traces(n_days=1),
+            tcom.make_ratings(cfg, np.random.default_rng(0)), torch.Generator(),
+        ),
+        lambda cfg: tloop.evaluate_community(
+            cfg, make_policy(cfg), None, synthetic_traces(n_days=1),
+            tcom.make_ratings(cfg, np.random.default_rng(0)), torch.Generator(),
+        ),
     ],
     ids=["init_shared_state", "init_policy_state", "tabular_init", "init_physical",
          "ratings_to", "stack_scenario_arrays", "init_shared_state_dqn", "dqn_init",
          "lockstep_replay_init", "init_shared_state_ddpg", "ddpg_params_init", "draw_traces",
          "device_scenario_traces", "device_episode_arrays", "make_device_episode_fn",
-         "train_scenarios_chunked"],
+         "train_scenarios_chunked", "build_episode_arrays", "init_policy_state_ddpg",
+         "ddpg_init", "train_community", "evaluate_community"],
 )
 def test_entry_points_default_to_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
