@@ -26,8 +26,12 @@ Phases (each failure exits non-zero):
    1e-4. Each also at the single community's shapes: K5, K4 and K6 in
    float32 at [1,2], [1,10] and [13,2] (the evaluation's 13 days), K7 at
    [1,2] and [1,10] (tabular and DQN, matrix at rounds 1 and 2, no
-   trading), a one-community case drawing its inputs at other hours until
-   buyers and sellers meet.
+   trading) and [13,2] (the fused evaluation), a one-community case drawing
+   its inputs at other hours until buyers and sellers meet. Phase 7's
+   shapes: K1 in float32 at [8,128] and [104,128], K5 and K6 at [64,2] and
+   [64,10], and K7 with one learner per scenario (tabular and DQN at [64,2]
+   and [8,10], tabular at rounds=2), each scenario of it also held to K7 at
+   [1,A] with its own learners, bit for bit.
 3. Small-path parity: the A=6, S=3 shared episodes with fixed draws on the
    card against the port on the CPU (rewards, every slot's actions): tabular
    with the factored market (rounds=1) and the matrix negotiation
@@ -75,12 +79,24 @@ Phases (each failure exits non-zero):
    the timed rows, each one warm, one timed and one profiled
    ``train_community`` episode: cfg1 unfused and fused, DQN at A=2, cfg2;
    and ``evaluate_community`` over the 13 days of the synthetic traces side
-   by side (K5, K6 at [13,2]), held to the CPU's. Each run sets the launch
-   counts to 0 first and reads them after: its path's kernels once a slot,
-   no other.
-7. One JSON line with the DDPG rows' numbers, one with the chunked rows',
-   one with the single rows', one with every kernel's, then the last line
-   ``{"ok": true, "device": {...}}``.
+   by side (K5, K6 at [13,2]; fused, K7 at [13,2]), held to the CPU's. Each
+   run sets the launch counts to 0 first and reads them after: its path's
+   kernels once a slot, no other.
+7. The remaining scenario trainers. The JAX bench's ``cfg5``
+   (``train_multi_community``: 8 communities of 128 agents with
+   inter-community trading, tabular, the factored clearing in float32, K1 at
+   [8,128], K7 never); its greedy evaluation over the 13 days side by side
+   (``evaluate_multi_community``, K1 at [104,128]) with the trained table
+   and with a DDPG learner shared by every agent, held to the port on the
+   CPU and to the settlement's conservation law; and
+   ``train_scenarios_independent`` at S=64 for cfg1's width (A=2 tabular,
+   unfused: K5 and K6 at [64,2]; fused: K7 with one learner per scenario)
+   and cfg2's (A=10 per-agent DDPG: K5 and K6 at [64,10]). One warm, one
+   timed and one profiled episode each, the launch counts set to 0 before
+   the timed one and read after.
+8. One JSON line with the DDPG rows' numbers, one with the chunked rows',
+   one with the single rows', one with phase 7's rows, one with every
+   kernel's, then the last line ``{"ok": true, "device": {...}}``.
 
 With arguments (a comma-separated list of phase numbers, e.g. ``5``) it
 builds and runs only those phases and prints no result line.
@@ -107,8 +123,12 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # The days of the synthetic traces (``synthetic_traces()``'s default, days
-# 8-20), which phase 6's evaluation runs side by side.
+# 8-20), which phase 6's and phase 7's evaluations run side by side.
 EVAL_DAYS = 13
+# Phase 7: the JAX bench's cfg5 (benchmarks.py:631-661), 8 communities of
+# 128 agents, and the independent rows' scenario count (BASELINE config 4's).
+MULTI_C, MULTI_A = 8, 128
+INDEPENDENT_S = 64
 
 
 def fail(msg: str) -> None:
@@ -308,6 +328,13 @@ def merged_min_inputs(S, A, gen, case="random"):
     return alpha, wplus, wminus, gamma, pb, ps
 
 
+# K1's timed shapes: the shared rows' [64,1000] (the record's main shape),
+# northstar's [128,1000], cfg3's [256,50], the DDPG scale row's [2048,50],
+# and phase 7's cfg5 training [8,128] and evaluation [104,128].
+K1_TIMED = ((64, 1000), (128, 1000), (256, 50), (2048, 50), (MULTI_C, MULTI_A),
+            (EVAL_DAYS * MULTI_C, MULTI_A))
+
+
 def phase_kernels():
     """K1 against its plain version; returns the kernel record."""
     import torch
@@ -331,6 +358,10 @@ def phase_kernels():
         (64, 1000, "no_prop"),
         (64, 1000, "one_sided"),
         (5, 257, "random"),
+        # Phase 7's multi-community shapes: cfg5's 8 communities of 128
+        # agents, and its 13-day evaluation (104 rows), float32.
+        (8, 128, "random"),
+        (EVAL_DAYS * MULTI_C, MULTI_A, "random"),
     ]
     max_abs_err = 0.0
     timings = {}
@@ -357,7 +388,7 @@ def phase_kernels():
             fail(f"K1 {case} [{S},{A}]: repeat launch not bit-identical")
         config = kernel_config(S, A, "cuda")
         launch[f"[{S},{A}]"] = config
-        if case == "random" and (S, A) in ((64, 1000), (128, 1000), (256, 50), (2048, 50)):
+        if case == "random" and (S, A) in K1_TIMED:
             k_ms = cuda_time_ms(lambda: merged_min_sums(*args))
             p_ms = cuda_time_ms(lambda: merged_min_sums_plain(*args))
             names = ("merged_min_tiles_kernel",) + (
@@ -409,6 +440,7 @@ def phase_kernels():
         "at_128x1000": timings[(128, 1000)],
         "at_256x50": timings[(256, 50)],
         "at_2048x50": timings[(2048, 50)],
+        **{f"at_{S}x{A}": timings[(S, A)] for S, A in K1_TIMED[4:]},
         "launch": launch,
     }
 
@@ -518,17 +550,20 @@ def phase_matrix_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4321)
     bf16, f32 = torch.bfloat16, torch.float32
-    # The single community's shapes last (phase 6): one community of 2 or 10
-    # agents, and the evaluation's days side by side.
+    # The single community's shapes (phase 6): one community of 2 or 10
+    # agents, and the evaluation's days side by side; then the independent
+    # rows' 64 communities of 2 or 10 agents (phase 7).
     cases = [
         (64, 1000, bf16), (64, 1000, f32), (256, 50, f32), (5, 257, bf16), (5, 257, f32),
         (2, 65, f32), (3, 7, f32), (3, 7, bf16), (1, 50, f32), (2, 1, f32),
         (1, 2, f32), (1, 10, f32), (EVAL_DAYS, 2, f32),
+        (INDEPENDENT_S, 2, f32), (INDEPENDENT_S, 10, f32),
     ]
     redesigned = ("divide_rank1_fused", "divide_power_fused_with_mean", "clear_market_fused")
     timed = {
         (64, 1000, bf16): "main", (64, 1000, f32): "at_64x1000_f32", (256, 50, f32): "at_256x50",
         (1, 2, f32): "at_1x2", (1, 10, f32): "at_1x10", (EVAL_DAYS, 2, f32): f"at_{EVAL_DAYS}x2",
+        (INDEPENDENT_S, 2, f32): f"at_{INDEPENDENT_S}x2", (INDEPENDENT_S, 10, f32): f"at_{INDEPENDENT_S}x10",
     }
     specs = matrix_kernel_specs()
     records = {
@@ -685,10 +720,12 @@ def slot_config(tc, impl, S, A, rounds, market):
     )
 
 
-def slot_inputs(cfg, gen, t=44, epsilon=0.3):
+def slot_inputs(cfg, gen, t=44, epsilon=0.3, per_scenario=False):
     """One slot's inputs on the card: the path's traces and ratings at slot
     ``t`` (11:00, when every agent's PV exceeds its load), a random Q-table
-    (tabular) or freshly initialised networks (DQN), random initial
+    (tabular) or freshly initialised networks (DQN), one learner for every
+    scenario or, with ``per_scenario``, S * A of them (the independent
+    trainer's, scenario-major), random initial
     temperatures and draws; epsilon 0.3, so that greedy and explored agents
     both occur. Half of the batteries are full and the others anywhere in
     [min_soc, max_soc]: a full battery cannot store the surplus, so its agent
@@ -697,14 +734,21 @@ def slot_inputs(cfg, gen, t=44, epsilon=0.3):
     import torch
 
     from p2pmicrogrid_tpu_torch.envs import community as com
-    from p2pmicrogrid_tpu_torch.parallel import make_scenario_traces, stack_scenario_arrays
+    from p2pmicrogrid_tpu_torch.parallel import (
+        init_independent_state,
+        make_scenario_traces,
+        stack_scenario_arrays,
+    )
     from p2pmicrogrid_tpu_torch.train import init_policy_state
 
     S, A = cfg.sim.n_scenarios, cfg.sim.n_agents
     ratings = com.make_ratings(cfg, np.random.default_rng(cfg.train.seed))
     arrays = stack_scenario_arrays(cfg, make_scenario_traces(cfg, seed=cfg.train.seed), ratings, "cuda")
     xs = tuple(x[:, t].contiguous() for x in arrays)
-    pol = init_policy_state(cfg, device="cuda", generator=gen)
+    if per_scenario:
+        pol = init_independent_state(cfg, S, "cuda", gen)
+    else:
+        pol = init_policy_state(cfg, device="cuda", generator=gen)
     if cfg.train.implementation == "tabular":
         pol = pol._replace(q_table=torch.randn(pol.q_table.shape, generator=gen, device="cuda") * 0.1)
     pol = pol._replace(epsilon=torch.tensor(epsilon, device="cuda"))
@@ -763,6 +807,7 @@ def explain_flips(cfg, args, got, ref):
 
     from p2pmicrogrid_tpu_torch.models.dqn import _q_all_actions
     from p2pmicrogrid_tpu_torch.ops import slot_fused as sf
+    from p2pmicrogrid_tpu_torch.parallel import scenario_learners
 
     flips = (got.decisions != ref.decisions).nonzero().tolist()  # [s, r, a]
     causes = {}
@@ -794,8 +839,12 @@ def explain_flips(cfg, args, got, ref):
             _, p = round_features(r) if r > 0 else (got, ref)
             p2p = p.f_p2p[s] if r > 0 else torch.zeros_like(p.f_p2p[s])
             obs = torch.stack([p.f_time[s], p.f_temp[s], p.f_bal[s], p2p], dim=-1)
+            S, A = p.f_p2p.shape
+            pol = args[0]
+            if sf.per_scenario_learners(cfg, pol, S, A):
+                pol = scenario_learners(pol, s, A)
             with torch.no_grad():
-                q = _q_all_actions(cfg.dqn, args[0].online, obs[None])[0, a]
+                q = _q_all_actions(cfg.dqn, pol.online, obs[None])[0, a]
             hp = float(cfg.thermal.hp_max_power)
             ia = int(round(float(got.decisions[s, r, a]) / hp * 2))
             ib = int(round(float(ref.decisions[s, r, a]) / hp * 2))
@@ -832,6 +881,18 @@ SLOT_CASES = (
     ("single dqn matrix rounds=2", "dqn", 1, 10, 2, "matrix", None),
     ("single tabular no trading", "tabular", 1, 2, 1, None, None),
     ("single dqn no trading", "dqn", 1, 10, 1, None, None),
+    # The fused evaluation's 13 days of 2 agents side by side (phase 6).
+    ("evaluation tabular matrix", "tabular", EVAL_DAYS, 2, 1, "matrix", f"single_{EVAL_DAYS}x2"),
+)
+# K7 with one learner per scenario (the independent trainer, phase 7): the
+# rows' 64 communities of 2 agents, and 8 of 10, each held to the plain
+# version and, scenario by scenario, to K7 at [1, A] bit for bit.
+STRIDED_CASES = (
+    ("strided tabular matrix", "tabular", INDEPENDENT_S, 2, 1, "matrix", f"strided_{INDEPENDENT_S}x2"),
+    ("strided dqn matrix", "dqn", INDEPENDENT_S, 2, 1, "matrix", f"strided_dqn_{INDEPENDENT_S}x2"),
+    ("strided tabular matrix", "tabular", 8, 10, 1, "matrix", None),
+    ("strided dqn matrix", "dqn", 8, 10, 1, "matrix", None),
+    ("strided tabular matrix rounds=2", "tabular", INDEPENDENT_S, 2, 2, "matrix", None),
 )
 # The slots a one-community case draws its inputs at, in turn, until buyers
 # and sellers meet (11:00 first, then other hours with PV): one community of
@@ -839,9 +900,10 @@ SLOT_CASES = (
 TRADING_SLOTS = (44, 48, 40, 52, 36, 56, 42, 46, 50, 54, 38, 58)
 
 
-def slot_bound(cfg, S, A, R, impl, market):
+def slot_bound(cfg, S, A, R, impl, market, learners=None):
     """K7's least time: each input read once and each output written once
-    (the Q-table rows this run reads, not the table; the DQN weights once),
+    (the Q-table rows this run reads, not the table; the DQN weights of its
+    ``learners`` once, A of them unless given),
     against the float32 operations: the merged min (7 per entry of each
     scenario's A x A), the matrix rounds (about 13 per entry and round after
     the first, 1 for round 0's split, 10 for the clearing), the DQN forwards
@@ -851,7 +913,7 @@ def slot_bound(cfg, S, A, R, impl, market):
     if impl == "tabular":
         nbytes += 12.0 * R * S * A
     else:
-        nbytes += 4.0 * A * (5 * 64 + 64 + 64 * 64 + 64 + 64 + 1)
+        nbytes += 4.0 * (learners or A) * (5 * 64 + 64 + 64 * 64 + 64 + 64 + 1)
     ops = 0.0
     if market == "factored":
         ops += 7.0 * S * A * A
@@ -862,6 +924,28 @@ def slot_bound(cfg, S, A, R, impl, market):
     bound_ops = ops / PEAK_F32_FLOPS * 1e3
     bound_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(bound_ops, bound_bytes), ("operations" if bound_ops >= bound_bytes else "bytes")
+
+
+def check_scenario_by_scenario(what, cfg, args, got):
+    """K7 with one learner per scenario against K7 at [1, A] with each
+    scenario's learners alone: bit for bit."""
+    import torch
+
+    from p2pmicrogrid_tpu_torch.ops import slot_fused as sf
+    from p2pmicrogrid_tpu_torch.parallel import scenario_learners
+
+    pol, phys, xs, draws, ratings, *rest = args
+    S, A = xs[2].shape
+    for s in range(S):
+        one = lambda tree: type(tree)(*(x[s : s + 1] for x in tree))
+        alone = sf.slot_raw(
+            cfg, scenario_learners(pol, s, A), one(phys), tuple(x[s : s + 1] for x in xs),
+            tuple(d[:, s : s + 1].contiguous() for d in draws), ratings, *rest,
+        )
+        for name, g, a in zip(sf.SlotRaw._fields, got, alone):
+            if not torch.equal(g[s : s + 1], a):
+                fail(f"{what}: {name} of scenario {s} differs from K7 at [1,{A}] with its learners")
+    log(f"{what}: each of the {S} scenarios equals K7 at [1,{A}] with its learners, bit for bit")
 
 
 def phase_slot_kernel():
@@ -882,12 +966,15 @@ def phase_slot_kernel():
         "library_ms": None,  # no single PyTorch call computes a whole slot
         "decisions": 0, "decisions_differ": 0, "causes": {}, "grids": {},
     }
-    for label, impl, S, A, rounds, market, timed in SLOT_CASES:
+    cases = [c + (False,) for c in SLOT_CASES] + [c + (True,) for c in STRIDED_CASES]
+    for label, impl, S, A, rounds, market, timed, per_scenario in cases:
         cfg = slot_config(tc, impl, S, A, rounds, market)
-        # One community draws again, at the next slot of TRADING_SLOTS, until
-        # its market is two-sided; a batch of scenarios takes its first draw.
-        for t in TRADING_SLOTS if S == 1 and market is not None else TRADING_SLOTS[:1]:
-            args = slot_inputs(cfg, gen, t=t)
+        # One community, or a batch of communities of few agents each, draws
+        # again, at the next slot of TRADING_SLOTS, until its market is
+        # two-sided; a batch of larger communities takes its first draw.
+        few = (S == 1 or A <= 10) and market is not None
+        for t in TRADING_SLOTS if few else TRADING_SLOTS[:1]:
+            args = slot_inputs(cfg, gen, t=t, per_scenario=per_scenario)
             ref = sf.slot_step_fused_plain(cfg, *args)
             if market is None or two_sided(ref)[0]:
                 break
@@ -895,14 +982,22 @@ def phase_slot_kernel():
         again = sf.slot_raw(cfg, *args)
         torch.cuda.synchronize()
         what = f"K7 {label} [{S},{A}] slot {t}"
-        grid = sf.kernel_grid(cfg, S, A, market)
+        grid = sf.kernel_grid(cfg, S, A, market, per_scenario)
         rec["grids"][f"{label} [{S},{A}]"] = grid
         log(
             f"{what}: cooperative grid {grid['blocks']} blocks of 256 threads, "
             f"{grid['blocks_per_sm']} per SM on {grid['sms']} SMs, "
             f"{grid['smem_bytes']} B shared memory per block"
         )
-        if S >= 64 and grid["blocks"] < grid["sms"]:
+        if per_scenario:
+            # One learner per scenario, A at most one clearing tile (64): one
+            # work item per scenario in every phase, and one per learner in
+            # the DQN act (slot_fused.cu, max_items). At [64, 2] that is
+            # fewer items than SMs, and the grid is sized to them.
+            designed = S * A if impl == "dqn" else S
+            if grid["blocks"] != min(designed, grid["blocks_per_sm"] * grid["sms"]):
+                fail(f"{what}: a grid of {grid['blocks']} blocks, designed for {designed} work items")
+        elif S >= 64 and grid["blocks"] < grid["sms"]:
             fail(f"{what}: the grid of {grid['blocks']} blocks leaves SMs idle")
         traded = "no market" if market is None else f"{trading_share(what, ref):.4f} of the agents trade"
         for name, g, a, r in zip(sf.SlotRaw._fields, got, again, ref):
@@ -933,6 +1028,8 @@ def phase_slot_kernel():
             if g.numel():
                 err = max(err, float((g - r).abs().max()))
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if per_scenario:
+            check_scenario_by_scenario(what, cfg, args, got)
         log(
             f"{what}: bit-identical repeat, {len(causes)} of {n_dec} decisions differ "
             f"from the plain version ({sorted(causes.values())}), max abs err {err:.3e} "
@@ -943,7 +1040,7 @@ def phase_slot_kernel():
             k_ms = cuda_time_ms(lambda: sf.slot_raw(cfg, *args))
             p_ms = cuda_time_ms(lambda: sf.slot_step_fused_plain(cfg, *args), warmup=2, iters=5, reps=3)
             dev_ms = profiled_device_ms(lambda: sf.slot_raw(cfg, *args), "slot_fused_kernel")
-            bound, by = slot_bound(cfg, S, A, R, impl, market)
+            bound, by = slot_bound(cfg, S, A, R, impl, market, S * A if per_scenario else None)
             t = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, profiled_ms=dev_ms,
                      shape=[S, A], config=label)
             if timed == "main":
@@ -2163,14 +2260,22 @@ def phase_single_rows(counters, card):
 
     # The fused evaluation (SimConfig.fused_slot): K7 at [13, 2], held to
     # the CPU's and, by phase 4's convention, to the unfused days.
+    # One warm run, then the timed run, as the unfused evaluation.
     cfg_f = single_config(tc, "tabular", 2, 1, True)
+    evaluate("cuda", trained, cfg_f)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_f = torch.cuda.memory_allocated()
     reset(counters)
+    start = time.perf_counter()
     out_f = evaluate("cuda", trained, cfg_f)
+    rewards_f = out_f.reward.sum(dim=(1, 2)).cpu().numpy()
+    secs_f = time.perf_counter() - start
+    peak_f = torch.cuda.max_memory_allocated()
     fused_launches = expect_launches("single evaluation fused", counters, {k: T for k in FUSED_PATH})
     for name, n in fused_launches.items():
         totals[name] += n
     ref_f = evaluate("cpu", copy_state(cfg, trained, "cpu"), cfg_f)
-    rewards_f = out_f.reward.sum(dim=(1, 2)).cpu().numpy()
     if not np.array_equal(out_f.decisions.cpu().numpy(), ref_f.decisions.numpy()):
         fail("single evaluation fused: decisions differ card vs CPU")
     if not np.allclose(rewards_f, ref_f.reward.sum(dim=(1, 2)).numpy(), rtol=2e-4, atol=0.0):
@@ -2185,13 +2290,284 @@ def phase_single_rows(counters, card):
     kernels, _ = profile_episode(run_eval, T, secs)
     row = single_row_common("evaluation", cfg, secs, EVAL_DAYS * T, kernels, peak, base, launches, T)
     row.update(card=card, days=EVAL_DAYS, day_rewards=rewards.tolist())
-    for name, ms in row["kernel_device_ms_per_call"].items():
-        shapes.setdefault(name, {})[(EVAL_DAYS, 2)] = ms
-    rows.append(row)
-    log(f"phase 6: {json.dumps(row)}")
+    # The fused evaluation's K7 at [13, 2] on the path, from its own profile.
+    kernels_f, _ = profile_episode(lambda: evaluate("cuda", trained, cfg_f).reward.sum().item(), T, secs_f)
+    row_f = single_row_common("evaluation fused", cfg_f, secs_f, EVAL_DAYS * T, kernels_f, peak_f, base_f,
+                              fused_launches, T)
+    row_f.update(card=card, days=EVAL_DAYS, day_rewards=rewards_f.tolist())
+    for r in (row, row_f):
+        for name, ms in r["kernel_device_ms_per_call"].items():
+            shapes.setdefault(name, {})[(EVAL_DAYS, 2)] = ms
+        rows.append(r)
+        log(f"phase 6: {json.dumps(r)}")
     return rows, totals, shapes
 
 
+
+
+# --- phase 7 ---------------------------------------------------------------
+
+
+def expect_path(what, counters, expected):
+    """Each counter's launches since it was set to 0 against ``expected``
+    ({name: n}, every other kernel 0: K7 never on an unfused path)."""
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: expected.get(name, 0) for name in counters}
+    if launches != want:
+        fail(f"{what}: launches {launches}, expected {want}")
+    return launches
+
+
+def timed_rows(what, counters, path, T, run, env_steps):
+    """One warm run, one timed (its launches checked: each of ``path`` once a
+    slot), one profiled; ``run()`` trains or evaluates once and returns a
+    host array of its rewards. Returns (the row's numbers, launches)."""
+    import numpy as np
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset(counters)
+    start = time.perf_counter()
+    rewards = run()
+    secs = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    launches = expect_path(what, counters, {k: T for k in path})
+    if not np.isfinite(rewards).all():
+        fail(f"{what}: non-finite rewards")
+    kernels, _ = profile_episode(run, T, secs)
+    busy_ms = None if kernels is None else sum(ms for _, ms in kernels.values())
+    per_call = {} if kernels is None else profiled_kernel_ms(kernels, T)
+    row = dict(
+        row=what, env_steps_per_s=env_steps / secs, seconds=secs, ms_per_slot=secs / T * 1e3,
+        busy_ms=busy_ms, idle_share=None if busy_ms is None else 1 - busy_ms / (secs * 1e3),
+        device_ops_per_slot=None if kernels is None else sum(n for n, _ in kernels.values()) / T,
+        launches={k: v for k, v in launches.items() if v},
+        kernel_device_ms_per_call={k: v for k, v in per_call.items() if launches.get(k)},
+        peak_memory_mib=peak / 2**20, run_peak_memory_mib=(peak - base) / 2**20,
+    )
+    log(f"phase 7: {json.dumps(row)}")
+    return row, launches
+
+
+def repriced_vs_matched(cfg, out):
+    """The inter-community settlement against its conservation law, per
+    (day, slot, community): it must change the community's costs from the
+    plain tariff's by exactly the matched energy ``f * r`` re-priced from the
+    residual's tariff to the trade price (so the energy re-priced equals the
+    energy matched), within float32 rounding of the costs (1e-5 of their
+    magnitudes). Outputs' leaves [D, T, C, ...]. Returns (whether every
+    entry holds, the matched energy per day in kWh, the change per day in
+    euro)."""
+    import torch
+
+    from p2pmicrogrid_tpu_torch.envs.multi_community import inter_community_traded_fraction
+
+    p_grid = out.p_grid.double()
+    buy, inj, trade = (x.double()[..., None] for x in (out.buy_price, out.injection_price, out.trade_price))
+    kwh = cfg.sim.slot_hours * 1e-3
+    plain = (p_grid * torch.where(p_grid >= 0, buy, inj) + out.p_p2p.double() * trade) * kwh
+    r = p_grid.sum(dim=-1)
+    matched = inter_community_traded_fraction(out.p_grid).double() * r
+    res_tariff = torch.where(r >= 0, buy[..., 0], inj[..., 0])
+    change = (out.cost.double() - plain).sum(dim=-1)
+    expected = matched * (trade[..., 0] - res_tariff) * kwh
+    tol = 1e-5 * (out.cost.double().abs() + plain.abs()).sum(dim=-1) + 1e-9
+    ok = bool(((change - expected).abs() <= tol).all())
+    return ok, (matched.abs() * kwh).sum(dim=(1, 2)), change.sum(dim=(1, 2))
+
+
+def phase_multi_community(counters, card):
+    """The JAX bench's cfg5 (benchmarks.py:631-661): 8 communities of 128
+    agents with inter-community trading, one shared tabular learner,
+    ``SimConfig`` defaults (rounds=1 -> on the card the factored clearing in
+    float32, K1 at [8,128]); traces and ratings as benchmarks.py:353-357
+    builds them (the numpy trace backend). One warm, one timed and one
+    profiled ``train_multi_community`` episode; then the greedy evaluation
+    over the 13 days of ``synthetic_traces()`` (K1 at [104,128]) with the
+    trained table and with a DDPG learner shared by every agent, each held
+    to the port on the CPU (same market: costs rtol=1e-5, decisions equal;
+    DDPG's within 1e-5 of the heat pump's power) and the re-priced energy
+    to the matched energy, per day; each learner's communities must trade
+    with each other on some day. Returns (rows, launches, {kernel:
+    {shape: device ms per call}})."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.data.traces import synthetic_traces
+    from p2pmicrogrid_tpu_torch.envs.community import make_ratings, resolve_market_dtype, resolve_market_impl
+    from p2pmicrogrid_tpu_torch.envs.multi_community import evaluate_multi_community, train_multi_community
+    from p2pmicrogrid_tpu_torch.parallel import (
+        init_shared_pol_state,
+        make_scenario_traces,
+        stack_scenario_arrays,
+    )
+    from p2pmicrogrid_tpu_torch.train import make_policy
+
+    T, C, A = 96, MULTI_C, MULTI_A
+    cfg = tc.default_config(
+        sim=tc.SimConfig(n_agents=A, n_scenarios=C, slot_unroll=2),
+        train=tc.TrainConfig(implementation="tabular"),
+    )
+    market = (resolve_market_impl(cfg, "cuda"), resolve_market_dtype(cfg, "cuda"))
+    log(f"phase 7: cfg5 [{C},{A}] resolves to the {market[0]} clearing in {market[1]} on the card")
+    if market != ("factored", "float32"):
+        fail(f"cfg5: the market resolved to {market}, not the factored clearing in float32")
+    ratings = make_ratings(cfg, np.random.default_rng(42))
+    arrays = stack_scenario_arrays(cfg, make_scenario_traces(cfg), ratings, "cuda")
+    policy = make_policy(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = {"pol": init_shared_pol_state(cfg, "cuda", gen)}
+
+    def train():
+        state["pol"], _, rewards, _, _ = train_multi_community(cfg, policy, state["pol"], arrays, ratings, gen, 1)
+        return rewards
+
+    rows, totals, shapes = [], {name: 0 for name in counters}, {}
+    row, launches = timed_rows("cfg5", counters, ("merged_min_sums",), T, train, T * C)
+    row.update(card=card, C=C, A=A, market=market)
+    rows.append(row)
+    for name, n in launches.items():
+        totals[name] += n
+    shapes.setdefault("merged_min_sums", {})[(C, A)] = row["kernel_device_ms_per_call"].get("merged_min_sums")
+
+    # The greedy evaluation of the 13 days, every day's 8 communities trading
+    # among themselves: [104, 128] rows a slot.
+    traces = synthetic_traces().normalized()
+    normals = torch.randn((EVAL_DAYS, C, 2, A), generator=torch.Generator().manual_seed(3))
+    cpu_cfg = dataclasses.replace(cfg, sim=dataclasses.replace(cfg.sim, market_impl="factored"))
+    ddpg_cfg = dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, implementation="ddpg"),
+        ddpg=tc.DDPGConfig(share_across_agents=True),
+    )
+    # The DDPG actor is drawn on the CPU from seed 0, whose communities trade
+    # with each other on some days (the CUDA generator's draw after training
+    # made every community a buyer on every day).
+    ddpg_pol = init_shared_pol_state(ddpg_cfg, "cpu", torch.Generator().manual_seed(0))
+    learners = (
+        ("cfg5 evaluation", cfg, state["pol"]),
+        ("cfg5 evaluation ddpg", ddpg_cfg, copy_state(ddpg_cfg, ddpg_pol, "cuda")),
+    )
+    for label, ecfg, pol in learners:
+        epolicy = make_policy(ecfg)
+        holder = {}
+
+        def evaluate(device="cuda", ecfg=ecfg, pol=pol, epolicy=epolicy, holder=holder):
+            _, out, _ = evaluate_multi_community(
+                ecfg, epolicy, pol, traces, ratings, normals=normals.to(device), device=device
+            )
+            holder[device] = out
+            return out.reward.sum(dim=(1, 2, 3)).cpu().numpy()
+
+        row, launches = timed_rows(label, counters, ("merged_min_sums",), T, evaluate, EVAL_DAYS * C * T)
+        for name, n in launches.items():
+            totals[name] += n
+        shapes.setdefault("merged_min_sums", {})[(EVAL_DAYS * C, A)] = row["kernel_device_ms_per_call"].get(
+            "merged_min_sums"
+        )
+        out = holder["cuda"]
+        if tuple(out.cost.shape) != (EVAL_DAYS, T, C, A):
+            fail(f"{label}: costs {tuple(out.cost.shape)}, expected {(EVAL_DAYS, T, C, A)}")
+        ccfg = dataclasses.replace(ecfg, sim=cpu_cfg.sim)
+        _, ref, _ = evaluate_multi_community(
+            ccfg, make_policy(ccfg), copy_state(ecfg, pol, "cpu"), traces, ratings, normals=normals,
+            device="cpu",
+        )
+        dec_g, dec_c = out.decisions.cpu().numpy(), ref.decisions.numpy()
+        if ecfg.train.implementation == "ddpg":
+            dec_err = float(np.abs(dec_g - dec_c).max())
+            if dec_err > 1e-5 * ecfg.thermal.hp_max_power:
+                fail(f"{label}: decisions differ card vs CPU by {dec_err} W")
+        elif not np.array_equal(dec_g, dec_c):
+            fail(f"{label}: {int((dec_g != dec_c).sum())} decisions differ card vs CPU")
+        cost_g, cost_c = out.cost.cpu().numpy(), ref.cost.numpy()
+        if not np.allclose(cost_g, cost_c, rtol=1e-5, atol=1e-7):
+            fail(f"{label}: costs differ card vs CPU, max abs {float(np.abs(cost_g - cost_c).max())}")
+        conserved, matched, change = repriced_vs_matched(ecfg, out)
+        matched, change = matched.cpu().numpy(), change.cpu().numpy()
+        if not conserved:
+            fail(f"{label}: the re-priced energy is not the matched energy ({matched} kWh a day matched)")
+        if not (matched > 0).any():
+            fail(f"{label}: no community traded with another on any day")
+        row.update(
+            card=card, days=EVAL_DAYS, C=C, A=A,
+            cost_max_rel_err_vs_cpu=float(np.abs((cost_g - cost_c) / np.where(cost_c == 0, 1, cost_c)).max()),
+            matched_kwh_per_day=matched.tolist(), inter_trade_euro_per_day=change.tolist(),
+        )
+        log(f"phase 7: {label}: card = CPU (costs within 1e-5, decisions equal), re-priced = matched "
+            f"energy in every slot ({float(matched.sum()):.3f} kWh matched over {EVAL_DAYS} days)")
+        rows.append(row)
+    return rows, totals, shapes
+
+
+# (label, implementation, A, fused, path kernels): the independent rows, 64
+# communities each with its own per-agent learners: cfg1's width
+# (A=2 tabular) unfused (K5 and K6 at [64,2]) and fused (K7 with one
+# learner per scenario), and cfg2's (A=10 per-agent DDPG, buffer 1024, batch
+# 32; K5 and K6 at [64,10]).
+INDEPENDENT_ROWS = (
+    ("independent cfg1", "tabular", 2, False, SINGLE_R1),
+    ("independent cfg1 fused", "tabular", 2, True, FUSED_PATH),
+    ("independent cfg2", "ddpg", 10, False, SINGLE_R1),
+)
+
+
+def phase_independent(counters, card):
+    """``train_scenarios_independent`` at S=64 (BASELINE config 4's scenario
+    count) for each of INDEPENDENT_ROWS: cfg1's and cfg2's SimConfig
+    (rounds=1, battery off) at 64 communities, traces of
+    ``make_scenario_traces`` and ratings ``default_rng(42)``; one warm, one
+    timed and one profiled episode. Returns (rows, launches, {kernel:
+    {shape: device ms per call}})."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.envs.community import make_ratings
+    from p2pmicrogrid_tpu_torch.parallel import (
+        init_independent_state,
+        make_independent_episode_fn,
+        make_scenario_traces,
+        stack_scenario_arrays,
+        train_scenarios_independent,
+    )
+    from p2pmicrogrid_tpu_torch.train import make_policy
+
+    T, S = 96, INDEPENDENT_S
+    rows, totals, shapes = [], {name: 0 for name in counters}, {}
+    for label, impl, A, fused, path in INDEPENDENT_ROWS:
+        cfg = tc.default_config(
+            sim=tc.SimConfig(n_agents=A, n_scenarios=S),
+            train=tc.TrainConfig(implementation=impl),
+            ddpg=tc.DDPGConfig(buffer_size=1024, batch_size=32),
+        )
+        ratings = make_ratings(cfg, np.random.default_rng(42))
+        arrays = stack_scenario_arrays(cfg, make_scenario_traces(cfg), ratings, "cuda")
+        policy = make_policy(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        state = {"pol": init_independent_state(cfg, S, "cuda", gen)}
+        episode_fn = make_independent_episode_fn(cfg, policy, arrays, ratings, fused=fused)
+
+        def train(cfg=cfg, policy=policy, arrays=arrays, ratings=ratings, gen=gen, state=state,
+                  episode_fn=episode_fn):
+            state["pol"], rewards, _, _ = train_scenarios_independent(
+                cfg, policy, state["pol"], arrays, ratings, gen, 1, episode_fn=episode_fn
+            )
+            return rewards
+
+        row, launches = timed_rows(label, counters, path, T, train, T * S)
+        row.update(card=card, S=S, A=A, impl=impl, fused=fused)
+        rows.append(row)
+        for name, n in launches.items():
+            totals[name] += n
+        for name, ms in row["kernel_device_ms_per_call"].items():
+            shapes.setdefault(name, {})[(S, A)] = ms
+    return rows, totals, shapes
 
 def main() -> None:
     import torch
@@ -2217,7 +2593,7 @@ def main() -> None:
     # With no arguments every phase runs (the check); a comma-separated list
     # of phase numbers (e.g. "2,5") runs only those, builds first, and prints
     # no result line.
-    all_phases = {"2", "3", "4", "5", "6"}
+    all_phases = {"2", "3", "4", "5", "6", "7"}
     phases = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else all_phases
     start = time.perf_counter()
     card = phase_device_and_build()
@@ -2250,6 +2626,16 @@ def main() -> None:
         for name in launches:
             launches[name] += golden_launches[name] + parity_launches[name] + row_launches[name]
         log(f"phase 6 done ({time.perf_counter() - start:.1f} s)")
+    multi_rows, multi_shapes = [], {}
+    if "7" in phases:
+        multi_rows, multi_launches, multi_shapes = phase_multi_community(counters, card)
+        indep_rows, indep_launches, indep_shapes = phase_independent(counters, card)
+        multi_rows += indep_rows
+        for name in launches:
+            launches[name] += multi_launches[name] + indep_launches[name]
+        for name, by_shape in indep_shapes.items():
+            multi_shapes.setdefault(name, {}).update(by_shape)
+        log(f"phase 7 done ({time.perf_counter() - start:.1f} s)")
     if phases != all_phases:
         log(f"partial run of phases {sorted(phases)}: no result ({time.perf_counter() - start:.1f} s)")
         return
@@ -2286,8 +2672,14 @@ def main() -> None:
         prefix = "single" if name == "slot_step_fused" else "at"
         for (S, A), ms in single_shapes.get(name, {}).items():
             rec.setdefault(f"{prefix}_{S}x{A}", {})["main_path_profiled_ms"] = ms
+        # Phase 7's shapes: K1 at cfg5's [8,128] and [104,128], K5 and K6 at
+        # [64,2] and [64,10], K7 with one learner per scenario at [64,2].
+        prefix = "strided" if name == "slot_step_fused" else "at"
+        for (S, A), ms in multi_shapes.get(name, {}).items():
+            rec.setdefault(f"{prefix}_{S}x{A}", {})["main_path_profiled_ms"] = ms
     log(json.dumps({"ddpg_rows": ddpg_rows}))
     log(json.dumps({"single_rows": single_rows}))
+    log(json.dumps({"multi_rows": multi_rows}))
     log(json.dumps({"kernels": records}))
     log(f"total {time.perf_counter() - start:.1f} s")
     print(

@@ -21,6 +21,12 @@ replay ring, OU noise and noise scale.
 ``state_to_numpy`` does the reverse for comparisons: these come back with
 flax-shaped trees and optax-shaped Adam states (the NamedTuples below, named
 as optax names them).
+
+``stacked_state_from_jax`` and ``stacked_state_to_numpy`` move the JAX
+package's S independent learners (``jax.vmap(init_policy_state)``'s output:
+a ``TabularState``, ``DQNState`` or ``DDPGState`` with a leading [S] axis on
+every leaf) to and from the port's one state of S * A per-agent learners,
+scenario-major (``parallel/scenarios.py::init_independent_state``).
 """
 
 from __future__ import annotations
@@ -257,3 +263,46 @@ def state_to_numpy(tree):
             *(state_to_numpy(b) for b in bufs), np.int32(cursor), np.int32(count)
         )
     return type(tree)(*(state_to_numpy(x) for x in tree))
+
+
+def _map_arrays(fn, tree):
+    """``tree`` (NamedTuples, tuples, dicts) with ``fn`` applied to each
+    numpy array or scalar leaf."""
+    if isinstance(tree, dict):
+        return {k: _map_arrays(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [_map_arrays(fn, x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+    return fn(np.asarray(tree))
+
+
+def stacked_state_from_jax(np_tree, device="cuda", cfg=None):
+    """S stacked JAX learner states (numpy leaves, each [S, ...]) as the
+    port's state of S * A learners: every per-agent leaf [S, A, ...] becomes
+    [S * A, ...], and every per-scenario leaf [S] (epsilon, the rings'
+    cursor and count, the noise scale) one value, which must be equal across
+    scenarios: every scenario runs the same slots. ``cfg`` as for
+    ``state_from_jax``."""
+
+    def merge(x):
+        if x.ndim == 1:
+            if not (x == x[0]).all():
+                raise ValueError(f"stacked_state_from_jax: per-scenario values differ: {x}")
+            return x[0]
+        return x.reshape((x.shape[0] * x.shape[1],) + x.shape[2:])
+
+    return state_from_jax(_map_arrays(merge, np_tree), device, cfg)
+
+
+def stacked_state_to_numpy(state, n_scenarios: int):
+    """``stacked_state_from_jax``'s inverse: the port's S * A learners as the
+    JAX package's S stacked states with numpy leaves (per-agent leaves [S,
+    A, ...], each scalar repeated S times)."""
+    S = n_scenarios
+
+    def split(x):
+        if x.ndim == 0:
+            return np.full((S,), x, dtype=x.dtype)
+        return x.reshape((S, x.shape[0] // S) + x.shape[1:])
+
+    return _map_arrays(split, state_to_numpy(state))

@@ -62,6 +62,16 @@
 //   the clearing keeps 2 * ceil(A / 32) [S, A] planes of partial sums
 //   (16 MB at S = 64, A = 1000).
 //
+// Learners. The Q-table [L, ...] and the DQN weights [L, ...] hold L
+// learners: L = A, one learner for all S scenarios (the shared trainer), or
+// L = S * A, one per (scenario, agent) (the independent trainer, the
+// JAX package's vmap of the single fused slot over scenarios,
+// pallas_slot.py:566): agent i of scenario s reads row s * A + i
+// (I_PER_SCENARIO). Nothing else depends on it, and every sum runs within
+// one scenario, so scenario s of a launch at [S, A] equals a launch at
+// [1, A] with its learners bit for bit. The DQN act's work items are the
+// learners: with one per scenario each item's chunk holds its one scenario.
+//
 // Rounding. Every product and sum of the chain is written with __fmul_rn /
 // __fadd_rn / __fsub_rn, so nvcc cannot contract it into a fused
 // multiply-add the chain does not do; divisions are IEEE divisions (no fast
@@ -140,7 +150,7 @@ enum ConstArg {
 };
 enum IntArg {
   I_S, I_A, I_R, I_POLICY, I_MARKET, I_EXPLORE, I_BATTERY, I_BF16,
-  I_NT, I_NTP, I_NB, I_NP, I_NACT, N_INT
+  I_NT, I_NTP, I_NB, I_NP, I_NACT, I_PER_SCENARIO, N_INT
 };
 
 // The 14 [S, A] outputs, in the order of pallas_slot.py's kernel outputs.
@@ -237,6 +247,11 @@ __device__ __forceinline__ size_t at(const Args& g, int s, int i) {
   return static_cast<size_t>(s) * g.n[I_A] + i;
 }
 
+// The learner of agent i of scenario s: its row of the Q-table or weights.
+__device__ __forceinline__ size_t learner(const Args& g, int s, int i) {
+  return g.n[I_PER_SCENARIO] ? at(g, s, i) : static_cast<size_t>(i);
+}
+
 // Sum of f(i) over i < A in the order of a 512-thread block: running sums
 // of i = t, t + 512, ..., then a shared-memory tree. Each thread of this
 // 256-thread block keeps the running sums of t and t + 256, which the tree's
@@ -319,7 +334,7 @@ __device__ __forceinline__ float act_tabular(const Args& g, int s, int r, int i,
   const int tpi = bin_of(tp, ntp - 1);
   const int bi = bin_of(mul(mul(add(vec(g, V_NBAL)[k], 1.f), 0.5f), static_cast<float>(nb)), nb - 1);
   const int pi = bin_of(mul(mul(add(feat, 1.f), 0.5f), static_cast<float>(np)), np - 1);
-  const size_t cell = ((((static_cast<size_t>(i) * nt + ti) * ntp + tpi) * nb + bi) * np + pi);
+  const size_t cell = (((learner(g, s, i) * nt + ti) * ntp + tpi) * nb + bi) * np + pi;
   const float* row = in(g, P_QTABLE) + cell * g.n[I_NACT];
   const float qv[kActions] = {row[0], row[1], row[2]};
   return act_record(g, s, r, i, qv);
@@ -435,15 +450,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Starts the copy of agent i's weights (flax's layout: kernels [A, in, out],
-// biases [A, out]) into buf, as one commit group.
-__device__ __forceinline__ void load_weights(const Args& g, int i, float* buf) {
+// Starts the copy of learner l's weights (flax's layout: kernels [L, in,
+// out], biases [L, out]) into buf, as one commit group.
+__device__ __forceinline__ void load_weights(const Args& g, int l, float* buf) {
   const float* src[5] = {
-      in(g, P_W1) + static_cast<size_t>(i) * kHidden * kHidden,
-      in(g, P_W0) + static_cast<size_t>(i) * (kObs + 1) * kHidden,
-      in(g, P_B0) + static_cast<size_t>(i) * kHidden,
-      in(g, P_B1) + static_cast<size_t>(i) * kHidden,
-      in(g, P_W2) + static_cast<size_t>(i) * kHidden,
+      in(g, P_W1) + static_cast<size_t>(l) * kHidden * kHidden,
+      in(g, P_W0) + static_cast<size_t>(l) * (kObs + 1) * kHidden,
+      in(g, P_B0) + static_cast<size_t>(l) * kHidden,
+      in(g, P_B1) + static_cast<size_t>(l) * kHidden,
+      in(g, P_W2) + static_cast<size_t>(l) * kHidden,
   };
   const int off[6] = {0, kOffW0, kOffB0, kOffB1, kOffW2, kWeights};
 #pragma unroll
@@ -468,23 +483,30 @@ __device__ __forceinline__ void phase_act_dqn(const Args& g, float* smem, int r)
   const int lane = threadIdx.x & 31;
   const int col = lane & (kColsPerThread - 1);
   const int rg = (threadIdx.x >> 5) * (32 / kColsPerThread) + (lane >> 3);
+  // Work items are learners: learner l is agent i over the scenarios
+  // [s_lo, s_hi), all S with a shared learner, its own one otherwise.
+  const bool per_scenario = g.n[I_PER_SCENARIO];
+  const int n_learners = per_scenario ? S * A : A;
   int buf = 0;
-  if (blockIdx.x < A) load_weights(g, blockIdx.x, wbuf);
-  for (int i = blockIdx.x; i < A; i += gridDim.x) {
-    const int next = i + gridDim.x;
-    if (next < A) {
+  if (blockIdx.x < n_learners) load_weights(g, blockIdx.x, wbuf);
+  for (int l = blockIdx.x; l < n_learners; l += gridDim.x) {
+    const int next = l + gridDim.x;
+    if (next < n_learners) {
       load_weights(g, next, wbuf + (buf ^ 1) * kWeights);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
+    const int i = per_scenario ? l % A : l;
+    const int s_lo = per_scenario ? l / A : 0;
+    const int s_hi = per_scenario ? s_lo + 1 : S;
     const float* w = wbuf + buf * kWeights;
-    const float b2 = in(g, P_B2)[i];
-    for (int c0 = 0; c0 < S; c0 += kChunk) {
+    const float b2 = in(g, P_B2)[l];
+    for (int c0 = s_lo; c0 < s_hi; c0 += kChunk) {
       if (threadIdx.x < kChunk) {
         const int s = c0 + threadIdx.x;
-        const bool ok = s < S;
+        const bool ok = s < s_hi;
         const size_t k = ok ? at(g, s, i) : 0;
         xs[0 * kChunk + threadIdx.x] = ok ? in(g, P_TIME)[s] : 0.f;
         xs[1 * kChunk + threadIdx.x] = ok ? vec(g, V_NTEMP)[k] : 0.f;
@@ -555,7 +577,7 @@ __device__ __forceinline__ void phase_act_dqn(const Args& g, float* smem, int r)
 #pragma unroll
         for (int e = 0; e < kRowsPerThread / kActions; ++e) {
           const int s = c0 + rg * (kRowsPerThread / kActions) + e;
-          if (s < S) {
+          if (s < s_hi) {
             const float o = act_record(g, s, r, i, q + kActions * e);
             const size_t k = at(g, s, i);
             if (market == kMatrix && r > 0) {
@@ -1015,10 +1037,10 @@ slot_fused_kernel(const __grid_constant__ Args g) {
 
 // The most work items any phase of a launch hands out: a larger grid would
 // leave blocks without work in every phase and only slow the barriers.
-int max_items(int S, int A, int policy, int market) {
+int max_items(int S, int A, int policy, int market, int per_scenario) {
   long long n = static_cast<long long>(S) * ((A + kThreads - 1) / kThreads);
   auto at_least = [&n](long long m) { n = m > n ? m : n; };
-  if (policy == kDQN) at_least(A);
+  if (policy == kDQN) at_least(per_scenario ? static_cast<long long>(S) * A : A);
   if (market == kFactored) at_least(static_cast<long long>(S) * tiling(A, kTile).items_per_s);
   if (market == kMatrix) {
     const int nt = (A + kPairTile - 1) / kPairTile;
@@ -1052,7 +1074,7 @@ cudaError_t opt_in(int dev) {
 // once, or as the largest phase has work items if fewer. grid gets (blocks,
 // blocks per SM, SMs, shared memory bytes per block).
 template <int kPolicy>
-cudaError_t query_grid(int dev, int S, int A, int R, int market, int* grid) {
+cudaError_t query_grid(int dev, int S, int A, int R, int market, int per_scenario, int* grid) {
   int coop = 0, sms = 0, limit = 0, per_sm = 0;
   cudaError_t err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -1067,7 +1089,7 @@ cudaError_t query_grid(int dev, int S, int A, int R, int market, int* grid) {
                                                       kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int most = max_items(S, A, kPolicy, market);
+  const int most = max_items(S, A, kPolicy, market, per_scenario);
   grid[0] = per_sm * sms < most ? per_sm * sms : most;
   grid[1] = per_sm;
   grid[2] = sms;
@@ -1076,13 +1098,13 @@ cudaError_t query_grid(int dev, int S, int A, int R, int market, int* grid) {
 }
 
 // The grid of query_grid, asked of the device once per (device, shape,
-// rounds, market) and kept: a launch then makes no device query, which also
+// rounds, market, learners) and kept: a launch then makes no device query, which also
 // keeps the launch path free of calls that a CUDA graph capture would not
 // record (parallel/graph.py captures K7 inside a whole episode).
 template <int kPolicy>
-cudaError_t grid_of(int S, int A, int R, int market, int* grid) {
+cudaError_t grid_of(int S, int A, int R, int market, int per_scenario, int* grid) {
   struct Entry {
-    int dev, S, A, R, market;
+    int dev, S, A, R, market, per_scenario;
     int grid[4];
   };
   constexpr int kEntries = 64;
@@ -1095,15 +1117,16 @@ cudaError_t grid_of(int S, int A, int R, int market, int* grid) {
   std::lock_guard<std::mutex> guard(lock);
   for (int k = 0; k < filled; ++k) {
     const Entry& e = cache[k];
-    if (e.dev == dev && e.S == S && e.A == A && e.R == R && e.market == market) {
+    if (e.dev == dev && e.S == S && e.A == A && e.R == R && e.market == market &&
+        e.per_scenario == per_scenario) {
       for (int j = 0; j < 4; ++j) grid[j] = e.grid[j];
       return cudaSuccess;
     }
   }
-  err = query_grid<kPolicy>(dev, S, A, R, market, grid);
+  err = query_grid<kPolicy>(dev, S, A, R, market, per_scenario, grid);
   if (err == cudaSuccess && filled < kEntries) {
     Entry& e = cache[filled++];
-    e = Entry{dev, S, A, R, market, {grid[0], grid[1], grid[2], grid[3]}};
+    e = Entry{dev, S, A, R, market, per_scenario, {grid[0], grid[1], grid[2], grid[3]}};
   }
   return err;
 }
@@ -1118,7 +1141,8 @@ cudaError_t check_ints(const int* ints) {
 template <int kPolicy>
 cudaError_t launch_policy(const Args& g, cudaStream_t stream) {
   int grid[4];
-  cudaError_t err = grid_of<kPolicy>(g.n[I_S], g.n[I_A], g.n[I_R], g.n[I_MARKET], grid);
+  cudaError_t err = grid_of<kPolicy>(g.n[I_S], g.n[I_A], g.n[I_R], g.n[I_MARKET],
+                                     g.n[I_PER_SCENARIO], grid);
   if (err != cudaSuccess) return err;
   Args a = g;
   void* args[] = {&a};
@@ -1166,8 +1190,10 @@ extern "C" int slot_fused_grid(const int* ints, int n_int, int* grid) {
   cudaError_t err = check_ints(ints);
   if (err == cudaSuccess)
     err = ints[I_POLICY] == kDQN
-              ? grid_of<kDQN>(ints[I_S], ints[I_A], ints[I_R], ints[I_MARKET], grid)
-              : grid_of<kTabular>(ints[I_S], ints[I_A], ints[I_R], ints[I_MARKET], grid);
+              ? grid_of<kDQN>(ints[I_S], ints[I_A], ints[I_R], ints[I_MARKET],
+                              ints[I_PER_SCENARIO], grid)
+              : grid_of<kTabular>(ints[I_S], ints[I_A], ints[I_R], ints[I_MARKET],
+                                  ints[I_PER_SCENARIO], grid);
   return static_cast<int>(err);
 }
 

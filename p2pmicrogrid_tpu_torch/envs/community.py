@@ -289,6 +289,7 @@ def slot_dynamics_batched(
     explore: bool,
     fused: bool = False,
     explore_state=None,
+    settlement_hook: Optional[Callable] = None,
 ):
     """One slot of S scenarios except learning: negotiate -> clear -> settle
     -> reward -> step assets (community.py:149-157,170).
@@ -306,9 +307,20 @@ def slot_dynamics_batched(
     clearing computes in bfloat16 only for ``factored`` with the bfloat16
     market dtype, and the matrix negotiation is always float32.
 
+    ``settlement_hook(p_grid, p_p2p, buy, inj, trade) -> cost [S, A]``
+    replaces the default per-agent settlement (``p_grid``, ``p_p2p`` [S, A];
+    the prices [S]): the extension point for inter-community trading
+    (``envs/multi_community.py``), where the leading axis is communities.
+    The fused slot owns settlement, so it refuses a hook.
+
     Returns (phys', pol_state, outputs, transition, explore_state').
     """
     if fused:
+        if settlement_hook is not None:
+            raise ValueError(
+                "fused slot dynamics cannot take a settlement_hook: the fused "
+                "slot owns settlement (use fused=False for multi-community paths)"
+            )
         # Imported here: ops/slot_fused.py builds this module's NamedTuples.
         from p2pmicrogrid_tpu_torch.ops.slot_fused import slot_step_fused
 
@@ -424,9 +436,12 @@ def slot_dynamics_batched(
         )
         p_p2p = torch.zeros_like(p_grid)
         hp_power_r = (hp_frac * th.hp_max_power)[:, None]
-    cost = compute_costs(
-        p_grid, p_p2p, buy[:, None], inj[:, None], trade[:, None], cfg.sim.slot_hours
-    )
+    if settlement_hook is not None:
+        cost = settlement_hook(p_grid, p_p2p, buy, inj, trade)
+    else:
+        cost = compute_costs(
+            p_grid, p_p2p, buy[:, None], inj[:, None], trade[:, None], cfg.sim.slot_hours
+        )
 
     penalty = comfort_penalty(th, phys_s.t_in)
     reward = -(cost + 10.0 * penalty)

@@ -27,6 +27,13 @@ an agent explores where ``uniform < epsilon``. The random-action bound is
 ``num_actions`` for tabular and 3 for DQN (pallas_slot.py:339-341), the same
 number here since the tabular learner has 3 actions. DDPG is refused: its
 exploration noise advances inside the act.
+
+The learner state holds L learners on its leading axis (the Q-table
+``[L, ...]``, the DQN weights ``[L, ...]``): L = A, one learner for every
+scenario (the shared trainer), or L = S * A, one for each (scenario, agent)
+(the independent trainer, whose learners ``parallel/scenarios.py`` keeps
+scenario-major). Agent a of scenario s reads learner ``a`` or ``s * A + a``
+(``per_scenario_learners``); at S = 1 the two coincide.
 """
 
 from __future__ import annotations
@@ -61,7 +68,7 @@ from p2pmicrogrid_tpu_torch.ops.thermal import (
 # The per-agent width the kernel's DQN act is written for (the published
 # 5 -> 64 -> 64 -> 1 network, config.py DQNConfig).
 KERNEL_DQN_HIDDEN = 64
-_N_PTR, _N_CONST, _N_INT, _N_OUT = 22, 31, 13, 14
+_N_PTR, _N_CONST, _N_INT, _N_OUT = 22, 31, 14, 14
 _MARKETS = {None: 0, "factored": 1, "matrix": 2}
 
 
@@ -124,6 +131,20 @@ def _n_rounds(cfg: ExperimentConfig) -> int:
     return cfg.sim.rounds + 1 if cfg.sim.trading else 1
 
 
+def per_scenario_learners(cfg: ExperimentConfig, pol_state, S: int, A: int) -> bool:
+    """Whether the tabular or DQN state holds one learner per (scenario,
+    agent), S * A of them on its leading axis, rather than A shared by every
+    scenario; raises for any other count."""
+    tabular = cfg.train.implementation == "tabular"
+    n = pol_state.q_table.shape[0] if tabular else pol_state.online.n_agents
+    if n not in (A, S * A):
+        raise ValueError(
+            f"slot_step_fused: the learner state holds {n} learners; a slot of "
+            f"{S} scenarios of {A} agents takes {A} (shared) or {S * A} (one per scenario)"
+        )
+    return n != A
+
+
 def _market_code(cfg: ExperimentConfig, market_impl: Optional[str]) -> int:
     """The kernel's market variant; ``None`` is the matrix negotiation, as in
     the plain version."""
@@ -165,13 +186,18 @@ def slot_step_fused_plain(
     if explore:
         uniform, rand_action = draws
         mask = uniform < pol_state.epsilon
+    # One learner per scenario: the agents of all scenarios as one [1, S * A]
+    # row of learners, scenario-major.
+    learners = (1, S * A) if per_scenario_learners(cfg, pol_state, S, A) else (S, A)
 
     def act(feat, r):
         obs = make_observation(f_time, norm_temp, norm_balance, feat)
+        x = obs.reshape(*learners, obs.shape[-1])
         if impl == "tabular":
-            rows = q_rows(cfg.qlearning, pol_state.q_table, obs)
+            rows = q_rows(cfg.qlearning, pol_state.q_table, x)
         else:
-            rows = _q_all_actions(cfg.dqn, pol_state.online, obs)
+            rows = _q_all_actions(cfg.dqn, pol_state.online, x)
+        rows = rows.reshape(S, A, -1)
         greedy = torch.argmax(rows, dim=-1)
         qv = torch.gather(rows, -1, greedy[..., None])[..., 0]
         action = greedy
@@ -301,7 +327,7 @@ def _check(name: str, x: torch.Tensor, shape, device, dtype=torch.float32) -> No
 
 
 def _kernel_ints(cfg: ExperimentConfig, impl: str, S: int, A: int, market: int,
-                 explore: bool, compute_dtype: Optional[torch.dtype]):
+                 explore: bool, compute_dtype: Optional[torch.dtype], per_scenario: bool):
     """The kernel's integer arguments, in ``slot_fused.cu``'s ``IntArg`` order."""
     q = cfg.qlearning
     tab = impl == "tabular"
@@ -312,19 +338,25 @@ def _kernel_ints(cfg: ExperimentConfig, impl: str, S: int, A: int, market: int,
     return (ctypes.c_int * _N_INT)(
         S, A, _n_rounds(cfg), 0 if tab else 1, market, int(bool(explore)),
         int(cfg.battery.enabled), int(compute_dtype is not None), nt, ntp, nb, np_, nact,
+        int(per_scenario),
     )
 
 
 def kernel_grid(
-    cfg: ExperimentConfig, S: int, A: int, market_impl: Optional[str] = None
+    cfg: ExperimentConfig,
+    S: int,
+    A: int,
+    market_impl: Optional[str] = None,
+    per_scenario: bool = False,
 ) -> dict:
     """The cooperative grid K7 launches for this configuration at [S, A] on
-    the current CUDA device: ``blocks``, ``blocks_per_sm``, ``sms`` and
+    the current CUDA device, with one learner per scenario where
+    ``per_scenario``: ``blocks``, ``blocks_per_sm``, ``sms`` and
     ``smem_bytes`` (shared memory per block). The kernel sizes its grid to
     what the device holds at once, or to its largest phase's work items if
     fewer."""
     market = _market_code(cfg, market_impl)
-    ints = _kernel_ints(cfg, _check_impl(cfg), S, A, market, True, None)
+    ints = _kernel_ints(cfg, _check_impl(cfg), S, A, market, True, None, per_scenario)
     grid = (ctypes.c_int * 4)()
     err = LIBRARY.load().slot_fused_grid(ints, _N_INT, grid)
     if err != 0:
@@ -371,13 +403,15 @@ def _launch_kernel(
         _check("randint", rand, (R, S, A), device, torch.int64)
     q_table = None
     weights = (None,) * 6
+    per_scenario = per_scenario_learners(cfg, pol_state, S, A)
+    L = S * A if per_scenario else A
     if impl == "tabular":
         q = cfg.qlearning
         if q.num_actions != 3:
             raise ValueError(f"slot_step_fused: the kernel takes 3 actions, got {q.num_actions}")
         q_table = pol_state.q_table
         _check("q_table", q_table, (
-            A, q.num_time_states, q.num_temp_states, q.num_balance_states,
+            L, q.num_time_states, q.num_temp_states, q.num_balance_states,
             q.num_p2p_states, q.num_actions,
         ), device)
     else:
@@ -390,7 +424,7 @@ def _launch_kernel(
         names = ("Dense_0.kernel", "Dense_0.bias", "Dense_1.kernel", "Dense_1.bias",
                  "Dense_2.kernel", "Dense_2.bias")
         for name, w, shape in zip(
-            names, weights, ((A, 5, h), (A, h), (A, h, h), (A, h), (A, h, 1), (A, 1)),
+            names, weights, ((L, 5, h), (L, h), (L, h, h), (L, h), (L, h, 1), (L, 1)),
         ):
             _check(name, w, shape, device)
         # The kernel copies each agent's weights in 16-byte pieces.
@@ -415,7 +449,7 @@ def _launch_kernel(
         )
     ))
     consts = (ctypes.c_float * _N_CONST)(*slot_constants(cfg, A))
-    ints = _kernel_ints(cfg, impl, S, A, market, explore, compute_dtype)
+    ints = _kernel_ints(cfg, impl, S, A, market, explore, compute_dtype, per_scenario)
     launch(
         "slot_step_fused", device, lib.slot_fused_launch,
         ptrs, _N_PTR, consts, _N_CONST, ints, _N_INT,
@@ -498,7 +532,9 @@ def slot_step_fused(
     """One fused training slot over a scenario batch.
 
     ``xs`` is the chain's 7-tuple of slot inputs (leading scenario axis),
-    ``phys_s`` the [S, A] physical carries, ``draws`` the ``(uniform,
+    ``pol_state`` the tabular or DQN learners, A of them shared by every
+    scenario or S * A, one per scenario (scenario-major), which one launch
+    serves alike, ``phys_s`` the [S, A] physical carries, ``draws`` the ``(uniform,
     randint)`` exploration draws [R, S, A] (ignored when ``explore`` is
     false), ``ratings`` as tensors on the state's device. ``market_impl``
     must be the RESOLVED implementation ("factored" | "matrix"; None is

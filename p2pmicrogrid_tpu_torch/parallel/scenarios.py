@@ -45,9 +45,11 @@ from p2pmicrogrid_tpu_torch.envs.community import (
     AgentRatings,
     EpisodeArrays,
     Policy,
+    SingleEpisodeDraws,
     init_physical,
     ratings_to,
     resolve_use_fused,
+    single_chain_config,
     slot_dynamics_batched,
 )
 from p2pmicrogrid_tpu_torch.models.ddpg import (
@@ -66,12 +68,14 @@ from p2pmicrogrid_tpu_torch.models.dqn import (
     apply_td_update,
     dqn_initialize_target,
 )
+from p2pmicrogrid_tpu_torch.models.networks import QNetwork
 from p2pmicrogrid_tpu_torch.models.replay import (
     LockstepReplay,
     lockstep_replay_add,
     lockstep_replay_init,
     lockstep_replay_sample,
     lockstep_sample_indices,
+    sample_indices,
 )
 from p2pmicrogrid_tpu_torch.models.tabular import TabularState, q_rows
 from p2pmicrogrid_tpu_torch.ops._f32 import recip
@@ -434,6 +438,7 @@ def make_shared_episode_fn(
     policy: Policy,
     arrays_s: Optional[EpisodeArrays],
     ratings: AgentRatings,
+    settlement_hook: Optional[Callable] = None,
     record_only: bool = False,
     fused: Optional[bool] = None,
     arrays_fn: Optional[Callable[[TraceDraws], EpisodeArrays]] = None,
@@ -471,7 +476,9 @@ def make_shared_episode_fn(
 
     ``fused`` runs every slot through the fused slot (kernel K7 on the card;
     tabular and DQN only); None resolves ``SimConfig.fused_slot``.
-    ``record_only=True`` (DQN only) builds the replay-warmup episode: act and
+    ``settlement_hook`` is forwarded to ``slot_dynamics_batched``
+    (inter-community trading, ``envs/multi_community.py``); the fused slot
+    owns settlement and refuses it. ``record_only=True`` (DQN only) builds the replay-warmup episode: act and
     record transitions, no parameter update, loss 0 (the reference's
     ``init_buffers``, community.py:125-147).
 
@@ -497,6 +504,11 @@ def make_shared_episode_fn(
         fused = resolve_use_fused(cfg)
     if fused and impl == "ddpg":
         raise ValueError(f"fused episodes support tabular/dqn, got {impl!r}")
+    if fused and settlement_hook is not None:
+        raise ValueError(
+            "fused episodes cannot take a settlement_hook (the fused slot owns "
+            "settlement): multi-community training stays unfused"
+        )
     A = cfg.sim.n_agents
     if arrays_s is not None:
         device = arrays_s.load_w.device
@@ -615,6 +627,7 @@ def make_shared_episode_fn(
                 cfg, policy, pol_state, phys_s, tuple(x[t] for x in xs),
                 slot_draws(t, generator, draws), ratings_d, explore=True, fused=fused,
                 explore_state=scen_state.ou if impl == "ddpg" else None,
+                settlement_hook=settlement_hook,
             )
             if impl == "tabular":
                 pol_state, loss = _tabular_update_shared(cfg, pol_state, tr)
@@ -672,6 +685,47 @@ def warmup_shared_dqn(
     return dqn_initialize_target(pol_state), scen_state
 
 
+def _run_episode_loop(
+    episode_fn: Callable,
+    carry,
+    generator: Optional[torch.Generator],
+    n_episodes: int,
+    decay: Callable,
+    episode0: int,
+    draws: Optional[Sequence],
+    episode_cb: Optional[Callable],
+) -> Tuple[object, np.ndarray, np.ndarray, float]:
+    """The trainers' host loop (JAX source :267): ``episode_fn(carry,
+    generator, draws) -> (carry, (rewards [S], losses [S]))`` for each
+    episode, then ``carry = decay(carry)`` after episode e when ``(episode0
+    + e) % min_episodes_criterion == 0`` (the caller's ``decay`` holds the
+    criterion). ``episode_cb(episode, rewards [S], losses [S], carry)`` runs
+    after each episode on values read back then; without it the run is read
+    back once, at the end. Returns (carry, rewards [episodes, S], losses
+    [episodes, S], seconds); the seconds end after the device finished."""
+    if draws is not None and len(draws) != n_episodes:
+        raise ValueError(f"need {n_episodes} episode draws, got {len(draws)}")
+    rewards, losses = [], []
+    start = _time.perf_counter()
+    for e in range(n_episodes):
+        carry, (r, l) = episode_fn(carry, generator, None if draws is None else draws[e])
+        carry = decay(episode0 + e, carry)
+        rewards.append(r)
+        losses.append(l)
+        if episode_cb is not None:
+            episode_cb(episode0 + e, r.cpu().numpy(), l.cpu().numpy(), carry)
+    # One readback for the whole run; it also waits for the device.
+    rewards_np = torch.stack(rewards).cpu().numpy()
+    losses_np = torch.stack(losses).cpu().numpy()
+    return carry, rewards_np, losses_np, _time.perf_counter() - start
+
+
+def _decays_after(cfg: ExperimentConfig, episode: int) -> bool:
+    """Whether exploration decays after ``episode`` (community.py:279-287)."""
+    every = cfg.train.min_episodes_criterion
+    return bool(every) and episode % every == 0
+
+
 def train_scenarios_shared(
     cfg: ExperimentConfig,
     policy: Policy,
@@ -683,6 +737,7 @@ def train_scenarios_shared(
     replay_s=None,
     episode_fn: Optional[Callable] = None,
     episode0: int = 0,
+    episode_cb: Optional[Callable] = None,
     draws: Optional[Sequence[EpisodeDraws]] = None,
     fused: Optional[bool] = None,
 ) -> Tuple[object, object, np.ndarray, np.ndarray, float]:
@@ -696,33 +751,233 @@ def train_scenarios_shared(
     ``SimConfig.fused_slot``). ``replay_s`` is the per-scenario state of
     ``init_shared_state`` (None for tabular, the ``LockstepReplay`` for DQN,
     the ``DDPGScenState`` for DDPG); DDPG anneals its OU noise where the
-    discrete learners decay epsilon.
+    discrete learners decay epsilon. ``episode_cb(episode, rewards [S],
+    losses [S], (pol_state, scen_state))`` runs after each episode, the
+    rewards and losses read back for it.
 
     Returns (pol_state, scen_state, rewards [episodes, S], losses
     [episodes, S], seconds); the seconds end after the device finished.
     """
     if episode_fn is None:
         episode_fn = make_shared_episode_fn(cfg, policy, arrays_s, ratings, fused=fused)
-    if draws is not None and len(draws) != n_episodes:
-        raise ValueError(f"need {n_episodes} EpisodeDraws, got {len(draws)}")
-    decay_every = cfg.train.min_episodes_criterion
-    carry = (pol_state, replay_s)
-    rewards, losses = [], []
-    start = _time.perf_counter()
-    for e in range(n_episodes):
-        carry, (r, l) = episode_fn(
-            carry, generator, None if draws is None else draws[e]
+
+    def decay(episode, carry):
+        return (policy.decay(carry[0]), carry[1]) if _decays_after(cfg, episode) else carry
+
+    (pol_state, scen_state), rewards, losses, seconds = _run_episode_loop(
+        episode_fn, (pol_state, replay_s), generator, n_episodes, decay, episode0, draws,
+        episode_cb,
+    )
+    return pol_state, scen_state, rewards, losses, seconds
+
+
+# --- independent mode -------------------------------------------------------------
+
+
+def _per_scenario_policy(policy: Policy) -> Policy:
+    """``policy`` with an act over S scenarios that each have their own
+    learners: the agents of ``obs`` [S, A, 4] act as one row of S * A
+    learners, scenario-major (the layout ``init_independent_state`` and
+    ``convert.stacked_state_from_jax`` give), and the results come back as
+    [S, A]. Its ``learn`` is ``policy``'s, on the [S * A] flattening."""
+
+    def act(pol_state, obs, prev_frac, draws, explore, ex):
+        S, A = obs.shape[:2]
+        row = lambda x: None if x is None else x.reshape((1, S * A) + tuple(x.shape[2:]))
+        frac, aux, q, ex = policy.act(
+            pol_state, row(obs), row(prev_frac),
+            None if draws is None else tuple(row(d) for d in draws), explore, row(ex),
         )
-        if decay_every and (episode0 + e) % decay_every == 0:
-            carry = (policy.decay(carry[0]), carry[1])
-        rewards.append(r)
-        losses.append(l)
-    # One readback for the whole run; it also waits for the device.
-    rewards_np = torch.stack(rewards).cpu().numpy()
-    losses_np = torch.stack(losses).cpu().numpy()
-    seconds = _time.perf_counter() - start
-    pol_state, scen_state = carry
-    return pol_state, scen_state, rewards_np, losses_np, seconds
+        back = lambda x: None if x is None else x.reshape(S, A)
+        return back(frac), back(aux), back(q), back(ex)
+
+    return policy._replace(act=act)
+
+
+def init_independent_state(
+    cfg: ExperimentConfig,
+    n_scenarios: int,
+    device="cuda",
+    generator: Optional[torch.Generator] = None,
+):
+    """S independent learner states as one state of S * A per-agent
+    learners, scenario-major (learner ``s * A + a`` is agent a of scenario
+    s): ``init_policy_state`` at ``n_agents = S * A``, drawing from
+    ``generator``. The counterpart of the JAX package's ``vmap`` of
+    ``init_policy_state`` over S keys; ``convert.stacked_state_from_jax``
+    takes that stack."""
+    sim = dataclasses.replace(cfg.sim, n_agents=n_scenarios * cfg.sim.n_agents)
+    return init_policy_state(dataclasses.replace(cfg, sim=sim), device=device, generator=generator)
+
+
+def scenario_learners(pol_state, s: int, A: int):
+    """Scenario s's A learners of an S * A-learner tabular or DQN state
+    (``init_independent_state``'s scenario-major layout) as a state of A
+    learners, for the act: its Q-table rows, or its online network's (the
+    rest of a DQN state is left as it is). What the single community's act,
+    and K7 at [1, A], read for that scenario."""
+    rows = slice(s * A, (s + 1) * A)
+    if hasattr(pol_state, "q_table"):
+        return pol_state._replace(q_table=pol_state.q_table[rows].contiguous())
+    k0 = pol_state.online.Dense_0.kernel
+    net = QNetwork(A, k0.shape[-1], k0.shape[-2] - 1, device=k0.device)
+    with torch.no_grad():
+        for dst, src in zip(net.parameters(), pol_state.online.parameters()):
+            dst.copy_(src[rows])
+    return pol_state._replace(online=net)
+
+
+def make_independent_episode_fn(
+    cfg: ExperimentConfig,
+    policy: Policy,
+    arrays_s: EpisodeArrays,
+    ratings: AgentRatings,
+    fused: Optional[bool] = None,
+) -> Callable:
+    """One training episode for each of S independent communities, each with
+    its own per-agent learners (JAX source :336, the single community's
+    ``run_episode`` vmapped over scenarios).
+
+    Returns ``episode(pol_state_s, generator=None, draws=None) ->
+    (pol_state_s, (rewards [S], losses [S]))``: ``pol_state_s`` holds the S
+    * A learners scenario-major (``init_independent_state``). The S
+    communities run as one slot over [S, A]: the single community's chain
+    (``single_chain_config``: the matrix negotiation in float32, K5 and K6
+    on the card, K4 from round 2; ``fused=True`` K7 with one learner per
+    scenario), the act through ``_per_scenario_policy``, and each slot's
+    learn step on the [S * A] flattening of the transition (``policy.learn``
+    with each learner's B replay indices for DQN and DDPG). Draws come from
+    ``generator`` (the initial-temperature normals [S, 2, A], then per slot
+    each round's exploration draws [R, S, A] and the replay indices [S * A,
+    B]) or from ``draws``, a ``SingleEpisodeDraws`` whose leaves carry a
+    leading [S] axis (S episodes' draws stacked, ``normals`` included).
+    Rewards are the per-scenario sums over slots of the agent-mean reward,
+    losses the per-scenario means of the learn loss. The learners update in
+    place. ``fused`` (tabular and DQN) None resolves ``SimConfig.fused_slot``.
+    """
+    impl = cfg.train.implementation
+    fused = resolve_use_fused(cfg) if fused is None else bool(fused)
+    if fused and impl not in ("tabular", "dqn"):
+        raise ValueError(f"fused episodes support tabular/dqn, got {impl!r}")
+    device = arrays_s.load_w.device
+    S, T, A = arrays_s.load_w.shape
+    R = cfg.sim.rounds + 1 if cfg.sim.trading else 1
+    cfg_single = single_chain_config(cfg)
+    lifted = _per_scenario_policy(policy)
+    ratings_d = ratings_to(ratings, device)
+    xs = tuple(x.transpose(0, 1).contiguous() for x in arrays_s)  # time-major
+    n_actions = cfg.qlearning.num_actions if impl == "tabular" else len(ACTION_VALUES)
+    B = policy.replay_batch
+    need = ("ou_normals",) if impl == "ddpg" else ("uniform", "randint")
+    need += ("replay_idx",) if B is not None else ()
+
+    def episode_draws(draws: SingleEpisodeDraws):
+        """The stacked draws time-major: rounds [T, R, S, A], indices [T, S * A, B]."""
+        missing = [f for f in need + ("normals",) if getattr(draws, f) is None]
+        if missing:
+            raise ValueError(f"a {impl} episode needs SingleEpisodeDraws.{', '.join(missing)}")
+        rounds = tuple(
+            getattr(draws, f).permute(1, 2, 0, 3).contiguous() for f in need if f != "replay_idx"
+        )
+        idx = None if B is None else draws.replay_idx.transpose(0, 1).flatten(1, 2)
+        return rounds, idx
+
+    def episode(pol_state, generator: Optional[torch.Generator] = None,
+                draws: Optional[SingleEpisodeDraws] = None):
+        if draws is None and generator is None:
+            raise ValueError("episode needs a torch.Generator or SingleEpisodeDraws")
+        if draws is not None:
+            rounds, idx_all = episode_draws(draws)
+            normals = draws.normals
+        else:
+            normals = torch.randn((S, 2, A), generator=generator, device=device)
+        phys = init_physical(cfg, normals, (S,), device=device)
+        rewards = torch.empty((T, S), dtype=torch.float32, device=device)
+        losses = torch.empty((T, S), dtype=torch.float32, device=device)
+        for t in range(T):
+            if draws is not None:
+                slot_draws = tuple(d[t] for d in rounds)
+                idx = None if idx_all is None else idx_all[t]
+            else:
+                if impl == "ddpg":
+                    slot_draws = (torch.randn((R, S, A), generator=generator, device=device),)
+                else:
+                    slot_draws = (
+                        torch.rand((R, S, A), generator=generator, device=device),
+                        torch.randint(0, n_actions, (R, S, A), generator=generator, device=device),
+                    )
+                idx = None
+                if B is not None:
+                    # The rings hold this slot's transition when they are sampled.
+                    ring = pol_state.replay
+                    count = min(ring.count + 1, ring.capacity)
+                    idx = sample_indices(count, S * A, B, generator, device)
+            ou = getattr(pol_state, "ou_state", None)
+            phys, pol_state, out, tr, ou = slot_dynamics_batched(
+                cfg_single, lifted, pol_state, phys, tuple(x[t] for x in xs), slot_draws,
+                ratings_d, explore=True, fused=fused,
+                explore_state=None if ou is None else ou.reshape(S, A),
+            )
+            if ou is not None:
+                pol_state = pol_state._replace(ou_state=ou.reshape(-1))
+            flat = lambda x: x.reshape((S * A,) + tuple(x.shape[2:]))
+            pol_state, loss = policy.learn(
+                pol_state, flat(tr.obs), flat(tr.aux), flat(tr.reward), flat(tr.next_obs), idx
+            )
+            rewards[t] = out.reward.mean(dim=-1)
+            losses[t] = loss.reshape(S, A).mean(dim=-1)
+        return pol_state, (rewards.sum(dim=0), losses.mean(dim=0))
+
+    episode.n_scenarios = S
+    episode.n_slots = T
+    episode.device = device
+    return episode
+
+
+def train_scenarios_independent(
+    cfg: ExperimentConfig,
+    policy: Policy,
+    pol_state_s,
+    arrays_s: EpisodeArrays,
+    ratings: AgentRatings,
+    generator: Optional[torch.Generator],
+    n_episodes: int,
+    episode_fn: Optional[Callable] = None,
+    episode0: int = 0,
+    episode_cb: Optional[Callable] = None,
+    telemetry=None,
+    fused: Optional[bool] = None,
+) -> Tuple[object, np.ndarray, np.ndarray, float]:
+    """S independent learners, one episode of each a loop step (JAX source
+    :376).
+
+    ``pol_state_s`` holds the S * A per-agent learners scenario-major
+    (``init_independent_state``, or ``convert.stacked_state_from_jax`` of the
+    JAX package's ``vmap``-ed state). Pass a prebuilt ``episode_fn``
+    (``make_independent_episode_fn``) to reuse it; otherwise one is built
+    with ``fused``. Exploration decays after episode e when
+    ``(episode0 + e) % min_episodes_criterion == 0``, for every learner at
+    once; ``episode_cb(episode, rewards [S], losses [S], pol_state_s)`` runs
+    after each episode. ``telemetry`` is not ported (ROADMAP.md, Queue 1,
+    item 7) and raises. The learners update in place.
+
+    Returns (pol_state_s, rewards [episodes, S], losses [episodes, S],
+    seconds); the seconds end after the device finished.
+    """
+    if telemetry is not None:
+        raise NotImplementedError(
+            "train_scenarios_independent(telemetry=...) is not ported yet (ROADMAP.md, "
+            "Queue 1, item 7, device telemetry)"
+        )
+    if episode_fn is None:
+        episode_fn = make_independent_episode_fn(cfg, policy, arrays_s, ratings, fused=fused)
+
+    def decay(episode, pol_state):
+        return policy.decay(pol_state) if _decays_after(cfg, episode) else pol_state
+
+    return _run_episode_loop(
+        episode_fn, pol_state_s, generator, n_episodes, decay, episode0, None, episode_cb
+    )
 
 
 # --- chunked aggregate-scenario training --------------------------------------

@@ -561,3 +561,167 @@ def test_single_evaluation_matches_cpu(cuda_generator, fused):
     assert (slot_step_fused.launches, mm.clear_market_fused.launches) == ((96, 0) if fused else (0, 96))
     np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=2e-4)
+
+
+# --- one learner per scenario; several trading communities ------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["tabular", "dqn"])
+@pytest.mark.parametrize("rounds", [1, 2])
+@pytest.mark.parametrize("shape", [(4, 3), (3, 37)])
+def test_slot_kernel_per_scenario_learners(cuda_generator, impl, rounds, shape):
+    """K7 with one learner per scenario (S * A learners, scenario-major):
+    one launch equals its plain version (decisions equal, the rest within
+    rtol=1e-5, atol=1e-3) and, scenario by scenario, K7 at [1, A] with that
+    scenario's learners bit for bit."""
+    from p2pmicrogrid_tpu_torch.ops import slot_fused as sf
+    from p2pmicrogrid_tpu_torch.parallel.scenarios import init_independent_state, scenario_learners
+
+    S, A = shape
+    # A community of 3 agents trades at some draws only: other hours with PV
+    # are drawn until agents trade.
+    for t in (44, 40, 48, 36, 52, 42, 46):
+        cfg, args = _slot_inputs(impl, S, A, dict(rounds=rounds, market_impl="matrix"), cuda_generator, t)
+        pol = init_independent_state(cfg, S, "cuda", cuda_generator)
+        if impl == "tabular":
+            pol = pol._replace(q_table=torch.randn(pol.q_table.shape, generator=cuda_generator, device="cuda"))
+        pol = pol._replace(epsilon=torch.tensor(0.3, device="cuda"))
+        args = (pol,) + args[1:]
+        ref = sf.slot_step_fused_plain(cfg, *args)
+        if bool((ref.p_p2p != 0).any()):
+            break
+    assert bool((ref.p_p2p != 0).any()), "no agent trades"
+    before = sf.slot_step_fused.launches
+    got = sf.slot_raw(cfg, *args)
+    assert sf.slot_step_fused.launches == before + 1
+    for name, g, r in zip(sf.SlotRaw._fields, got, ref):
+        if name in ("aux", "hp_frac", "decisions"):
+            assert torch.equal(g, r), name
+        else:
+            torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-3, msg=name)
+    _, phys, xs, draws, ratings, *rest = args
+    for s in range(S):
+        one = lambda tree: type(tree)(*(x[s : s + 1] for x in tree))
+        alone = sf.slot_raw(
+            cfg, scenario_learners(pol, s, A), one(phys), tuple(x[s : s + 1] for x in xs),
+            tuple(d[:, s : s + 1].contiguous() for d in draws), ratings, *rest,
+        )
+        for name, g, a in zip(sf.SlotRaw._fields, got, alone):
+            assert torch.equal(g[s : s + 1], a), (name, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "impl,fused", [("tabular", False), ("tabular", True), ("dqn", True)], ids=["tabular", "tabular_fused", "dqn_fused"]
+)
+def test_independent_episode_matches_cpu(cuda_generator, impl, fused):
+    """One independent-scenario episode (S = 3, A = 3, slots 36-59) on the
+    card and on the CPU from the same learners and draws: rewards
+    ``rtol=2e-4``, the learners' tables or stored actions equal. Each slot
+    launches K5 and K6 at [S, A] once, or K7 with one learner per scenario
+    once, and K1 never."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.convert import state_from_jax, state_to_numpy
+    from p2pmicrogrid_tpu_torch.envs import community as com
+    from p2pmicrogrid_tpu_torch.ops.slot_fused import slot_step_fused
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+    from p2pmicrogrid_tpu_torch.train import make_policy
+
+    S, A, T = 3, 3, 24
+    cfg = tc.default_config(
+        sim=tc.SimConfig(n_agents=A, n_scenarios=S),
+        train=tc.TrainConfig(implementation=impl),
+        dqn=tc.DQNConfig(buffer_size=64, batch_size=8, epsilon=0.5),
+    )
+    ratings = com.make_ratings(cfg, np.random.default_rng(42))
+    pol0 = sc.init_independent_state(cfg, S, "cpu", torch.Generator().manual_seed(1))
+    if impl == "tabular":
+        pol0 = pol0._replace(q_table=torch.randn(pol0.q_table.shape, generator=torch.Generator().manual_seed(2)),
+                             epsilon=torch.tensor(0.5))
+    gen = torch.Generator().manual_seed(3)
+    count = torch.arange(1, T + 1)[None, :, None, None]
+    d = dict(uniform=torch.rand((S, T, 2, A), generator=gen), randint=torch.randint(0, 3, (S, T, 2, A), generator=gen),
+             normals=torch.randn((S, 2, A), generator=gen))
+    if impl == "dqn":
+        d["replay_idx"] = torch.minimum((torch.rand((S, T, A, 8), generator=gen) * count).long(), count - 1)
+    draws = com.SingleEpisodeDraws(**d)
+    kernels = (slot_step_fused,) if fused else (mm.divide_rank1_fused, mm.clear_market_fused)
+    everything = (merged_min_sums, mm.divide_rank1_fused, mm.divide_power_fused_with_mean,
+                  mm.clear_market_fused, mm.divide_power_fused, mm.prep_mean, slot_step_fused)
+    out = {}
+    for device in ("cpu", "cuda"):
+        arrays = sc.stack_scenario_arrays(cfg, sc.make_scenario_traces(cfg, seed=0), ratings, device)
+        arrays = com.EpisodeArrays(*(x[:, 36:36 + T] for x in arrays))
+        pol = state_from_jax(state_to_numpy(pol0), device, cfg=cfg.dqn if impl == "dqn" else None)
+        for fn in everything:
+            fn.launches = 0
+        episode = sc.make_independent_episode_fn(cfg, make_policy(cfg), arrays, ratings, fused=fused)
+        pol, (rewards, _) = episode(pol, draws=com.SingleEpisodeDraws(*(None if x is None else x.to(device) for x in draws)))
+        if device == "cuda":
+            for fn in everything:
+                assert fn.launches == (T if fn in kernels else 0), fn.__name__
+        learned = pol.q_table if impl == "tabular" else pol.replay.action
+        out[device] = (rewards.cpu().numpy(), learned.cpu().numpy())
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=2e-4)
+    if impl == "tabular":
+        np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-5, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+
+
+@pytest.mark.cuda
+def test_multi_community_matches_cpu(cuda_generator):
+    """C = 4 trading communities of A = 6 agents (tabular, the factored
+    clearing, K1 at [4, 6] and [8, 6]): a training episode (slots 36-59)
+    and the greedy evaluation of 2 days on the card and on the CPU from the
+    same table and draws: decisions equal, rewards and costs ``rtol=2e-4``."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.convert import state_from_jax, state_to_numpy
+    from p2pmicrogrid_tpu_torch.data.traces import synthetic_traces
+    from p2pmicrogrid_tpu_torch.envs import community as com
+    from p2pmicrogrid_tpu_torch.envs import multi_community as mc
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+    from p2pmicrogrid_tpu_torch.train import make_policy
+
+    C, A, T = 4, 6, 24
+    cfg = tc.default_config(
+        sim=tc.SimConfig(n_agents=A, n_scenarios=C, market_impl="factored"),
+        train=tc.TrainConfig(implementation="tabular"),
+    )
+    ratings = com.make_ratings(cfg, np.random.default_rng(42))
+    pol0 = sc.init_shared_pol_state(cfg, "cpu")
+    pol0 = pol0._replace(q_table=torch.randn(pol0.q_table.shape, generator=torch.Generator().manual_seed(2)),
+                         epsilon=torch.tensor(0.5))
+    gen = torch.Generator().manual_seed(3)
+    draws = sc.EpisodeDraws(uniform=torch.rand((T, 2, C, A), generator=gen),
+                            randint=torch.randint(0, 3, (T, 2, C, A), generator=gen),
+                            normals=torch.randn((C, 2, A), generator=gen))
+    normals = torch.randn((2, C, 2, A), generator=gen)
+    traces = synthetic_traces(n_days=2, start_day=11).normalized()
+    out = {}
+    for device in ("cpu", "cuda"):
+        arrays = sc.stack_scenario_arrays(cfg, sc.make_scenario_traces(cfg, seed=0), ratings, device)
+        arrays = com.EpisodeArrays(*(x[:, 36:36 + T] for x in arrays))
+        merged_min_sums.launches = 0
+        episode = mc.make_multi_community_episode_fn(cfg, make_policy(cfg), arrays, ratings)
+        (pol, _), (rewards, _) = episode(
+            (state_from_jax(state_to_numpy(pol0), device), None), None,
+            sc.EpisodeDraws(*(None if x is None else x.to(device) for x in draws)),
+        )
+        _, o, _ = mc.evaluate_multi_community(
+            cfg, make_policy(cfg), pol, traces, ratings, normals=normals.to(device), device=device
+        )
+        if device == "cuda":
+            assert merged_min_sums.launches == T + 96
+        out[device] = (rewards.cpu().numpy(), pol.q_table.cpu().numpy(), o.decisions.cpu().numpy(),
+                       o.cost.cpu().numpy())
+    (r_c, q_c, d_c, c_c), (r_g, q_g, d_g, c_g) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(r_g, r_c, rtol=2e-4)
+    np.testing.assert_allclose(q_g, q_c, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(d_g, d_c)
+    np.testing.assert_allclose(c_g, c_c, rtol=2e-4, atol=1e-7)

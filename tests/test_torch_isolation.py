@@ -13,6 +13,7 @@ import torch
 import p2pmicrogrid_tpu_torch
 from p2pmicrogrid_tpu_torch import config as tcfg
 from p2pmicrogrid_tpu_torch.envs import community as tcom
+from p2pmicrogrid_tpu_torch.envs import multi_community as tmc
 from p2pmicrogrid_tpu_torch.data.traces import synthetic_traces
 from p2pmicrogrid_tpu_torch.models.ddpg import ddpg_init, ddpg_params_init
 from p2pmicrogrid_tpu_torch.models.dqn import dqn_init
@@ -42,7 +43,8 @@ def test_every_module_imports_without_jax():
             importlib.import_module(name)
         assert {"p2pmicrogrid_tpu_torch.parallel.device_gen",
                 "p2pmicrogrid_tpu_torch.parallel.graph",
-                "p2pmicrogrid_tpu_torch.train.loop"} <= set(names), names
+                "p2pmicrogrid_tpu_torch.train.loop",
+                "p2pmicrogrid_tpu_torch.envs.multi_community"} <= set(names), names
         leaked = sorted(
             n for n, m in sys.modules.items()
             if m is not None and (n == "jax" or n.startswith(("jax.", "jaxlib", "flax", "optax"))
@@ -106,13 +108,19 @@ def _cfg(impl="tabular"):
             cfg, make_policy(cfg), None, synthetic_traces(n_days=1),
             tcom.make_ratings(cfg, np.random.default_rng(0)), torch.Generator(),
         ),
+        lambda cfg: tsc.init_independent_state(cfg, 2),
+        lambda cfg: tmc.evaluate_multi_community(
+            cfg, make_policy(cfg), None, synthetic_traces(n_days=1),
+            tcom.make_ratings(cfg, np.random.default_rng(0)), torch.Generator(),
+        ),
     ],
     ids=["init_shared_state", "init_policy_state", "tabular_init", "init_physical",
          "ratings_to", "stack_scenario_arrays", "init_shared_state_dqn", "dqn_init",
          "lockstep_replay_init", "init_shared_state_ddpg", "ddpg_params_init", "draw_traces",
          "device_scenario_traces", "device_episode_arrays", "make_device_episode_fn",
          "train_scenarios_chunked", "build_episode_arrays", "init_policy_state_ddpg",
-         "ddpg_init", "train_community", "evaluate_community"],
+         "ddpg_init", "train_community", "evaluate_community", "init_independent_state",
+         "evaluate_multi_community"],
 )
 def test_entry_points_default_to_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
