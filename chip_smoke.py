@@ -13,8 +13,9 @@ Phases (each failure exits non-zero):
    paths' shapes and edge cases; a repeat launch must be bit-identical; the
    kernel and the plain version timed with CUDA events, and the device time
    from the profiler. K1 (merged min, timed at [64,1000], [128,1000] (the
-   northstar chunk), [256,50] and [2048,50], the DDPG scale row's shape;
-   its launch logged), then K5, K4, K6
+   northstar chunk), [256,50] and [2048,50], the DDPG scale row's shape,
+   and [8,1000] bf16, phase 8's greedy evaluation; its launch logged), then
+   K5, K4, K6
    (the matrix path; K5's and K4's dispatch at every case and K5's, K4's and
    K6's grid and shared memory a block logged; K5's matrix held to its
    two-pass kernel's bit for bit, and that kernel timed beside it) and K3,
@@ -94,9 +95,36 @@ Phases (each failure exits non-zero):
    and cfg2's (A=10 per-agent DDPG: K5 and K6 at [64,10]). One warm, one
    timed and one profiled episode each, the launch counts set to 0 before
    the timed one and read after.
-8. One JSON line with the DDPG rows' numbers, one with the chunked rows',
-   one with the single rows', one with phase 7's rows, one with every
-   kernel's, then the last line ``{"ok": true, "device": {...}}``.
+8. Observable, crash-safe training. (e) The seed-0 draws on this
+   machine's CPU hash to the digests the CPU tests pin
+   (``draw_digests.py``). (a) ``train.health.train_chunked_with_health`` at
+   the northstar row with telemetry into a temporary run directory, an eval
+   of 8 held-out scenarios after every episode (K1 at [8,1000]) and
+   ``mitigate="lr-boost"``: a warm episode and two timed ones, then one
+   more block with the monitor restored in the basin, so the boosted runner
+   is captured and replayed; env-steps/s beside phase 5's bare northstar,
+   the eval's seconds, the boosted capture's seconds and pool, peak memory,
+   each episode's device counters, the replay fill and the host's blocked
+   share; the run directory's manifest, metrics and Chrome trace parsed, the
+   profile gauges present, K1's launches (96 x 80 an episode, 96 an eval,
+   96 a capture's warm-up; one eval's counted alone) and no other kernel;
+   then the first run again with telemetry off (no counters, no records),
+   its env-steps/s beside. (b) The device counters of
+   the chunk graph equal to the eager loop's at K=2 bit for bit, and the
+   card's to the CPU's at A=6, S=3; a chunk's device time with the
+   counters and without, each graph's nodes. (c) ``resilience.supervise`` runs the
+   port's training child at the northstar width (K=8, 3 episodes, a
+   checkpoint every episode) with a fault plan that SIGKILLs it after
+   episode 1's save; resumed, its final state's digest equals an
+   uninterrupted child's; each attempt's startup seconds logged. (d) The
+   single community (cfg1) under ``train_community_with_rollback`` with NaN
+   poisoned at one block: the rollback records and the final table equal
+   the CPU's from the same CPU-generator draws; then one timed
+   ``train_community`` episode with telemetry, the drain at depth 2.
+9. One JSON line with the DDPG rows' numbers, one with the chunked rows',
+   one with the single rows', one with phase 7's rows, one with phase 8's,
+   one with every kernel's, then the last line ``{"ok": true, "device":
+   {...}}``.
 
 With arguments (a comma-separated list of phase numbers, e.g. ``5``) it
 builds and runs only those phases and prints no result line.
@@ -136,8 +164,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line on stdout; a line that is not a JSON object starts with the
+    seconds since the script started."""
+    print(msg if msg.startswith("{") else f"[{time.perf_counter() - _T0:7.1f}s] {msg}", flush=True)
 
 
 def import_port():
@@ -186,7 +219,10 @@ def profile_episode(run_episode, n_slots: int, wall_unprofiled_s: float, span=No
 
     torch.cuda.synchronize()
     start = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # The host's ops are recorded only where a span needs them: their events
+    # outnumber the kernels' and most of the profiler's own time goes to them.
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if span else [])
+    with profile(activities=activities) as prof:
         run_episode()
         torch.cuda.synchronize()
     wall = time.perf_counter() - start
@@ -212,7 +248,8 @@ def profile_episode(run_episode, n_slots: int, wall_unprofiled_s: float, span=No
         f"  profile: device busy {busy_ms:.3f} ms over {wall * 1e3:.3f} ms "
         f"profiled wall (idle share {1 - busy_ms / (wall * 1e3):.4f}; "
         f"{1 - busy_ms / (wall_unprofiled_s * 1e3):.4f} of the unprofiled "
-        f"timed episode), {launches / n_slots:.1f} device ops per slot"
+        f"timed episode), {launches / n_slots:.1f} device ops per slot; "
+        f"{time.perf_counter() - start:.1f} s with the profiler's own work"
     )
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     for name, (n, ms) in top:
@@ -330,9 +367,10 @@ def merged_min_inputs(S, A, gen, case="random"):
 
 # K1's timed shapes: the shared rows' [64,1000] (the record's main shape),
 # northstar's [128,1000], cfg3's [256,50], the DDPG scale row's [2048,50],
-# and phase 7's cfg5 training [8,128] and evaluation [104,128].
+# phase 7's cfg5 training [8,128] and evaluation [104,128], and phase 8's
+# greedy evaluation of 8 held-out northstar scenarios, [8,1000] (bf16).
 K1_TIMED = ((64, 1000), (128, 1000), (256, 50), (2048, 50), (MULTI_C, MULTI_A),
-            (EVAL_DAYS * MULTI_C, MULTI_A))
+            (EVAL_DAYS * MULTI_C, MULTI_A), (8, 1000))
 
 
 def phase_kernels():
@@ -362,6 +400,10 @@ def phase_kernels():
         # agents, and its 13-day evaluation (104 rows), float32.
         (8, 128, "random"),
         (EVAL_DAYS * MULTI_C, MULTI_A, "random"),
+        # Phase 8's greedy evaluation at the northstar width: 8 scenarios of
+        # 1000 agents, bf16 pre-rounding (resolve_market_dtype at A >= 256).
+        (8, 1000, "bf16"),
+        (8, 1000, "random"),
     ]
     max_abs_err = 0.0
     timings = {}
@@ -1605,11 +1647,14 @@ def chunked_runner(cfg, graph, n_chunks, device="cuda"):
 
 
 def graph_stats(captured):
-    """A capture's seconds, pool and launches as plain numbers."""
+    """A capture's seconds, pool, nodes and launches as plain numbers."""
+    from p2pmicrogrid_tpu_torch.telemetry.profiling import graph_node_count
+
     return dict(
         capture_seconds=captured.capture_seconds,
         instantiate_seconds=captured.instantiate_seconds,
         pool_bytes=captured.pool_bytes,
+        nodes=graph_node_count(captured.graph),
         launches={w.__name__: n for w, n in captured.launches.items()},
     )
 
@@ -2569,6 +2614,466 @@ def phase_independent(counters, card):
             shapes.setdefault(name, {})[(S, A)] = ms
     return rows, totals, shapes
 
+# --- phase 8 ---------------------------------------------------------------
+
+# The guarded northstar run as its users run it (the JAX CLI's chunked
+# default): train_chunked_with_health with telemetry on, an eval every
+# episode on 8 held-out scenarios (K1 at [8,1000] bf16) and the lr-boost
+# mitigation; the kill/resume check at the northstar width with its depth
+# cut to K=8 chunks and 3 episodes.
+HEALTH_S_EVAL = 8
+RESUME_K, RESUME_EPISODES = 8, 3
+
+
+def northstar_config():
+    from p2pmicrogrid_tpu_torch import config as tc
+
+    return chunked_config(tc, "ddpg", NORTHSTAR["A"], NORTHSTAR["S"],
+                          buffer_size=NORTHSTAR["buffer_size"], batch_size=NORTHSTAR["batch_size"])
+
+
+def read_run_dir(run_dir):
+    """The run directory's manifest, metrics lines and Chrome trace, each
+    parsed; fails where one is missing or does not parse."""
+    out = {}
+    try:
+        with open(os.path.join(run_dir, "manifest.json")) as f:
+            out["manifest"] = json.load(f)
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            out["records"] = [json.loads(line) for line in f]
+        with open(os.path.join(run_dir, "trace.json")) as f:
+            out["trace"] = json.load(f)
+        with open(os.path.join(run_dir, "summary.json")) as f:
+            out["summary"] = json.load(f)
+    except (OSError, ValueError) as exc:
+        fail(f"telemetry run directory {run_dir}: {exc}")
+    if not out["trace"].get("traceEvents"):
+        fail(f"telemetry run directory {run_dir}: the Chrome trace holds no span")
+    return out
+
+
+def phase_guarded_northstar(counters, card, tmp, bare_env_steps):
+    """(a) ``train_chunked_with_health`` at the northstar row: a warm
+    episode and two timed ones (an eval after each), then one more block
+    with the monitor restored in the basin, so the boosted runner is
+    captured and replayed. Returns (row, launches)."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch.envs.community import make_ratings
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+    from p2pmicrogrid_tpu_torch.telemetry import Telemetry
+    from p2pmicrogrid_tpu_torch.train import health as th
+    from p2pmicrogrid_tpu_torch.train import make_policy
+
+    cfg = northstar_config()
+    A, S, K, T = NORTHSTAR["A"], NORTHSTAR["S"], NORTHSTAR["K"], 96
+    what = f"guarded northstar A={A} S={S} K={K}"
+    torch.cuda.synchronize()
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    root = os.path.join(tmp, "runs")
+    tel = Telemetry.create("chip-smoke-health", cfg=cfg, root=root)
+    ratings = make_ratings(cfg, np.random.default_rng(42))
+    policy = make_policy(cfg)
+    pol = sc.init_shared_pol_state(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    stamps = []
+    cb = lambda ep, r, l, c: stamps.append((ep, time.perf_counter(), float(np.mean(r))))
+    reset(counters)
+    start = time.perf_counter()
+    pol, rew, loss, secs, monitor = th.train_chunked_with_health(
+        cfg, policy, pol, ratings, 0, 3, K, eval_every=1, mitigate="lr-boost", s_eval=HEALTH_S_EVAL,
+        telemetry=tel, episode_cb=cb,
+    )
+    total_s = time.perf_counter() - start
+    launches = {name: fn.launches for name, fn in counters.items()}
+    # Each episode: K replays of T K1 launches; each capture's eager warm-up
+    # run one chunk's T (the boosted runner's too, where an eval put the
+    # policy in the basin); each eval (before the first episode and after
+    # each) T at [8,1000].
+    captures = 1 + int(any(e < 3 for e in monitor.basin_entries))
+    expect = {name: (3 * K * T + captures * T + 4 * T if name == "merged_min_sums" else 0) for name in counters}
+    if launches != expect:
+        fail(f"{what}: launches {launches}, expected {expect}")
+    if rew.shape != (3, K * S) or not (np.isfinite(rew).all() and np.isfinite(loss).all()):
+        fail(f"{what}: rewards {rew.shape} or losses not finite")
+    if [p.episode for p in monitor.points] != [0, 1, 2, 3]:
+        fail(f"{what}: eval points at {[p.episode for p in monitor.points]}")
+    episode_s = [b - a for (_, a, _), (_, b, _) in zip(stamps, stamps[1:])]
+    timed_s = statistics.mean(episode_s)
+    # One eval alone, timed after a synchronisation: its seconds and its
+    # launches.
+    greedy = th.make_greedy_eval(cfg, policy, ratings, s_eval=HEALTH_S_EVAL)
+    greedy(pol)
+    torch.cuda.synchronize()
+    reset(counters)
+    t0 = time.perf_counter()
+    c, r = greedy(pol)
+    float(c)
+    eval_s = time.perf_counter() - t0
+    eval_launches = counters["merged_min_sums"].launches
+    if {name: fn.launches for name, fn in counters.items()} != {
+        name: (T if name == "merged_min_sums" else 0) for name in counters
+    }:
+        fail(f"{what}: one eval launched {({n: fn.launches for n, fn in counters.items()})}, expected K1 {T}")
+    first_peak = torch.cuda.max_memory_allocated() - base
+    # The boosted block: the monitor restored from its record into one held
+    # in the basin (whatever the block's first eval says), as a run resumed
+    # inside the basin would be.
+    class HeldInBasin(th.HealthMonitor):
+        @property
+        def in_basin(self):
+            return True
+
+    restored = HeldInBasin.from_dict(monitor.to_dict())
+    gc_collect()
+    before_boost = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    boost_stamps = []
+    reset(counters)
+    pol, rew_b, _, _, monitor_b = th.train_chunked_with_health(
+        cfg, policy, pol, ratings, 0, 1, K, eval_every=1, episode0=3, mitigate="lr-boost",
+        s_eval=HEALTH_S_EVAL, monitor=restored, telemetry=tel,
+        episode_cb=lambda ep, r, l, c: boost_stamps.append(
+            [g["lr"] for opt in (c.actor_opt, c.critic_opt) for g in opt.param_groups]
+        ),
+    )
+    boost_launches = {name: fn.launches for name, fn in counters.items()}
+    boost_peak = torch.cuda.max_memory_allocated() - before_boost
+    expect = {name: (K * T + T + 2 * T if name == "merged_min_sums" else 0) for name in counters}
+    if boost_launches != expect:
+        fail(f"{what} boosted block: launches {boost_launches}, expected {expect}")
+    lrs = th._lr_boosted_cfg(cfg, 3.0).ddpg
+    if boost_stamps != [[lrs.actor_lr, lrs.critic_lr]]:
+        fail(f"{what}: the boosted block trained at {boost_stamps}, not {lrs.actor_lr, lrs.critic_lr}")
+    if not np.isfinite(rew_b).all():
+        fail(f"{what} boosted block: non-finite rewards")
+    tel.close()
+    # The first run again with telemetry off (no device counters, no
+    # records), the evals kept: what the counters and the records cost.
+    gc_collect()
+    pol_off = sc.init_shared_pol_state(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    stamps_off = []
+    reset(counters)
+    _, rew_off, _, _, monitor_off = th.train_chunked_with_health(
+        cfg, policy, pol_off, ratings, 0, 3, K, eval_every=1, mitigate="lr-boost", s_eval=HEALTH_S_EVAL,
+        telemetry=None, episode_cb=lambda ep, r, l, c: stamps_off.append(time.perf_counter()),
+    )
+    captures_off = 1 + int(any(e < 3 for e in monitor_off.basin_entries))
+    expect = {name: (3 * K * T + captures_off * T + 4 * T if name == "merged_min_sums" else 0) for name in counters}
+    if {name: fn.launches for name, fn in counters.items()} != expect:
+        fail(f"{what} with telemetry off: launches {({n: fn.launches for n, fn in counters.items()})}, expected {expect}")
+    off_episode_s = [b - a for a, b in zip(stamps_off, stamps_off[1:])]
+    run = read_run_dir(tel.run_dir)
+    gauges = run["summary"]["gauges"]
+    need = [f"profile.{label}.{m}" for label in ("chunk_graph", "chunk_graph_boosted")
+            for m in ("graph_nodes", "graph_pool_bytes", "graph_capture_seconds", "peak_allocated_bytes",
+                      "kernel_launches")]
+    missing = [g for g in need if g not in gauges]
+    if missing:
+        fail(f"{what}: profile gauges missing: {missing}")
+    if gauges.get("profile.chunk_graph.kernel_launches") != K * T:
+        fail(f"{what}: the profiled graph launches {gauges.get('profile.chunk_graph.kernel_launches')}, not {K * T}")
+    counters_ev = [
+        {k: v for k, v in r.items() if k not in ("ts", "kind")}
+        for r in run["records"] if r.get("kind") == "device_counters"
+    ]
+    train_ev = [c for c in counters_ev if c["phase"] == "train"]
+    if [c["episode"] for c in train_ev] != [0, 1, 2, 3]:
+        fail(f"{what}: device_counters events for episodes {[c['episode'] for c in train_ev]}")
+    for c in counters_ev:
+        if c["nonfinite_q"] or c["nonfinite_loss"]:
+            fail(f"{what}: non-finite counts {c}")
+    if run["manifest"].get("device_kind") != torch.cuda.get_device_name(0):
+        fail(f"{what}: the manifest names {run['manifest'].get('device_kind')}")
+    steps = T * S * K
+    row = dict(
+        row="guarded northstar", card=card, A=A, S=S, K=K, s_eval=HEALTH_S_EVAL, eval_every=1,
+        mitigate="lr-boost", episode_s=episode_s, env_steps_per_s=steps / timed_s,
+        bare_northstar_env_steps_per_s=bare_env_steps,
+        telemetry_off_episode_s=off_episode_s,
+        telemetry_off_env_steps_per_s=steps / statistics.mean(off_episode_s),
+        rewards_equal_telemetry_off=bool(np.array_equal(rew, rew_off)),
+        call_s=total_s, eval_s=eval_s, eval_env_steps_per_s=T * HEALTH_S_EVAL / eval_s,
+        eval_launches=eval_launches,
+        boost_capture_s=gauges.get("profile.chunk_graph_boosted.graph_capture_seconds"),
+        boost_pool_bytes=gauges.get("profile.chunk_graph_boosted.graph_pool_bytes"),
+        graph_pool_bytes=gauges.get("profile.chunk_graph.graph_pool_bytes"),
+        graph_nodes=gauges.get("profile.chunk_graph.graph_nodes"),
+        peak_gib=first_peak / 2**30, boosted_block_peak_gib=boost_peak / 2**30,
+        replay_fill_fraction=gauges.get("replay.fill_fraction"),
+        host_blocked_fraction=gauges.get("train.host_blocked_fraction"),
+        device_counters=counters_ev, health=[p._asdict() for p in monitor.points + monitor_b.points[-1:]],
+        boosted_lrs=boost_stamps[0], k1_launches=launches["merged_min_sums"] + boost_launches["merged_min_sums"],
+    )
+    log(
+        f"phase 8: {what} ({card}): env-steps/s {row['env_steps_per_s']:.1f} with an eval every episode "
+        f"({row['telemetry_off_env_steps_per_s']:.1f} with telemetry off; bare northstar in this call: "
+        f"{bare_env_steps}), eval {eval_s:.3f} s, boosted runner capture "
+        f"{row['boost_capture_s']} s, pool {row['boost_pool_bytes']} B, peak "
+        f"{row['peak_gib']:.3f} GiB"
+    )
+    log(f"phase 8: {json.dumps(row)}")
+    totals = {name: launches[name] + boost_launches[name] for name in counters}
+    return row, totals
+
+
+def gc_collect():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_graph_counters(counters):
+    """(b) The chunk graph's device counters against the eager loop's at
+    K=2 and the northstar width, from the same state and seeds: integers
+    equal, energies bit for bit; and at A=6, S=3, K=2 on the card (graph)
+    against the CPU (eager) from the same injected draws: integers equal,
+    energies rtol=1e-5; and what the counters cost the device a chunk.
+    Returns (the cost, the launches)."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.envs.community import make_ratings
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+    from p2pmicrogrid_tpu_torch.telemetry import dc_to_dict
+    from p2pmicrogrid_tpu_torch.train import make_policy
+
+    totals = {name: 0 for name in counters}
+
+    def run(cfg, device, graph, K, pol0, seeds=None, draws=None):
+        ratings = make_ratings(cfg, np.random.default_rng(42))
+        policy = make_policy(cfg)
+        episode_fn = sc.make_device_episode_fn(cfg, policy, ratings, device=device, collect_device_metrics=True)
+        runner = sc.make_chunked_episode_runner(cfg, episode_fn, K, graph=graph, collect_device_metrics=True)
+        reset(counters)
+        out = runner(copy_state(cfg, pol0, device), seeds=seeds, draws=draws)
+        for name, fn in counters.items():
+            totals[name] += fn.launches
+        return dc_to_dict(out[3]), out[4].numpy(), out[1].cpu().numpy()
+
+    cfg = northstar_config()
+    pol0 = sc.init_shared_pol_state(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(3))
+    dg, fg, rg = run(cfg, "cuda", True, 2, pol0, seeds=[11, 12])
+    gc_collect()
+    de, fe, re_ = run(cfg, "cuda", False, 2, pol0, seeds=[11, 12])
+    gc_collect()
+    what = f"counters in the chunk graph, A={cfg.sim.n_agents} S={cfg.sim.n_scenarios} K=2"
+    if dg != de or not np.array_equal(fg, fe) or not np.array_equal(rg, re_):
+        fail(f"{what}: graph {dg} {fg} vs eager {de} {fe}")
+    if not any(dg.values()):
+        fail(f"{what}: every counter is 0")
+    log(f"phase 8: {what}: equal to the eager loop's bit for bit: {json.dumps(dg)}, fills {fg.tolist()}")
+    # What the counters cost the device: a K=2 call of the graph runner with
+    # them and of one without, each after its capture, timed with CUDA
+    # events (best of 3), and each graph's nodes.
+    cost = {}
+    for collect in (True, False):
+        episode_fn = sc.make_device_episode_fn(
+            cfg, make_policy(cfg), make_ratings(cfg, np.random.default_rng(42)), device="cuda",
+            collect_device_metrics=collect,
+        )
+        runner = sc.make_chunked_episode_runner(cfg, episode_fn, 2, graph=True, collect_device_metrics=collect)
+        state = copy_state(cfg, pol0, "cuda")
+        reset(counters)
+        runner(state, seeds=[11, 12])
+        reps = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            runner(state, seeds=[11, 12])
+            end.record()
+            end.synchronize()
+            reps.append(start.elapsed_time(end) / 2)
+        for name, fn in counters.items():
+            totals[name] += fn.launches
+        (cap, *_), *_ = runner.graphs.values()
+        cost["counters" if collect else "bare"] = dict(chunk_ms=min(reps), nodes=graph_stats(cap)["nodes"])
+        del runner, episode_fn, state, cap
+        gc_collect()
+    cost["counters_ms_per_chunk"] = cost["counters"]["chunk_ms"] - cost["bare"]["chunk_ms"]
+    log(f"phase 8: the counters' device cost, a chunk at A={cfg.sim.n_agents} S={cfg.sim.n_scenarios}: "
+        f"{json.dumps(cost)}")
+    A, S, K = 6, 3, 2
+    small = tc.default_config(
+        sim=tc.SimConfig(n_agents=A, n_scenarios=S, market_impl="factored"),
+        battery=tc.BatteryConfig(enabled=True),
+        train=tc.TrainConfig(implementation="tabular"),
+    )
+    pol0 = sc.init_shared_pol_state(small, device="cpu", generator=torch.Generator().manual_seed(5))
+    gen = torch.Generator().manual_seed(9)
+    ep = sc.make_device_episode_fn(small, make_policy(small), make_ratings(small, np.random.default_rng(42)),
+                                   device="cpu")
+    draws = [sc.ChunkDraws(None, (), ep.draw(gen)) for _ in range(K)]
+    dc_c, _, _ = run(small, "cpu", False, K, pol0, draws=draws)
+    dc_g, _, _ = run(small, "cuda", True, K, pol0, draws=[sc._map_tensors(lambda x: x.cuda(), d) for d in draws])
+    what = f"counters card (graph) vs CPU, tabular A={A} S={S} K={K}"
+    for name in ("nonfinite_q", "nonfinite_loss", "comfort_violations"):
+        if dc_g[name] != dc_c[name]:
+            fail(f"{what}: {name} {dc_g[name]} vs {dc_c[name]}")
+    for name in ("market_residual_wh", "trade_wh"):
+        if not np.isclose(dc_g[name], dc_c[name], rtol=1e-5, atol=0.0):
+            fail(f"{what}: {name} {dc_g[name]} vs {dc_c[name]}")
+    log(f"phase 8: {what}: integers equal, energies within 1e-5: {json.dumps(dc_g)}")
+    return cost, totals
+
+
+def phase_kill_resume(tmp):
+    """(c) The kill/resume check at the northstar width, K=8, 3 episodes:
+    ``supervise`` runs the port's training child with a checkpoint every
+    episode and a fault plan that SIGKILLs it at episode 2's start (after
+    episode 1's save); relaunched with ``--resume`` it finishes, and its
+    final state's digest equals an uninterrupted child's. Returns the row."""
+    import io
+
+    from p2pmicrogrid_tpu_torch.train import faults as tf
+    from p2pmicrogrid_tpu_torch.train import resilience as rs
+
+    plan = tf.TrainFaultPlan(seed=0, events=(tf.TrainFaultEvent(kind="kill", episode=2, attempt=0),))
+    plan_path = os.path.join(tmp, "kill_plan.json")
+    with open(plan_path, "w") as f:
+        f.write(plan.to_json())
+    argv = [sys.executable, "-m", "p2pmicrogrid_tpu_torch.train.resilience", "--child",
+            "--episodes", str(RESUME_EPISODES), "--chunks", str(RESUME_K),
+            "--agents", str(NORTHSTAR["A"]), "--scenarios", str(NORTHSTAR["S"])]
+    env = {"PYTHONPATH": HERE + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    results = {}
+    for label, extra in (("killed", ["--fault-plan", plan_path]), ("uninterrupted", [])):
+        out = io.StringIO()
+        start = time.perf_counter()
+        res = rs.supervise(argv + ["--ckpt-dir", os.path.join(tmp, label)] + extra,
+                           max_restarts=2, backoff_s=0.0, env=env, passthrough=out)
+        secs = time.perf_counter() - start
+        lines = [json.loads(l) for l in out.getvalue().splitlines() if l.startswith("{")]
+        startups = [l["child_startup"] for l in lines if "child_startup" in l]
+        done = [l["child_done"] for l in lines if "child_done" in l]
+        if not res.succeeded or len(done) != 1:
+            fail(f"kill/resume {label}: exit {res.exit_code}, attempts {res.attempts}")
+        results[label] = dict(
+            seconds=secs, attempts=[a["exit_code"] for a in res.attempts], kills=res.kills,
+            resumes=res.resumes, startups=startups, digest=done[0]["digest"],
+        )
+    killed, clean = results["killed"], results["uninterrupted"]
+    if killed["attempts"] != [-9, 0] or killed["startups"][-1]["resumed_from"] != 1:
+        fail(f"kill/resume: attempts {killed['attempts']}, startups {killed['startups']}")
+    if killed["digest"] != clean["digest"]:
+        fail(f"kill/resume: the resumed run's digest {killed['digest']} != the uninterrupted {clean['digest']}")
+    row = dict(row="kill/resume", A=NORTHSTAR["A"], S=NORTHSTAR["S"], K=RESUME_K, episodes=RESUME_EPISODES,
+               **results)
+    log(f"phase 8: kill/resume at A={NORTHSTAR['A']} S={NORTHSTAR['S']} K={RESUME_K}: SIGKILL after episode 1's "
+        f"save, resumed from ep_1, final digest equal to the uninterrupted run's ({clean['digest'][:23]})")
+    log(f"phase 8: {json.dumps(row)}")
+    return row
+
+
+def single_rollback(device, draws_seed=2):
+    """cfg1 (A=2 tabular, 6 episodes, a checkpoint every episode) under
+    ``train_community_with_rollback`` with NaN poisoned into the table at
+    episode 3's block, every draw from a CPU generator: (records, final
+    table, rewards)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.train import faults as tf
+    from p2pmicrogrid_tpu_torch.train import init_policy_state
+    from p2pmicrogrid_tpu_torch.train import resilience as rs
+
+    cfg = single_config(tc, "tabular", 2, max_episodes=6, episodes_per_jit_block=2, save_episodes=1,
+                        min_episodes_criterion=2)
+    traces, ratings = single_inputs(cfg)
+    pol = copy_state(cfg, init_policy_state(cfg, "cpu", torch.Generator().manual_seed(5)), device)
+    plan = tf.TrainFaultPlan(seed=0, events=(tf.TrainFaultEvent(kind="poison_nan", episode=3),))
+    injector = tf.TrainFaultInjector(plan, kill_mode="raise")
+    with tempfile.TemporaryDirectory() as ckpt:
+        result, records = rs.train_community_with_rollback(
+            cfg, pol, traces, ratings, torch.Generator().manual_seed(draws_seed), ckpt,
+            guard_policy=rs.GuardPolicy(max_rollbacks=2), fault_injector=injector, device=device,
+        )
+    return records, result.pol_state.q_table.cpu().numpy(), np.array(result.episode_rewards)
+
+
+def phase_single_resilience(counters, card):
+    """(d) The single community's rollback on the card against the CPU, and
+    ``train_community(telemetry=...)`` timed at drain depth 2. Returns
+    (row, launches)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.telemetry import MemorySink, Telemetry
+    from p2pmicrogrid_tpu_torch.train import init_policy_state, make_policy, train_community
+
+    totals = {name: 0 for name in counters}
+    reset(counters)
+    rec_g, q_g, rew_g = single_rollback("cuda")
+    for name, fn in counters.items():
+        totals[name] += fn.launches
+    rec_c, q_c, rew_c = single_rollback("cpu")
+    what = "single community rollback (cfg1, NaN at episode 3)"
+    if [dataclasses.asdict(r) for r in rec_g] != [dataclasses.asdict(r) for r in rec_c] or len(rec_g) != 1:
+        fail(f"{what}: card records {rec_g} vs CPU {rec_c}")
+    if not np.isfinite(q_g).all() or not np.allclose(q_g, q_c, rtol=1e-3, atol=1e-4):
+        fail(f"{what}: final table card vs CPU max abs diff {np.abs(q_g - q_c).max()}")
+    if not np.allclose(rew_g, rew_c, rtol=2e-4, atol=0.0):
+        fail(f"{what}: rewards card {rew_g} vs CPU {rew_c}")
+    log(f"phase 8: {what}: card = CPU, records {[dataclasses.asdict(r) for r in rec_g]}, "
+        f"table max abs diff {np.abs(q_g - q_c).max():.3e}")
+    # One timed episode with telemetry, the drain at depth 2.
+    cfg = single_config(tc, "tabular", 2, max_episodes=2, episodes_per_jit_block=1)
+    traces, ratings = single_inputs(cfg)
+    policy = make_policy(cfg)
+    pol = copy_state(cfg, init_policy_state(cfg, "cpu", torch.Generator().manual_seed(5)), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    warm = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, max_episodes=1))
+    train_community(warm, policy, pol, traces, ratings, gen)
+    sink = MemorySink()
+    tel = Telemetry(run_id="single", sinks=[sink])
+    timed = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, starting_episodes=1))
+    reset(counters)
+    res = train_community(timed, policy, pol, traces, ratings, gen, telemetry=tel, pipeline=True)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    expect = {name: (96 if name in SINGLE_R1 else 0) for name in counters}
+    if launches != expect:
+        fail(f"single telemetry episode: launches {launches}, expected {expect}")
+    for name in counters:
+        totals[name] += launches[name]
+    tel.close()
+    summary = tel.summary()
+    device_counts = {k: v for k, v in summary["counters"].items() if k.startswith("device.")}
+    if len(device_counts) != 5 or "profile.episode_scan.kernel_launches" not in summary["gauges"]:
+        fail(f"single telemetry episode: counters {device_counts}, gauges {sorted(summary['gauges'])}")
+    row = dict(row="cfg1 with telemetry", card=card, episode_s=res.train_seconds,
+               env_steps_per_s=res.env_steps_per_sec, pipeline_depth=summary["gauges"]["train.pipeline_depth"],
+               host_blocked_fraction=summary["gauges"]["train.host_blocked_fraction"],
+               device_counters=device_counts, rollback=[dataclasses.asdict(r) for r in rec_g])
+    log(f"phase 8: {json.dumps(row)}")
+    return row, totals
+
+
+def phase_draw_digests():
+    """(e) The seed-0 draws on this machine's CPU against the pinned
+    digests (tests/test_torch_resilience.py pins the same)."""
+    import torch
+
+    from p2pmicrogrid_tpu_torch.draw_digests import PINNED, seed0_digests
+
+    got = seed0_digests()
+    if got != PINNED:
+        fail(f"seed-0 CPU draws under torch {torch.__version__}: {got}, pinned {PINNED}")
+    log(f"phase 8: seed-0 CPU draws under torch {torch.__version__} equal the pinned digests {json.dumps(got)}")
+    return got
+
+
 def main() -> None:
     import torch
 
@@ -2593,7 +3098,7 @@ def main() -> None:
     # With no arguments every phase runs (the check); a comma-separated list
     # of phase numbers (e.g. "2,5") runs only those, builds first, and prints
     # no result line.
-    all_phases = {"2", "3", "4", "5", "6", "7"}
+    all_phases = {"2", "3", "4", "5", "6", "7", "8"}
     phases = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else all_phases
     start = time.perf_counter()
     card = phase_device_and_build()
@@ -2636,6 +3141,24 @@ def main() -> None:
         for name, by_shape in indep_shapes.items():
             multi_shapes.setdefault(name, {}).update(by_shape)
         log(f"phase 7 done ({time.perf_counter() - start:.1f} s)")
+    guarded = {}
+    if "8" in phases:
+        import shutil
+        import tempfile
+
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            guarded["draw_digests"] = phase_draw_digests()
+            bare = chunked.get("northstar", {}).get("env_steps_per_s")
+            guarded["northstar"], g_launches = phase_guarded_northstar(counters, card, tmp, bare)
+            guarded["counters_cost"], c_launches = phase_graph_counters(counters)
+            guarded["kill_resume"] = phase_kill_resume(tmp)
+            guarded["single"], s_launches = phase_single_resilience(counters, card)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        for name in launches:
+            launches[name] += g_launches[name] + c_launches[name] + s_launches[name]
+        log(f"phase 8 done ({time.perf_counter() - start:.1f} s)")
     if phases != all_phases:
         log(f"partial run of phases {sorted(phases)}: no result ({time.perf_counter() - start:.1f} s)")
         return
@@ -2661,6 +3184,7 @@ def main() -> None:
             rec["at_256x50"][key] = profiled[name].get((256, 50, "tabular", rounds))
             if name == "merged_min_sums":
                 rec["at_2048x50"][key] = profiled[name].get((2048, 50, "ddpg", 1))
+                rec["at_8x1000"]["launches_per_eval"] = guarded["northstar"]["eval_launches"]
                 rec["ddpg_64x1000"] = {key: profiled[name].get((64, 1000, "ddpg", 1))}
                 rec["at_128x1000"][key] = chunked["northstar"]["k1_device_ms_per_call"]
             if name == "slot_step_fused":
@@ -2680,6 +3204,7 @@ def main() -> None:
     log(json.dumps({"ddpg_rows": ddpg_rows}))
     log(json.dumps({"single_rows": single_rows}))
     log(json.dumps({"multi_rows": multi_rows}))
+    log(json.dumps({"guarded": guarded}))
     log(json.dumps({"kernels": records}))
     log(f"total {time.perf_counter() - start:.1f} s")
     print(

@@ -18,9 +18,10 @@ learning rate is not part of that state, so these need their config
 (``DQNConfig``, ``DDPGConfig``). A ``DDPGState`` also carries its per-agent
 replay ring, OU noise and noise scale.
 
-``state_to_numpy`` does the reverse for comparisons: these come back with
-flax-shaped trees and optax-shaped Adam states (the NamedTuples below, named
-as optax names them).
+``state_to_numpy`` does the reverse for comparisons and checkpoints: these
+come back with flax-shaped trees and optax-shaped Adam states (the
+NamedTuples below, named as optax names them). ``load_state_`` writes such a
+tree back into an existing state, in place.
 
 ``stacked_state_from_jax`` and ``stacked_state_to_numpy`` move the JAX
 package's S independent learners (``jax.vmap(init_policy_state)``'s output:
@@ -306,3 +307,73 @@ def stacked_state_to_numpy(state, n_scenarios: int):
         return x.reshape((S, x.shape[0] // S) + x.shape[1:])
 
     return _map_arrays(split, state_to_numpy(state))
+
+
+def _copy_into(dst: torch.Tensor, src) -> None:
+    src = np.asarray(src)
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"load_state_: shape {src.shape} does not fit {tuple(dst.shape)}")
+    dst.copy_(torch.from_numpy(np.array(src, dtype=np.asarray(src).dtype)))
+
+
+def _load_net_(net, tree: dict) -> None:
+    for name in _LAYERS:
+        for field in ("kernel", "bias"):
+            _copy_into(getattr(getattr(net, name), field).data, tree[name][field])
+
+
+def _load_adam_(opt: torch.optim.Adam, net, opt_state) -> None:
+    from p2pmicrogrid_tpu_torch.parallel.scenarios import _adam_leaves
+
+    adam, _ = opt_state
+    counts = np.asarray(adam.count).reshape(-1)
+    if not (counts == counts[0]).all():
+        raise ValueError("load_state_: per-agent Adam step counts differ")
+    _adam_leaves(opt, net)  # the state a first step would make, where there is none
+    for name in _LAYERS:
+        for field in ("kernel", "bias"):
+            st = opt.state[getattr(getattr(net, name), field)]
+            st["step"].fill_(float(counts[0]))
+            _copy_into(st["exp_avg"], adam.mu[name][field])
+            _copy_into(st["exp_avg_sq"], adam.nu[name][field])
+
+
+def load_state_(state, np_tree):
+    """Write ``np_tree`` (``state_to_numpy``'s layout) into ``state``'s
+    tensors in place: parameters, Adam's moments and step counts (where a
+    capturable Adam keeps them on the device too), rings, exploration
+    scales. A CUDA graph that captured these tensors, or an optimiser that
+    holds them, reads the new values. Returns the state, with its rings'
+    host cursor and count replaced (they are Python integers)."""
+    if isinstance(state, torch.Tensor):
+        _copy_into(state, np_tree)
+        return state
+    with torch.no_grad():
+        if isinstance(state, DQNState):
+            _load_net_(state.online, np_tree.online)
+            _load_net_(state.target, np_tree.target)
+            _load_adam_(state.opt_state, state.online, np_tree.opt_state)
+            return state._replace(
+                replay=load_state_(state.replay, np_tree.replay),
+                epsilon=load_state_(state.epsilon, np_tree.epsilon),
+            )
+        if isinstance(state, (DDPGParams, DDPGState)):
+            for net in ("actor", "critic", "actor_target", "critic_target"):
+                _load_net_(getattr(state, net), getattr(np_tree, net))
+            _load_adam_(state.actor_opt, state.actor, np_tree.actor_opt)
+            _load_adam_(state.critic_opt, state.critic, np_tree.critic_opt)
+            state = state._replace(noise_scale=load_state_(state.noise_scale, np_tree.noise_scale))
+            if isinstance(state, DDPGState):
+                state = state._replace(
+                    replay=load_state_(state.replay, np_tree.replay),
+                    ou_state=load_state_(state.ou_state, np_tree.ou_state),
+                )
+            return state
+        if isinstance(state, (ReplayState, LockstepReplay)):
+            *bufs, cursor, count = np_tree
+            for dst, src in zip(state[:-2], bufs):
+                _copy_into(dst, src)
+            return state._replace(cursor=int(cursor), count=int(count))
+        if isinstance(state, tuple) and hasattr(state, "_fields"):
+            return type(state)(*(load_state_(x, y) for x, y in zip(state, np_tree)))
+    raise TypeError(f"load_state_: cannot load into {type(state).__name__}")

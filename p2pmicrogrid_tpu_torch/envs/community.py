@@ -57,6 +57,7 @@ from p2pmicrogrid_tpu_torch.ops.thermal import (
     normalized_temperature,
     thermal_step,
 )
+from p2pmicrogrid_tpu_torch.telemetry.device_metrics import dc_from_slot
 
 
 class Policy(NamedTuple):
@@ -676,24 +677,21 @@ def run_episode(
 
     Training explores and learns every slot; a greedy episode
     (``training=False``) does neither and draws nothing. A training
-    episode's draws come from ``generator`` (a ``torch.Generator`` on the
-    state's device: per slot each round's exploration draws, then the
-    learn step's replay indices where ``policy.replay_batch`` is set) or
-    from ``draws`` (``SingleEpisodeDraws``). The learner state updates in
+    episode's draws come from ``generator`` (a ``torch.Generator``: per slot
+    each round's exploration draws, then the learn step's replay indices
+    where ``policy.replay_batch`` is set, each drawn on the generator's
+    device and moved to the state's, so a CPU generator gives the card the
+    CPU's draws) or from ``draws`` (``SingleEpisodeDraws``). The learner state updates in
     place.
 
     ``fused`` runs every slot through K7 at [1, A] (tabular and DQN); None
-    resolves ``SimConfig.fused_slot``. ``collect_device_metrics`` is not
-    ported (ROADMAP.md, Queue 1, item 7: device telemetry).
+    resolves ``SimConfig.fused_slot``. With ``collect_device_metrics`` the
+    episode's ``telemetry.DeviceCounters`` (the learn loss included), summed
+    on the device over the stacked outputs, are returned as a 4th element.
 
     Returns (final physical state, policy state, outputs with a leading [T]
-    axis on every leaf).
+    axis on every leaf[, the episode's counters]).
     """
-    if collect_device_metrics:
-        raise NotImplementedError(
-            "collect_device_metrics: device telemetry is not ported yet "
-            "(ROADMAP.md, Queue 1, item 7)"
-        )
     use_fused = resolve_use_fused(cfg) if fused is None else bool(fused)
     impl = cfg.train.implementation
     if use_fused and impl not in ("tabular", "dqn"):
@@ -710,6 +708,7 @@ def run_episode(
         if missing:
             raise ValueError(f"a {impl} training episode needs SingleEpisodeDraws.{', '.join(missing)}")
     n_actions = cfg.qlearning.num_actions if impl == "tabular" else 3
+    gen_dev = None if generator is None else generator.device
     ratings_d = ratings_to(ratings, device)
     outs = []
     for t in range(T):
@@ -723,23 +722,26 @@ def run_episode(
                 idx = draws.replay_idx[t]
         elif training:
             if impl == "ddpg":
-                slot_draws = (torch.randn((R, A), generator=generator, device=device),)
+                slot_draws = (torch.randn((R, A), generator=generator, device=gen_dev).to(device),)
             else:
                 slot_draws = (
-                    torch.rand((R, A), generator=generator, device=device),
-                    torch.randint(0, n_actions, (R, A), generator=generator, device=device),
+                    torch.rand((R, A), generator=generator, device=gen_dev).to(device),
+                    torch.randint(0, n_actions, (R, A), generator=generator, device=gen_dev).to(device),
                 )
             if policy.replay_batch is not None:
                 # The ring holds this slot's transition when it is sampled.
                 ring = pol_state.replay
                 count = min(ring.count + 1, ring.capacity)
-                idx = sample_indices(count, A, policy.replay_batch, generator, device)
+                idx = sample_indices(count, A, policy.replay_batch, generator, gen_dev).to(device)
         phys, pol_state, out = community_slot(
             cfg, policy, pol_state, phys, xs, slot_draws, idx, training, ratings_d,
             fused=use_fused,
         )
         outs.append(out)
     outputs = SlotOutputs(*(torch.stack(leaf) for leaf in zip(*outs)))
+    if collect_device_metrics:
+        # The stacked [T, A] outputs: one reduction over every slot.
+        return phys, pol_state, outputs, dc_from_slot(cfg, outputs)
     return phys, pol_state, outputs
 
 

@@ -133,20 +133,14 @@ def train_multi_community(
     [episodes, C], seconds), over ``make_multi_community_episode_fn``'s
     episode. Communities are the leading axis of ``arrays_c`` (build it with
     ``stack_scenario_arrays`` over one trace draw per community).
-    ``episode_cb`` is ``train_scenarios_shared``'s. ``telemetry`` is not ported (ROADMAP.md,
-    Queue 1, item 7) and raises."""
-    if telemetry is not None:
-        raise NotImplementedError(
-            "train_multi_community(telemetry=...) is not ported yet (ROADMAP.md, "
-            "Queue 1, item 7, device telemetry)"
-        )
+    ``episode_cb`` and ``telemetry`` are ``train_scenarios_shared``'s."""
     from p2pmicrogrid_tpu_torch.parallel.scenarios import train_scenarios_shared
 
     episode_fn = make_multi_community_episode_fn(cfg, policy, arrays_c, ratings)
     return train_scenarios_shared(
         cfg, policy, pol_state, arrays_c, ratings, generator, n_episodes,
         replay_s=replay_s, episode_fn=episode_fn, episode0=episode0,
-        episode_cb=episode_cb,
+        episode_cb=episode_cb, telemetry=telemetry,
     )
 
 

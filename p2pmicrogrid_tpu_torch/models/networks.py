@@ -33,6 +33,23 @@ from torch import nn
 _TRUNCATED_NORMAL_STD = 0.87962566103423978
 
 
+def truncated_normal(shape, std: float, generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
+    """float32 draws of a normal with standard deviation ``std`` truncated
+    at two of them: normal draws, each one outside the bounds drawn again
+    (all of them together) until none is. ``nn.init.trunc_normal_`` does
+    this in torch 2.13 and maps uniform draws through ``erfinv`` in torch
+    2.11, so one seed gave two versions two sets of weights; spelled out
+    here with ``normal_``, whose stream both share, every version draws
+    2.13's."""
+    lo, hi = (float(torch.tensor(b, dtype=torch.float32)) for b in (-2.0 * std, 2.0 * std))
+    out = torch.empty(shape, device=device).normal_(0.0, std, generator=generator)
+    while True:
+        outside = (out < lo) | (out > hi)
+        if not outside.any():
+            return out
+        out = torch.where(outside, torch.empty_like(out).normal_(0.0, std, generator=generator), out)
+
+
 class Dense(nn.Module):
     """One flax ``Dense`` layer: ``y = x @ kernel + bias``, x ``[N, in]``."""
 
@@ -42,11 +59,12 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros((d_out,), device=device))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        """flax's defaults: lecun_normal kernel, zero bias."""
+        """flax's defaults: lecun_normal kernel (``truncated_normal``), zero
+        bias."""
         std = (1.0 / self.kernel.shape[-2]) ** 0.5 / _TRUNCATED_NORMAL_STD
         with torch.no_grad():
-            nn.init.trunc_normal_(
-                self.kernel, 0.0, std, -2.0 * std, 2.0 * std, generator=generator
+            self.kernel.copy_(
+                truncated_normal(self.kernel.shape, std, generator, device=self.kernel.device)
             )
             self.bias.zero_()
 

@@ -148,3 +148,21 @@ def count_launch(wrapper: Callable) -> None:
             "parallel/graph.py::capture did not start would go uncounted"
         )
     _capture_tally[wrapper] = _capture_tally.get(wrapper, 0) + 1
+
+
+def kernel_wrappers() -> Dict[str, Callable]:
+    """Every kernel wrapper of the port, by name (K1, K2-K6, K7)."""
+    from p2pmicrogrid_tpu_torch.ops import matrix_market as mm
+    from p2pmicrogrid_tpu_torch.ops.merged_min import merged_min_sums
+    from p2pmicrogrid_tpu_torch.ops.slot_fused import slot_step_fused
+
+    wrappers = (
+        merged_min_sums, mm.divide_rank1_fused, mm.divide_power_fused_with_mean,
+        mm.clear_market_fused, mm.divide_power_fused, mm.prep_mean, slot_step_fused,
+    )
+    return {w.__name__: w for w in wrappers}
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Each kernel wrapper's launch count so far, by name."""
+    return {name: w.launches for name, w in kernel_wrappers().items()}

@@ -81,6 +81,17 @@ from p2pmicrogrid_tpu_torch.models.tabular import TabularState, q_rows
 from p2pmicrogrid_tpu_torch.ops._f32 import recip
 from p2pmicrogrid_tpu_torch.ops.obs import discretize
 from p2pmicrogrid_tpu_torch.parallel.device_gen import TraceDraws, device_episode_arrays, draw_traces
+from p2pmicrogrid_tpu_torch.telemetry.async_drain import AsyncDrain
+from p2pmicrogrid_tpu_torch.telemetry.device_metrics import (
+    SlotTally,
+    dc_add_,
+    dc_from_tally,
+    dc_reset_,
+    dc_tally_slot_,
+    dc_to_dict,
+    dc_zero,
+    replay_fill_fraction,
+)
 from p2pmicrogrid_tpu_torch.train.policies import init_policy_state
 
 
@@ -443,6 +454,7 @@ def make_shared_episode_fn(
     fused: Optional[bool] = None,
     arrays_fn: Optional[Callable[[TraceDraws], EpisodeArrays]] = None,
     n_scenarios: Optional[int] = None,
+    collect_device_metrics: bool = False,
     device="cuda",
 ) -> Callable:
     """One shared-parameter training episode over S scenarios.
@@ -476,6 +488,11 @@ def make_shared_episode_fn(
 
     ``fused`` runs every slot through the fused slot (kernel K7 on the card;
     tabular and DQN only); None resolves ``SimConfig.fused_slot``.
+    ``collect_device_metrics`` writes each slot's counts (the learn step's
+    loss in place of the outputs') into one ``telemetry.SlotTally`` that
+    every episode reuses, as a CUDA graph of the episode needs, and returns
+    the episode's ``telemetry.DeviceCounters`` as a third element of its
+    outputs.
     ``settlement_hook`` is forwarded to ``slot_dynamics_batched``
     (inter-community trading, ``envs/multi_community.py``); the fused slot
     owns settlement and refuses it. ``record_only=True`` (DQN only) builds the replay-warmup episode: act and
@@ -535,6 +552,7 @@ def make_shared_episode_fn(
     learns_from_replay = impl == "ddpg" or (impl == "dqn" and not record_only)
     batch_size = cfg.ddpg.batch_size if impl == "ddpg" else cfg.dqn.batch_size
     delay = cfg.ddpg.actor_delay_updates if impl == "ddpg" else 0
+    tally = SlotTally(T) if collect_device_metrics else None
 
     def check_draws(draws):
         missing = []
@@ -615,8 +633,8 @@ def make_shared_episode_fn(
             traces = draws.traces if draws is not None else draw_traces(S, generator, device=device)
             for buf, x in zip(xs, arrays_fn(traces)):
                 buf.copy_(x.transpose(0, 1))
+        learning_rates(pol_state)
         if impl == "ddpg":
-            set_learning_rates(cfg.ddpg, pol_state)
             if delay > 0 and learn_steps is None:
                 learn_steps = adam_count(pol_state.critic_opt)
         phys_s = init_physical(cfg, normals, (S,), device=device)
@@ -646,11 +664,20 @@ def make_shared_episode_fn(
                 pol_state, scen_state, loss = _ddpg_update_shared(
                     cfg, pol_state, scen_state._replace(ou=ou), tr, idx, starts, actor_step
                 )
+            if tally is not None:
+                dc_tally_slot_(tally, t, cfg, outputs, loss=loss)
             rewards[t] = outputs.reward.mean(dim=-1)
             losses[t] = loss
-        return (pol_state, scen_state), (rewards.sum(dim=0), losses.mean(dim=0))
+        ys = (rewards.sum(dim=0), losses.mean(dim=0))
+        return (pol_state, scen_state), ys if tally is None else ys + (dc_from_tally(cfg, tally),)
+
+    def learning_rates(pol_state) -> None:
+        """Set the optimisers to the rates this episode learns at (DDPG)."""
+        if impl == "ddpg":
+            set_learning_rates(cfg.ddpg, pol_state)
 
     episode.draw = draw
+    episode.learning_rates = learning_rates
     episode.n_scenarios = S
     episode.n_slots = T
     episode.device = device
@@ -694,30 +721,41 @@ def _run_episode_loop(
     episode0: int,
     draws: Optional[Sequence],
     episode_cb: Optional[Callable],
+    telemetry=None,
 ) -> Tuple[object, np.ndarray, np.ndarray, float]:
     """The trainers' host loop (JAX source :267): ``episode_fn(carry,
-    generator, draws) -> (carry, (rewards [S], losses [S]))`` for each
+    generator, draws) -> (carry, (rewards [S], losses [S], ...))`` for each
     episode, then ``carry = decay(carry)`` after episode e when ``(episode0
     + e) % min_episodes_criterion == 0`` (the caller's ``decay`` holds the
-    criterion). ``episode_cb(episode, rewards [S], losses [S], carry)`` runs
-    after each episode on values read back then; without it the run is read
-    back once, at the end. Returns (carry, rewards [episodes, S], losses
-    [episodes, S], seconds); the seconds end after the device finished."""
+    criterion). Each episode's rewards and losses are read back through a
+    depth-2 ``telemetry.AsyncDrain`` (``telemetry``'s spans and gauges):
+    ``episode_cb(episode, rewards [S], losses [S], carry)`` runs on them, in
+    order. The learner state updates in place, so with an ``episode_cb``,
+    which may read the carry, each episode drains before the next starts.
+    Returns (carry, rewards [episodes, S], losses [episodes, S], seconds);
+    the seconds end after the device finished."""
     if draws is not None and len(draws) != n_episodes:
         raise ValueError(f"need {n_episodes} episode draws, got {len(draws)}")
-    rewards, losses = [], []
+    drain = AsyncDrain(depth=2, telemetry=telemetry)
+    rewards: list = [None] * n_episodes
+    losses: list = [None] * n_episodes
+
+    def consume(e, host, carry_e):
+        rewards[e], losses[e] = host
+        if episode_cb is not None:
+            episode_cb(episode0 + e, host[0], host[1], carry_e)
+
     start = _time.perf_counter()
     for e in range(n_episodes):
-        carry, (r, l) = episode_fn(carry, generator, None if draws is None else draws[e])
-        carry = decay(episode0 + e, carry)
-        rewards.append(r)
-        losses.append(l)
+        with drain.dispatch_span(episode=episode0 + e):
+            carry, ys = episode_fn(carry, generator, None if draws is None else draws[e])
+            carry = decay(episode0 + e, carry)
+        drain.push(e, (ys[0], ys[1]), lambda e_, host, c=carry: consume(e_, host, c))
         if episode_cb is not None:
-            episode_cb(episode0 + e, r.cpu().numpy(), l.cpu().numpy(), carry)
-    # One readback for the whole run; it also waits for the device.
-    rewards_np = torch.stack(rewards).cpu().numpy()
-    losses_np = torch.stack(losses).cpu().numpy()
-    return carry, rewards_np, losses_np, _time.perf_counter() - start
+            drain.flush()
+    # The last readback waits for the device.
+    drain.finish()
+    return carry, np.stack(rewards), np.stack(losses), _time.perf_counter() - start
 
 
 def _decays_after(cfg: ExperimentConfig, episode: int) -> bool:
@@ -740,6 +778,7 @@ def train_scenarios_shared(
     episode_cb: Optional[Callable] = None,
     draws: Optional[Sequence[EpisodeDraws]] = None,
     fused: Optional[bool] = None,
+    telemetry=None,
 ) -> Tuple[object, object, np.ndarray, np.ndarray, float]:
     """One shared learner over S scenarios for ``n_episodes`` episodes.
 
@@ -753,7 +792,8 @@ def train_scenarios_shared(
     the ``DDPGScenState`` for DDPG); DDPG anneals its OU noise where the
     discrete learners decay epsilon. ``episode_cb(episode, rewards [S],
     losses [S], (pol_state, scen_state))`` runs after each episode, the
-    rewards and losses read back for it.
+    rewards and losses read back for it; ``telemetry`` gets the readback's
+    spans and gauges (``_run_episode_loop``).
 
     Returns (pol_state, scen_state, rewards [episodes, S], losses
     [episodes, S], seconds); the seconds end after the device finished.
@@ -766,7 +806,7 @@ def train_scenarios_shared(
 
     (pol_state, scen_state), rewards, losses, seconds = _run_episode_loop(
         episode_fn, (pol_state, replay_s), generator, n_episodes, decay, episode0, draws,
-        episode_cb,
+        episode_cb, telemetry,
     )
     return pol_state, scen_state, rewards, losses, seconds
 
@@ -958,17 +998,12 @@ def train_scenarios_independent(
     with ``fused``. Exploration decays after episode e when
     ``(episode0 + e) % min_episodes_criterion == 0``, for every learner at
     once; ``episode_cb(episode, rewards [S], losses [S], pol_state_s)`` runs
-    after each episode. ``telemetry`` is not ported (ROADMAP.md, Queue 1,
-    item 7) and raises. The learners update in place.
+    after each episode; ``telemetry`` is ``_run_episode_loop``'s. The
+    learners update in place.
 
     Returns (pol_state_s, rewards [episodes, S], losses [episodes, S],
     seconds); the seconds end after the device finished.
     """
-    if telemetry is not None:
-        raise NotImplementedError(
-            "train_scenarios_independent(telemetry=...) is not ported yet (ROADMAP.md, "
-            "Queue 1, item 7, device telemetry)"
-        )
     if episode_fn is None:
         episode_fn = make_independent_episode_fn(cfg, policy, arrays_s, ratings, fused=fused)
 
@@ -976,7 +1011,8 @@ def train_scenarios_independent(
         return policy.decay(pol_state) if _decays_after(cfg, episode) else pol_state
 
     return _run_episode_loop(
-        episode_fn, pol_state_s, generator, n_episodes, decay, episode0, None, episode_cb
+        episode_fn, pol_state_s, generator, n_episodes, decay, episode0, None, episode_cb,
+        telemetry,
     )
 
 
@@ -1097,19 +1133,21 @@ def make_device_episode_fn(
     ratings: AgentRatings,
     record_only: bool = False,
     device="cuda",
+    collect_device_metrics: bool = False,
 ) -> Callable:
     """``make_shared_episode_fn`` over ``cfg.sim.n_scenarios`` scenarios
     whose traces are made on ``device`` each episode
     (``device_gen.py::device_episode_arrays``), the ratings copied there
     once: the chunked trainer's episode function (``SimConfig.fused_slot``
-    selects the fused slot)."""
+    selects the fused slot; ``collect_device_metrics`` is
+    ``make_shared_episode_fn``'s)."""
     dev = resolve_device(device)
     S = cfg.sim.n_scenarios
     ratings_d = ratings_to(ratings, dev)
     return make_shared_episode_fn(
         cfg, policy, None, ratings, record_only=record_only,
         arrays_fn=lambda d: device_episode_arrays(cfg, ratings_d, S, draws=d),
-        n_scenarios=S, device=dev,
+        n_scenarios=S, collect_device_metrics=collect_device_metrics, device=dev,
     )
 
 
@@ -1120,6 +1158,7 @@ def make_chunked_episode_runner(
     warmup_fn: Optional[Callable] = None,
     chunk_parallel: int = 1,
     graph: Optional[bool] = None,
+    collect_device_metrics: bool = False,
 ) -> Callable:
     """The K-chunk episode: each chunk runs one episode from the episode's
     starting state theta0 on its own fresh per-chunk state, and the update is
@@ -1150,6 +1189,14 @@ def make_chunked_episode_runner(
     ``runner.graphs`` holds the captures. Without it the chunks run eagerly:
     the reference the graph is held to.
 
+    ``collect_device_metrics`` (with an ``episode_fn`` built with it) makes
+    the runner return ``(state, rewards, losses, counters, fills)``: the
+    chunks' ``telemetry.DeviceCounters`` summed on the device (each chunk's
+    added to the runner's total after its replay, before the next replay
+    overwrites them) and each chunk's replay fill fraction [K], a CPU
+    tensor (0 for tabular): every chunk fills a fresh ring over the same
+    slots, and the ring's count is a host integer.
+
     ``chunk_parallel`` other than 1 (the JAX package's vmapped chunks) is
     not ported: it raises ``NotImplementedError`` (ROADMAP.md, Queue 1).
     """
@@ -1175,6 +1222,7 @@ def make_chunked_episode_runner(
     ring = None if capacity is None else lockstep_replay_init(S, A, capacity, OBS_DIM, 1, device=device)
     generator = torch.Generator(device=device)
     graphs = {}
+    dc_tot = dc_zero(device) if collect_device_metrics else None
 
     def draw_chunk(seed: int) -> ChunkDraws:
         generator.manual_seed(int(seed))
@@ -1194,11 +1242,18 @@ def make_chunked_episode_runner(
         return DDPGScenState(replay=ring, ou=cfg.ddpg.ou_init_sd * ou_init)
 
     def run_chunk(theta, cd: ChunkDraws, learn_steps):
+        """(rewards [S], losses [S]), with the chunk's counters (the episode
+        function's own tensors) and its ring's fill when collecting."""
         carry = (theta, fresh_scen(cd.ou_init))
         for wd in cd.warmup:
             carry, _ = warmup_fn(carry, draws=wd)
-        _, (r, l) = episode_fn(carry, draws=cd.episode, learn_steps=learn_steps)
-        return r, l
+        (_, scen), ys = episode_fn(carry, draws=cd.episode, learn_steps=learn_steps)
+        if not collect_device_metrics:
+            return ys[0], ys[1]
+        if len(ys) < 3:
+            raise ValueError("collect_device_metrics needs an episode_fn built with collect_device_metrics=True")
+        fill = replay_fill_fraction(scen)
+        return ys[0], ys[1], ys[2], 0.0 if fill is None else fill
 
     def captured_for(key, theta0, snap, cd0, learn_steps):
         """The chunk graph for this actor-step pattern, captured on first use
@@ -1236,28 +1291,39 @@ def make_chunked_episode_runner(
         acc = [torch.zeros_like(x) for x in snap]
         rewards = torch.empty((n_chunks, S), dtype=torch.float32, device=device)
         losses = torch.empty((n_chunks, S), dtype=torch.float32, device=device)
+        fills = torch.zeros((n_chunks,), dtype=torch.float32)
+        if dc_tot is not None:
+            dc_reset_(dc_tot)
         for c in range(n_chunks):
             if c:
                 cd = chunk_draws(c)
             torch._foreach_copy_(live_t, snap)
             if use_graph:
+                # Another runner on this state may have set other rates.
+                episode_fn.learning_rates(live)
                 if _learning_rates(live) != lrs:
                     raise RuntimeError(
                         f"learning rates {_learning_rates(live)} differ from the captured {lrs}"
                     )
                 torch._foreach_copy_(_tensors(static), _tensors(cd))
                 cuda_graph.replay(cap)
-                r, l = cap.outputs
+                out = cap.outputs
             else:
-                r, l = run_chunk(live, cd, learn_steps)
-            rewards[c].copy_(r)
-            losses[c].copy_(l)
+                out = run_chunk(live, cd, learn_steps)
+            rewards[c].copy_(out[0])
+            losses[c].copy_(out[1])
+            if dc_tot is not None:
+                dc_add_(dc_tot, out[2])
+                fills[c] = out[3]
             torch._foreach_add_(acc, torch._foreach_sub(live_t, snap))
         scale = recip(n_chunks)
         for (x, is_count), b, a in zip(leaves, snap, acc):
             new = b + a * scale
             x.copy_(torch.trunc(new) if is_count else new)
-        return live, rewards.reshape(-1), losses.reshape(-1)
+        if dc_tot is None:
+            return live, rewards.reshape(-1), losses.reshape(-1)
+        counters = type(dc_tot)(*(x.clone() for x in dc_tot))
+        return live, rewards.reshape(-1), losses.reshape(-1), counters, fills
 
     runner.graphs = graphs
     runner.episode_fn = episode_fn
@@ -1279,29 +1345,52 @@ def train_scenarios_chunked(
     draws: Optional[Sequence[Sequence[ChunkDraws]]] = None,
     graph: Optional[bool] = None,
     device="cuda",
-) -> Tuple[object, np.ndarray, np.ndarray, float]:
+    *,
+    episode_cb: Optional[Callable] = None,
+    telemetry=None,
+    pipeline: bool = True,
+    carry_sync: Optional[Callable[[int], bool]] = None,
+    drain: Optional[AsyncDrain] = None,
+    finalize: bool = True,
+) -> Tuple[object, object, object, float]:
     """Aggregate-scenario training: ``n_chunks x cfg.sim.n_scenarios``
     Monte-Carlo scenarios an episode through one chunk-sized episode
-    function (JAX source :1257-1470).
+    function (JAX source :1257-1475).
 
     Each chunk makes its own traces on ``device`` (``device_gen.py``) and
     trains a whole episode from the episode's starting state; the applied
     update is the mean of the chunks' parameter deltas
     (``make_chunked_episode_runner``). Exploration decays after episode e
     when ``(episode0 + e) % min_episodes_criterion == 0``. Chunk c of
-    episode e draws from ``chunk_seed_schedule(seed, ...)[e, c]``, or from
-    ``chunk_seed_fn(seed, episode0 + e, c)`` (the tests collapse chunks onto
-    one draw with it), or from ``draws[e][c]`` (``ChunkDraws``). Pass a
-    prebuilt ``runner`` to reuse it, and its captured graphs, across calls;
-    otherwise one is built on ``device`` with ``graph`` (default: a CUDA
-    graph on the card, ``parallel/graph.py``). DQN chunks warm their fresh
-    replay with ``cfg.dqn.warmup_passes`` record-only passes.
-    ``chunk_parallel`` other than 1 raises ``NotImplementedError``.
+    episode e draws from ``chunk_seed_schedule(seed, ...)[e, c]`` (keyed by
+    the absolute episode, so a resumed run draws what the whole run would),
+    or from ``chunk_seed_fn(seed, episode0 + e, c)`` (the tests collapse
+    chunks onto one draw with it), or from ``draws[e][c]`` (``ChunkDraws``).
+    Pass a prebuilt ``runner`` to reuse it, and its captured graphs, across
+    calls; otherwise one is built on ``device`` with ``graph`` (default: a
+    CUDA graph on the card, ``parallel/graph.py``). DQN chunks warm their fresh replay with
+    ``cfg.dqn.warmup_passes`` record-only passes. ``chunk_parallel`` other
+    than 1 raises ``NotImplementedError``.
+
+    Every episode's records are read back through a ``telemetry.AsyncDrain``
+    (``drain``, or one of depth 2 with ``pipeline``, else 1):
+    ``episode_cb(episode, rewards [K*S], losses [K*S], pol_state)`` runs on
+    them in order. The learner state updates in place, so a callback that
+    reads it needs its episode drained before the next starts:
+    ``carry_sync(episode) -> bool`` marks those (checkpoint cadence); with an
+    ``episode_cb`` and no ``carry_sync`` every episode is. ``telemetry``
+    turns on the device counters of the episodes this function builds
+    (a prebuilt ``runner`` must collect them itself): each episode records
+    its ``device.*`` counters, a ``replay.fill_fraction`` gauge and a
+    ``device_counters`` event (``phase: "train"``).
 
     Returns (pol_state, rewards [episodes, K*S], losses [episodes, K*S],
-    seconds): chunk-major per-scenario records, read back once at the end;
-    the seconds end after the device finished. The learner state updates in
-    place.
+    seconds): chunk-major per-scenario records, the seconds ending after the
+    device finished. With ``finalize=False`` the caller owns ``drain``:
+    nothing is flushed, and rewards and losses are lists that its consumers
+    fill, complete after the caller's ``drain.flush()``
+    (``train/health.py::train_chunked_with_health``). The learner state
+    updates in place.
     """
     if chunk_parallel != 1:
         raise NotImplementedError(
@@ -1311,11 +1400,14 @@ def train_scenarios_chunked(
     if draws is not None and len(draws) != n_episodes:
         raise ValueError(f"need {n_episodes} lists of ChunkDraws, got {len(draws)}")
     if runner is None:
-        episode_fn = make_device_episode_fn(cfg, policy, ratings, device=device)
+        collect = telemetry is not None
+        episode_fn = make_device_episode_fn(cfg, policy, ratings, device=device, collect_device_metrics=collect)
         warmup_fn = None
         if cfg.train.implementation == "dqn" and cfg.dqn.warmup_passes > 0:
             warmup_fn = make_device_episode_fn(cfg, policy, ratings, record_only=True, device=device)
-        runner = make_chunked_episode_runner(cfg, episode_fn, n_chunks, warmup_fn, graph=graph)
+        runner = make_chunked_episode_runner(
+            cfg, episode_fn, n_chunks, warmup_fn, graph=graph, collect_device_metrics=collect
+        )
     if draws is None and chunk_seed_fn is None:
         seeds = chunk_seed_schedule(seed, episode0, n_episodes, n_chunks)
     elif draws is None:
@@ -1324,21 +1416,50 @@ def train_scenarios_chunked(
     if cfg.train.implementation == "ddpg" and cfg.ddpg.actor_delay_updates > 0:
         # Read once: each episode adds one critic step a slot.
         learn_steps = adam_count(pol_state.critic_opt)
+    if carry_sync is None and episode_cb is not None:
+        carry_sync = lambda episode: True
+    if drain is None:
+        drain = AsyncDrain(depth=2 if pipeline else 1, telemetry=telemetry)
     decay_every = cfg.train.min_episodes_criterion
-    rewards, losses = [], []
+    rewards: list = [None] * n_episodes
+    losses: list = [None] * n_episodes
+
+    def consume(e, host, carry_e):
+        r, l = host[0], host[1]
+        if len(host) > 2 and telemetry is not None:
+            dcd = dc_to_dict(host[2])
+            # Every chunk fills a fresh ring over the same slots: the mean
+            # is the episode's replay saturation.
+            fill = float(host[3].mean())
+            telemetry.record_device_counters(dcd)
+            telemetry.gauge("replay.fill_fraction", fill)
+            telemetry.event(
+                "device_counters", episode=episode0 + e, phase="train",
+                replay_fill_fraction=round(fill, 4), **dcd,
+            )
+        rewards[e] = r
+        losses[e] = l
+        if episode_cb:
+            episode_cb(episode0 + e, r, l, carry_e)
+
     start = _time.perf_counter()
     for e in range(n_episodes):
-        if draws is None:
-            pol_state, r, l = runner(pol_state, seeds=seeds[e], learn_steps=learn_steps)
-        else:
-            pol_state, r, l = runner(pol_state, draws=draws[e], learn_steps=learn_steps)
-        if learn_steps is not None:
-            learn_steps += runner.episode_fn.n_slots
-        if decay_every and (episode0 + e) % decay_every == 0:
-            pol_state = policy.decay(pol_state)
-        rewards.append(r)
-        losses.append(l)
-    # One readback for the whole run; it also waits for the device.
-    rewards_np = torch.stack(rewards).cpu().numpy()
-    losses_np = torch.stack(losses).cpu().numpy()
-    return pol_state, rewards_np, losses_np, _time.perf_counter() - start
+        with drain.dispatch_span(episode=episode0 + e):
+            if draws is None:
+                out = runner(pol_state, seeds=seeds[e], learn_steps=learn_steps)
+            else:
+                out = runner(pol_state, draws=draws[e], learn_steps=learn_steps)
+            pol_state = out[0]
+            if learn_steps is not None:
+                learn_steps += runner.episode_fn.n_slots
+            if decay_every and (episode0 + e) % decay_every == 0:
+                pol_state = policy.decay(pol_state)
+        payload = out[1:3] if telemetry is None else out[1:]
+        drain.push(e, payload, lambda e_, host, c=pol_state: consume(e_, host, c))
+        if carry_sync is not None and carry_sync(episode0 + e):
+            drain.flush()
+    if not finalize:
+        return pol_state, rewards, losses, _time.perf_counter() - start
+    # The last readback waits for the device.
+    drain.finish()
+    return pol_state, np.stack(rewards), np.stack(losses), _time.perf_counter() - start

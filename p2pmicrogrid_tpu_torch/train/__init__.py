@@ -1,5 +1,18 @@
-"""Policy adapters and the single community's training loops."""
+"""Policy adapters, the single community's training loops, checkpoints.
 
+The JAX package's names for what is ported; ``checkpoint.py``,
+``faults.py``, ``resilience.py`` and ``health.py`` are imported by module
+(``continual.py`` and ``placement.py`` are not ported, ROADMAP.md, Queue 1).
+"""
+
+from p2pmicrogrid_tpu_torch.train.checkpoint import (
+    checkpoint_dir,
+    latest_checkpoint,
+    restore_checkpoint,
+    restore_resume_state,
+    save_checkpoint,
+    verify_checkpoint,
+)
 from p2pmicrogrid_tpu_torch.train.loop import (
     TrainResult,
     evaluate_community,
@@ -17,13 +30,19 @@ from p2pmicrogrid_tpu_torch.train.policies import (
 
 __all__ = [
     "TrainResult",
+    "checkpoint_dir",
     "evaluate_community",
     "init_dqn_buffers",
     "init_policy_state",
+    "latest_checkpoint",
     "make_ddpg_policy",
     "make_dqn_policy",
     "make_policy",
     "make_tabular_policy",
+    "restore_checkpoint",
+    "restore_resume_state",
+    "save_checkpoint",
     "train_block",
     "train_community",
+    "verify_checkpoint",
 ]

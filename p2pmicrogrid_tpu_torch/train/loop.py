@@ -8,7 +8,8 @@ community.py:364-412).
 An episode is a Python loop over the 96 slots (``envs/community.py::
 run_episode``); a block of ``episodes_per_jit_block`` episodes runs without
 a host synchronisation, decays exploration inside the block on the
-reference cadence, and is read back once. Draws come from a
+reference cadence, and is read back once, through the async drain
+(``telemetry/async_drain.py``). Draws come from a
 ``torch.Generator`` or are injected (``SingleEpisodeDraws``; the tests feed
 the JAX package's own). The learner state updates in place: copy it
 (``convert.state_from_jax(convert.state_to_numpy(s), ...)``) to keep the
@@ -18,6 +19,7 @@ caller's.
 from __future__ import annotations
 
 import collections
+import contextlib
 import inspect
 import statistics
 import time as _time
@@ -47,6 +49,10 @@ from p2pmicrogrid_tpu_torch.envs.community import (
 )
 from p2pmicrogrid_tpu_torch.models.dqn import action_values_on, dqn_initialize_target
 from p2pmicrogrid_tpu_torch.models.replay import replay_add
+from p2pmicrogrid_tpu_torch.ops._build import kernel_launches
+from p2pmicrogrid_tpu_torch.telemetry.async_drain import AsyncDrain
+from p2pmicrogrid_tpu_torch.telemetry.device_metrics import dc_add_, dc_to_dict, dc_zero
+from p2pmicrogrid_tpu_torch.telemetry.profiling import profile_training
 
 
 @dataclass
@@ -80,12 +86,13 @@ def _episode_metrics(outputs: SlotOutputs) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _initial_state(cfg, generator, draws, device) -> PhysState:
     """An episode's fresh physical state from the draws' normals [2, A] or
-    the generator's (drawn whether or not the community is homogeneous)."""
+    the generator's (drawn on its device whether or not the community is
+    homogeneous)."""
     if draws is not None:
         normals = draws.normals
     else:
-        normals = torch.randn((2, cfg.sim.n_agents), generator=generator, device=device)
-    return init_physical(cfg, normals, device=device)
+        normals = torch.randn((2, cfg.sim.n_agents), generator=generator, device=generator.device)
+    return init_physical(cfg, normals.to(device), device=device)
 
 
 def train_block(
@@ -98,11 +105,14 @@ def train_block(
     block: int,
     generator: Optional[torch.Generator] = None,
     draws: Optional[Sequence[SingleEpisodeDraws]] = None,
+    collect_device_metrics: bool = False,
 ):
     """``block`` training episodes from episode ``episode0`` (the JAX
     package's ``make_train_step`` block), each from a fresh physical state,
     with no host synchronisation: returns (pol_state, last_phys, rewards
-    [block], losses [block]), the rewards and losses on the device.
+    [block], losses [block]), the rewards and losses on the device, and with
+    ``collect_device_metrics`` a 5th element, the block's
+    ``telemetry.DeviceCounters`` total.
 
     ``draws``, one ``SingleEpisodeDraws`` per episode (with ``normals``),
     replaces ``generator``. Exploration decays after episode ``episode0 + i``
@@ -113,19 +123,26 @@ def train_block(
         raise ValueError(f"need {block} SingleEpisodeDraws, got {len(draws)}")
     criterion = cfg.train.min_episodes_criterion
     device = arrays.load_w.device
+    dc_tot = dc_zero(device) if collect_device_metrics else None
     rewards, losses = [], []
     phys = None
     for i in range(block):
         d = None if draws is None else draws[i]
         phys = _initial_state(cfg, generator, d, device)
-        phys, pol_state, outputs = run_episode(
-            cfg, policy, pol_state, phys, arrays, ratings, generator, training=True, draws=d
+        out = run_episode(
+            cfg, policy, pol_state, phys, arrays, ratings, generator, training=True, draws=d,
+            collect_device_metrics=collect_device_metrics,
         )
+        phys, pol_state, outputs = out[:3]
+        if dc_tot is not None:
+            dc_add_(dc_tot, out[3])
         reward, loss = _episode_metrics(outputs)
         rewards.append(reward)
         losses.append(loss)
         if (episode0 + i) % criterion == 0:
             pol_state = policy.decay(pol_state)
+    if dc_tot is not None:
+        return pol_state, phys, torch.stack(rewards), torch.stack(losses), dc_tot
     return pol_state, phys, torch.stack(rewards), torch.stack(losses)
 
 
@@ -188,6 +205,7 @@ def train_community(
     checkpoint_cb: Optional[Callable] = None,
     verbose: bool = False,
     telemetry=None,
+    pipeline: bool = True,
     guard=None,
     fault_hook: Optional[Callable] = None,
     warmup: bool = True,
@@ -202,28 +220,34 @@ def train_community(
     it, as when resuming). Episodes run in blocks of
     ``episodes_per_jit_block``, the last clamped to ``max_episodes``; with a
     ``checkpoint_cb`` each block also ends on a ``save_episodes`` boundary.
-    Each block is read back once. Every ``min_episodes_criterion`` episodes
-    exploration decays (inside the block) and a running-average progress
-    record ``(episode, avg reward, avg loss)`` is kept (and passed to
-    ``progress_cb``); every ``save_episodes`` episodes ``checkpoint_cb(ep,
-    pol_state)`` runs, or ``checkpoint_cb(ep, pol_state, rng_state)`` when it
-    takes a third argument: the generator's state after the block (None
-    with injected draws), from which a restored run continues the stream.
+    Every ``min_episodes_criterion`` episodes exploration decays (inside the
+    block) and a running-average progress record ``(episode, avg reward,
+    avg loss)`` is kept (and passed to ``progress_cb``); every
+    ``save_episodes`` episodes ``checkpoint_cb(ep, pol_state)`` runs, or
+    ``checkpoint_cb(ep, pol_state, rng_state)`` when it takes a third
+    argument: the generator's state after the block (None with injected
+    draws), from which a restored run continues the stream exactly
+    (``train/resilience.py``).
+
+    ``pipeline`` (default) reads the blocks back through a depth-2
+    ``telemetry.AsyncDrain``: block b+1 is launched before block b's
+    rewards, losses and counters are read; ``pipeline=False`` is the
+    synchronous driver on the same code path (the same results). A block
+    that ends on a checkpoint boundary drains before the next launch, so the
+    callback sees the state after exactly its episode. ``guard`` (a
+    ``resilience.DivergenceGuard``) observes each block's device counters
+    before that block's checkpoint callback, so a diverged state is never
+    saved. ``fault_hook(episode, pol_state)`` runs at each block start
+    (``train/faults.py``); a non-None return replaces the state.
+    ``telemetry`` (a ``telemetry.Telemetry``) records ``progress`` events, a
+    ``train_block`` span per block, the blocks' ``device.*`` counters, the
+    first block's profile (``telemetry/profiling.py``) and the run's
+    ``train.seconds_total`` and ``train.env_steps_per_sec``.
 
     Draws come from ``generator``, or from ``draws`` (one
     ``SingleEpisodeDraws`` with ``normals`` per episode) and ``warmup_draws``
     (one per DQN warmup pass). The learner state updates in place.
-    ``telemetry``, ``guard`` and ``fault_hook`` are not ported (ROADMAP.md,
-    Queue 1: item 7, device telemetry; item 8, training robustness) and
-    raise when given.
     """
-    for name, value, item in (
-        ("telemetry", telemetry, "item 7, device telemetry"),
-        ("guard", guard, "item 8, training robustness"),
-        ("fault_hook", fault_hook, "item 8, training robustness"),
-    ):
-        if value is not None:
-            raise NotImplementedError(f"train_community({name}=...) is not ported yet (ROADMAP.md, Queue 1, {item})")
     t = cfg.train
     n_episodes = t.max_episodes - t.starting_episodes
     if draws is None and generator is None:
@@ -238,14 +262,56 @@ def train_community(
             generator if warmup_draws is None else None, warmup_draws,
         )
 
+    collect_dc = telemetry is not None or guard is not None
     ckpt_wants_key = checkpoint_cb is not None and _checkpoint_wants_key(checkpoint_cb)
     result = TrainResult(pol_state=pol_state, phys=None)
     window_r = collections.deque(maxlen=t.min_episodes_criterion)
     window_l = collections.deque(maxlen=t.min_episodes_criterion)
+    drain = AsyncDrain(depth=2 if pipeline else 1, telemetry=telemetry)
+
+    def consume_block(episode0_b, host, pol_state_b, rng_b):
+        rewards, losses = host[0], host[1]
+        if collect_dc:
+            dcd = dc_to_dict(host[2])
+            if telemetry is not None:
+                telemetry.record_device_counters(dcd)
+            if guard is not None:
+                # Before the episodes below: a trip raises out of the drain
+                # before this block's checkpoint can save the diverged state.
+                guard.observe_counters(episode0_b + rewards.shape[0] - 1, dcd)
+        for i in range(rewards.shape[0]):
+            window_r.append(float(rewards[i]))
+            window_l.append(float(losses[i]))
+            result.episode_rewards.append(float(rewards[i]))
+            result.episode_losses.append(float(losses[i]))
+            ep = episode0_b + i
+            # Exploration decayed in the block; the record keeps its cadence.
+            if ep % t.min_episodes_criterion == 0:
+                avg_r, avg_l = statistics.mean(window_r), statistics.mean(window_l)
+                result.progress.append((ep, avg_r, avg_l))
+                if progress_cb:
+                    progress_cb(ep, avg_r, avg_l)
+                if telemetry is not None:
+                    telemetry.event("progress", episode=ep, avg_reward=avg_r, avg_error=avg_l)
+                if verbose:
+                    print(f"episode {ep}: avg reward {avg_r:.3f}, avg error {avg_l:.3f}")
+            # Block ends lie on the save cadence and such a block drains
+            # before the next launch, so pol_state_b is the state after ep.
+            if (ep + 1) % t.save_episodes == 0 and checkpoint_cb:
+                if ckpt_wants_key:
+                    checkpoint_cb(ep, pol_state_b, rng_b)
+                else:
+                    checkpoint_cb(ep, pol_state_b)
+
     start = _time.perf_counter()
     episode = t.starting_episodes
     phys = None
+    profiled = False
     while episode < t.max_episodes:
+        if fault_hook is not None:
+            mutated = fault_hook(episode, pol_state)
+            if mutated is not None:
+                pol_state = mutated
         step_size = min(t.episodes_per_jit_block, t.max_episodes - episode)
         if checkpoint_cb:
             # Block ends on the save cadence, so every checkpoint holds the
@@ -253,38 +319,47 @@ def train_community(
             step_size = min(step_size, t.save_episodes - episode % t.save_episodes)
         i0 = episode - t.starting_episodes
         block_draws = None if draws is None else draws[i0 : i0 + step_size]
-        pol_state, phys, rewards, losses = train_block(
-            cfg, policy, pol_state, arrays, ratings, episode, step_size,
-            None if draws is not None else generator, block_draws,
+        profile = telemetry is not None and not profiled
+        launches0 = kernel_launches() if profile else None
+        block_span = (
+            telemetry.span("train_block", episode0=episode, episodes=step_size)
+            if telemetry is not None
+            else contextlib.nullcontext()
         )
-        # One readback for the block; it also waits for the device.
-        rewards, losses = rewards.cpu().numpy(), losses.cpu().numpy()
+        with block_span, drain.dispatch_span(episode=episode):
+            out = train_block(
+                cfg, policy, pol_state, arrays, ratings, episode, step_size,
+                None if draws is not None else generator, block_draws,
+                collect_device_metrics=collect_dc,
+            )
+        pol_state, phys = out[0], out[1]
+        if profile:
+            # One episode's kernel launches, from the first block.
+            profiled = True
+            profile_training(
+                "episode_scan", telemetry,
+                launches={k: (n - launches0[k]) // step_size for k, n in kernel_launches().items()},
+                extra={"episodes_per_block": step_size, "slots_per_episode": arrays.time.shape[0]},
+            )
         rng_state = None if draws is not None else generator.get_state()
-        for i in range(step_size):
-            window_r.append(float(rewards[i]))
-            window_l.append(float(losses[i]))
-            result.episode_rewards.append(float(rewards[i]))
-            result.episode_losses.append(float(losses[i]))
-            ep = episode + i
-            # Exploration decayed in the block; the record keeps its cadence.
-            if ep % t.min_episodes_criterion == 0:
-                avg_r, avg_l = statistics.mean(window_r), statistics.mean(window_l)
-                result.progress.append((ep, avg_r, avg_l))
-                if progress_cb:
-                    progress_cb(ep, avg_r, avg_l)
-                if verbose:
-                    print(f"episode {ep}: avg reward {avg_r:.3f}, avg error {avg_l:.3f}")
-            if (ep + 1) % t.save_episodes == 0 and checkpoint_cb:
-                if ckpt_wants_key:
-                    checkpoint_cb(ep, pol_state, rng_state)
-                else:
-                    checkpoint_cb(ep, pol_state)
+        drain.push(
+            episode, out[2:],
+            lambda e0, host, ps=pol_state, rng=rng_state: consume_block(e0, host, ps, rng),
+        )
+        if checkpoint_cb and (episode + step_size) % t.save_episodes == 0:
+            # This block's consumption checkpoints: drain before the next
+            # launch changes the state the callback must save.
+            drain.flush()
         episode += step_size
+    drain.finish()
     result.train_seconds = _time.perf_counter() - start
     result.env_steps = (episode - t.starting_episodes) * arrays.time.shape[0]
     result.pol_state = pol_state
     result.phys = phys
     result.rng_state = None if draws is not None else generator.get_state()
+    if telemetry is not None:
+        telemetry.gauge("train.seconds_total", result.train_seconds)
+        telemetry.gauge("train.env_steps_per_sec", result.env_steps_per_sec)
     return result
 
 

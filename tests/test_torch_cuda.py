@@ -725,3 +725,72 @@ def test_multi_community_matches_cpu(cuda_generator):
     np.testing.assert_allclose(q_g, q_c, rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(d_g, d_c)
     np.testing.assert_allclose(c_g, c_c, rtol=2e-4, atol=1e-7)
+
+
+# --- device counters and exact resume on the card ------------------------------
+
+
+def _chunked_cfg():
+    from p2pmicrogrid_tpu_torch import config as tc
+
+    return tc.default_config(
+        sim=tc.SimConfig(n_agents=8, n_scenarios=4),
+        battery=tc.BatteryConfig(enabled=True),
+        train=tc.TrainConfig(implementation="ddpg"),
+        ddpg=tc.DDPGConfig(buffer_size=32, batch_size=4, share_across_agents=True),
+    )
+
+
+@pytest.mark.cuda
+def test_graph_counters_equal_eager(cuda_generator):
+    """The chunk graph's device counters and fills equal the eager loop's
+    bit for bit, from one state and the same seeds."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.convert import state_from_jax, state_to_numpy
+    from p2pmicrogrid_tpu_torch.envs.community import make_ratings
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+    from p2pmicrogrid_tpu_torch.telemetry import dc_to_dict
+    from p2pmicrogrid_tpu_torch.train import make_policy
+
+    cfg = _chunked_cfg()
+    ratings = make_ratings(cfg, np.random.default_rng(0))
+    policy = make_policy(cfg)
+    pol0 = state_to_numpy(sc.init_shared_pol_state(cfg, device="cuda", generator=cuda_generator))
+    out = []
+    for graph in (False, True):
+        episode_fn = sc.make_device_episode_fn(cfg, policy, ratings, collect_device_metrics=True)
+        runner = sc.make_chunked_episode_runner(cfg, episode_fn, 2, graph=graph, collect_device_metrics=True)
+        res = runner(state_from_jax(pol0, device="cuda", cfg=cfg.ddpg), seeds=[3, 4])
+        out.append((dc_to_dict(res[3]), res[4].numpy(), res[1].cpu().numpy()))
+    (dc_e, fill_e, r_e), (dc_g, fill_g, r_g) = out
+    assert dc_e == dc_g and np.array_equal(fill_e, fill_g) and np.array_equal(r_e, r_g)
+    assert dc_g["market_residual_wh"] > 0 and (fill_g == 1.0).all()
+
+
+@pytest.mark.cuda
+def test_chunked_resume_digest(cuda_generator, tmp_path):
+    """Two chunked episodes through the graph in one run, and one, a
+    checkpoint, a restore into a fresh state and the second: the final
+    states' digests are equal."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.convert import state_to_numpy
+    from p2pmicrogrid_tpu_torch.envs.community import make_ratings
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+    from p2pmicrogrid_tpu_torch.train import make_policy
+    from p2pmicrogrid_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint, tree_digest
+
+    cfg = _chunked_cfg()
+    ratings = make_ratings(cfg, np.random.default_rng(0))
+    policy = make_policy(cfg)
+    fresh = lambda seed: sc.init_shared_pol_state(
+        cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed)
+    )
+    full, _, _, _ = sc.train_scenarios_chunked(cfg, policy, fresh(0), ratings, 5, 2, 2)
+    pol, _, _, _ = sc.train_scenarios_chunked(cfg, policy, fresh(0), ratings, 5, 1, 2)
+    save_checkpoint(str(tmp_path), pol, 0)
+    pol, episode = restore_checkpoint(str(tmp_path), fresh(1))
+    pol, _, _, _ = sc.train_scenarios_chunked(cfg, policy, pol, ratings, 5, 1, 2, episode0=episode + 1)
+    digest = lambda s: tree_digest({"pol_state": state_to_numpy(s)})[0]
+    assert digest(pol) == digest(full)

@@ -203,8 +203,6 @@ def test_train_scenarios_independent_loop():
         max(decayed * cfg.qlearning.epsilon_decay, cfg.qlearning.epsilon_floor)
     )
     assert ps.q_table.shape[0] == S * A
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        tsc.train_scenarios_independent(cfg, policy, ps, arrays, ratings, None, 1, telemetry=object())
     cfg_d = _cfg(tcfg, "ddpg")
     with pytest.raises(ValueError, match="tabular/dqn"):
         tsc.make_independent_episode_fn(cfg_d, t_make_policy(cfg_d), arrays, ratings, fused=True)

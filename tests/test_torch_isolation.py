@@ -21,6 +21,7 @@ from p2pmicrogrid_tpu_torch.models.replay import lockstep_replay_init
 from p2pmicrogrid_tpu_torch.models.tabular import tabular_init
 from p2pmicrogrid_tpu_torch.parallel import device_gen as tdg
 from p2pmicrogrid_tpu_torch.parallel import scenarios as tsc
+from p2pmicrogrid_tpu_torch.train import health as thealth
 from p2pmicrogrid_tpu_torch.train import loop as tloop
 from p2pmicrogrid_tpu_torch.train import make_policy
 from p2pmicrogrid_tpu_torch.train.policies import init_policy_state
@@ -44,7 +45,17 @@ def test_every_module_imports_without_jax():
         assert {"p2pmicrogrid_tpu_torch.parallel.device_gen",
                 "p2pmicrogrid_tpu_torch.parallel.graph",
                 "p2pmicrogrid_tpu_torch.train.loop",
-                "p2pmicrogrid_tpu_torch.envs.multi_community"} <= set(names), names
+                "p2pmicrogrid_tpu_torch.envs.multi_community",
+                "p2pmicrogrid_tpu_torch.draw_digests",
+                "p2pmicrogrid_tpu_torch.telemetry.async_drain",
+                "p2pmicrogrid_tpu_torch.telemetry.device_metrics",
+                "p2pmicrogrid_tpu_torch.telemetry.profiling",
+                "p2pmicrogrid_tpu_torch.telemetry.registry",
+                "p2pmicrogrid_tpu_torch.telemetry.spans",
+                "p2pmicrogrid_tpu_torch.train.checkpoint",
+                "p2pmicrogrid_tpu_torch.train.faults",
+                "p2pmicrogrid_tpu_torch.train.health",
+                "p2pmicrogrid_tpu_torch.train.resilience"} <= set(names), names
         leaked = sorted(
             n for n, m in sys.modules.items()
             if m is not None and (n == "jax" or n.startswith(("jax.", "jaxlib", "flax", "optax"))
@@ -113,6 +124,13 @@ def _cfg(impl="tabular"):
             cfg, make_policy(cfg), None, synthetic_traces(n_days=1),
             tcom.make_ratings(cfg, np.random.default_rng(0)), torch.Generator(),
         ),
+        lambda cfg: thealth.make_greedy_eval(
+            cfg, make_policy(cfg), tcom.make_ratings(cfg, np.random.default_rng(0))
+        ),
+        lambda cfg: thealth.train_chunked_with_health(
+            cfg, make_policy(cfg), None, tcom.make_ratings(cfg, np.random.default_rng(0)), 0, 1, 2,
+            telemetry=None,
+        ),
     ],
     ids=["init_shared_state", "init_policy_state", "tabular_init", "init_physical",
          "ratings_to", "stack_scenario_arrays", "init_shared_state_dqn", "dqn_init",
@@ -120,7 +138,7 @@ def _cfg(impl="tabular"):
          "device_scenario_traces", "device_episode_arrays", "make_device_episode_fn",
          "train_scenarios_chunked", "build_episode_arrays", "init_policy_state_ddpg",
          "ddpg_init", "train_community", "evaluate_community", "init_independent_state",
-         "evaluate_multi_community"],
+         "evaluate_multi_community", "make_greedy_eval", "train_chunked_with_health"],
 )
 def test_entry_points_default_to_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -225,8 +225,6 @@ def test_inter_trading_never_costs_more_than_isolated():
     assert (r_inter + 1e-5 >= r_iso).all()
     assert len(seen) == 1 and seen[0][0] == 0
     np.testing.assert_array_equal(seen[0][1], r_inter[0])
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        run(tmc.train_multi_community, telemetry=object())
 
 
 # --- evaluation ----------------------------------------------------------------------

@@ -310,8 +310,3 @@ def test_fused_refuses_ddpg():
     phys = tcom.init_physical(cfg, torch.zeros((2, A)), device="cpu")
     with pytest.raises(ValueError, match="tabular/dqn"):
         tcom.run_episode(cfg, t_make_policy(cfg), None, phys, arrays, ratings, training=False, fused=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcom.run_episode(
-            cfg, t_make_policy(cfg), None, phys, arrays, ratings, training=False,
-            collect_device_metrics=True,
-        )

@@ -200,10 +200,6 @@ def test_checkpoint_with_rng_state_resumes_exactly():
     )
     assert resumed.episode_rewards == full.episode_rewards[2:]
     assert torch.equal(resumed.pol_state.q_table, full.pol_state.q_table)
-    for hook in ("telemetry", "guard", "fault_hook"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tloop.train_community(cfg, policy, ps0, _traces(), _ratings(cfg),
-                                  torch.Generator(), device="cpu", **{hook: object()})
 
 
 @functools.lru_cache(maxsize=None)
