@@ -121,7 +121,32 @@ Phases (each failure exits non-zero):
    poisoned at one block: the rollback records and the final table equal
    the CPU's from the same CPU-generator draws; then one timed
    ``train_community`` episode with telemetry, the drain at depth 2.
-9. One JSON line with the DDPG rows' numbers, one with the chunked rows',
+9. Serving on the card (``serve/``), which launches none of K1-K7 (their
+   counts set to 0 first and read after). (a) Bundles exported on the card
+   as float32, float16 and int8: cfg1's table (A=2, drawn on the card),
+   per-agent DQN at A=1000 (hidden 64, drawn on the card; its int8 export
+   accepted or refused with its calibration flips, the same verdict as the
+   port's CPU engine gives) and the northstar's shared DDPG actor at A=1000
+   from CPU seeds 0 and 1 (seed 0's draw held to ``draw_digests.py``'s
+   pin). (b) Each bundle's engine on the card (one CUDA graph per bucket)
+   against the port's CPU engine at every bucket up to 256 (A=2) or 64
+   (A=1000): discrete actions equal up to counted flips, each a Q near tie,
+   below 1e-4 of the decisions; DDPG within 1e-5; each replay equal to the
+   eager forward on the card bit for bit; four session steps as the CPU's.
+   (c) For the float32 bundles, each bucket's latency from host
+   observations to host actions (the replay, the eager forward on the card
+   and the CPU engine: p50 and p99 of 200 calls), and each engine's capture
+   seconds and graph pool bytes. (d) The gateway on 127.0.0.1 over the two
+   DDPG bundles, first with the microbatch front, then the continuous one:
+   8 clients x 64 requests with household ids, the default swapped to seed
+   1 halfway, no request failed, every answer equal bit for bit to the row
+   ``engine.act`` of the bundle that answered computed for it in its batch
+   (cuBLAS picks its kernel by shape, so against ``engine.act`` on the
+   observation alone an answer may differ by an ulp; counted); then 256
+   requests to cfg1's table through the microbatch front, each equal to
+   ``engine.act`` on its observation. Latency, requests/s, padding waste,
+   occupancy and sheds in one ``{"serve": {...}}`` line.
+10. One JSON line with the DDPG rows' numbers, one with the chunked rows',
    one with the single rows', one with phase 7's rows, one with phase 8's,
    one with every kernel's, then the last line ``{"ok": true, "device":
    {...}}``.
@@ -3074,6 +3099,465 @@ def phase_draw_digests():
     return got
 
 
+# --- phase 9 ---------------------------------------------------------------
+
+# Serving at the widths the port trains: cfg1's tabular table (A=2, buckets
+# up to 256), per-agent DQN at the shared DQN row's A=1000 (hidden 64) and
+# the northstar's shared DDPG actor at A=1000 (buckets up to 64).
+SERVE_WIDE_A, SERVE_WIDE_BATCH, SERVE_NARROW_BATCH = 1000, 64, 256
+SERVE_DTYPES = ("float32", "float16", "int8")
+SERVE_LATENCY_CALLS = 200
+SERVE_CLIENTS, SERVE_CLIENT_REQUESTS, SERVE_TABULAR_REQUESTS = 8, 64, 256
+# Four session steps of five sessions (bucket 8: three padded rows).
+SERVE_SESSION_STEPS, SERVE_SESSIONS = 4, 5
+# Admission wide open: the gateway legs measure serving, not shedding (the
+# 8 client threads share the gateway's interpreter lock, and under the
+# default 50 ms wait budget part of their requests are shed). Each bundle's
+# p95 queue wait is logged beside the shed count.
+SERVE_ADMISSION = dict(max_queue_depth=1 << 16, wait_budget_ms=1e9)
+
+
+def serve_states(tc):
+    """(label, cfg, seeded state) of each served policy: cfg1's table drawn
+    on the card, per-agent DQN drawn on the card, and the northstar's shared
+    DDPG actor drawn from CPU seeds 0 and 1 (seed 0's draw held to
+    draw_digests.py's pin). The DDPG configs differ in their seed, so their
+    bundles' config_hash does too (the registry's key)."""
+    import torch
+
+    from p2pmicrogrid_tpu_torch.draw_digests import PINNED, _digest
+    from p2pmicrogrid_tpu_torch.models.ddpg import ddpg_params_init
+    from p2pmicrogrid_tpu_torch.models.dqn import dqn_init
+    from p2pmicrogrid_tpu_torch.models.tabular import tabular_init
+
+    tab_cfg = single_config(tc, "tabular", 2)
+    tab = tabular_init(tab_cfg.qlearning, 2, device="cuda")
+    card_gen = torch.Generator(device="cuda").manual_seed(0)
+    tab = tab._replace(q_table=torch.randn(tab.q_table.shape, generator=card_gen, device="cuda"))
+    dqn_cfg = tc.default_config(
+        sim=tc.SimConfig(n_agents=SERVE_WIDE_A),
+        train=tc.TrainConfig(implementation="dqn"),
+        dqn=tc.DQNConfig(hidden=64, buffer_size=16),
+    )
+    dqn = dqn_init(dqn_cfg.dqn, SERVE_WIDE_A, card_gen, device="cuda")
+    out = [("tabular", tab_cfg, tab), ("dqn", dqn_cfg, dqn)]
+    for seed in (0, 1):
+        cfg = tc.default_config(
+            sim=tc.SimConfig(n_agents=SERVE_WIDE_A),
+            train=tc.TrainConfig(implementation="ddpg", seed=seed),
+            ddpg=tc.DDPGConfig(share_across_agents=True, buffer_size=NORTHSTAR["buffer_size"],
+                               batch_size=NORTHSTAR["batch_size"]),
+        )
+        params = ddpg_params_init(cfg.ddpg, SERVE_WIDE_A, torch.Generator().manual_seed(seed), device="cpu")
+        if seed == 0:
+            got = _digest([t.detach().numpy() for net in (params.actor, params.critic) for t in net.parameters()])
+            if got != PINNED["ddpg_actor_critic"]:
+                fail(f"phase 9: the seed-0 DDPG draw digests {got}, pinned {PINNED['ddpg_actor_critic']}")
+        out.append((f"ddpg_seed{seed}", cfg, params))
+    return out
+
+
+def flip_count(err):
+    """The calibration flips an int8 export's refusal names."""
+    return int(str(err).split(":")[1].split()[0])
+
+
+def serve_export(label, cfg, state, tmp):
+    """(a) Each dtype's bundle exported on the card; DQN's int8 verdict held
+    to the port's CPU engine's on the same state. Returns ({dtype: path or
+    None}, the export record)."""
+    from p2pmicrogrid_tpu_torch.serve import export_policy_bundle, load_policy_bundle
+
+    paths, rec = {}, {"label": label}
+    for dtype in SERVE_DTYPES:
+        path = os.path.join(tmp, f"{label}_{dtype}")
+        start = time.perf_counter()
+        try:
+            export_policy_bundle(cfg, state, path, dtype=dtype, device="cuda")
+        except ValueError as exc:
+            if dtype != "int8" or cfg.train.implementation != "dqn":
+                fail(f"phase 9: {label} {dtype} export refused: {exc}")
+            card = flip_count(exc)
+            try:
+                export_policy_bundle(cfg, state, path + "_cpu", dtype=dtype, device="cpu")
+                fail(f"phase 9: {label} int8 refused on the card ({card} flips) but accepted on the CPU")
+            except ValueError as cpu_exc:
+                cpu = flip_count(cpu_exc)
+            rec["int8"] = {"verdict": "refused", "card_flips": card, "cpu_flips": cpu,
+                           "calibration_decisions": 64 * cfg.sim.n_agents}
+            log(f"phase 9: {label} int8 refused on the card ({card} calibration flips) and on "
+                f"the CPU ({cpu}): the same verdict")
+            paths[dtype] = None
+            continue
+        secs = time.perf_counter() - start
+        manifest, _ = load_policy_bundle(path)
+        rec[dtype] = {"export_s": secs, "param_bytes": manifest["param_bytes"]}
+        if dtype == "int8":
+            bound = manifest["quant"]["error_bound"]
+            rec["int8"]["error_bound"] = bound
+            if cfg.train.implementation == "dqn":
+                try:
+                    export_policy_bundle(cfg, state, path + "_cpu", dtype=dtype, device="cpu")
+                except ValueError as cpu_exc:
+                    fail(f"phase 9: {label} int8 accepted on the card, refused on the CPU: {cpu_exc}")
+                rec["int8"]["verdict"] = "accepted"
+            log(f"phase 9: {label} int8 error bound {json.dumps(bound)}")
+        paths[dtype] = path
+    log(f"phase 9: {label} exported: {json.dumps(rec)}")
+    return paths, rec
+
+
+def q_near_ties(bundle, obs, got, ref):
+    """DQN: each flip's Q gap on the CPU and whether it is a near tie (the
+    two actions' Q-values within 1e-4 of their size, summed in another
+    order on the card); returns (explanations, all explained)."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch.config import DQNConfig
+    from p2pmicrogrid_tpu_torch.convert import network_from_tree
+    from p2pmicrogrid_tpu_torch.models.dqn import _q_all_actions
+    from p2pmicrogrid_tpu_torch.models.networks import QNetwork
+    from p2pmicrogrid_tpu_torch.serve import load_policy_bundle
+
+    _, params = load_policy_bundle(bundle)
+    params = {k: {f: np.asarray(v, np.float32) for f, v in d.items()} for k, d in params.items()}
+    out, ok = [], True
+    for dev in ("cpu", "cuda"):
+        net = network_from_tree(params, QNetwork, torch.device(dev))
+        with torch.no_grad():
+            q = _q_all_actions(DQNConfig(), net, torch.from_numpy(obs).to(dev)).cpu().numpy()
+        if dev == "cpu":
+            q_cpu = q
+        else:
+            q_card = q
+    for i, a in np.argwhere(got != ref):
+        ia, ib = int(round(got[i, a] * 2)), int(round(ref[i, a] * 2))
+        row = q_cpu[i, a]
+        gap = abs(float(row[ia] - row[ib]))
+        tie = gap <= 1e-4 * float(np.abs(row).max())
+        ok &= tie
+        out.append({"row": int(i), "agent": int(a), "card": ia, "cpu": ib, "q_gap_cpu": gap,
+                    "q_card_minus_cpu": float(np.abs(q_card[i, a] - row).max()),
+                    "cause": "near tie" if tie else "unexplained"})
+    return out, ok
+
+
+def latency_ms(fn, calls=SERVE_LATENCY_CALLS):
+    """(p50, p99) in ms of ``fn()`` over ``calls`` calls after 10 warm ones,
+    host clock: each call ends with its actions on the host."""
+    import numpy as np
+
+    for _ in range(10):
+        fn()
+    times = []
+    for _ in range(calls):
+        start = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - start) * 1e3)
+    return float(np.percentile(times, 50)), float(np.percentile(times, 99))
+
+
+def serve_engine_check(label, impl, dtype, path, A, max_batch, timed):
+    """(b) The card engine against the port's CPU engine at every bucket,
+    each replay against the eager forward on the card; with ``timed`` (the
+    float32 bundles) the sessions' four steps and (c) each bucket's
+    latency. Returns the record."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch.serve import PolicyEngine, calibration_obs
+
+    eng = PolicyEngine(bundle_dir=path, max_batch=max_batch, device="cuda")
+    cpu = PolicyEngine(bundle_dir=path, max_batch=max_batch, device="cpu")
+    eng.warmup(include_step=timed)
+    rec = dict(label=label, dtype=dtype, A=A, max_batch=max_batch,
+               capture_s={str(b): s for b, s in eng.capture_s.items()},
+               capture_s_total=sum(eng.capture_s.values()),
+               graph_pool_bytes=eng.graph_pool_bytes, captures=eng.stats["aot_compiles"])
+    decisions, flips, max_err, explained, latency = 0, 0, 0.0, [], {}
+    for b in eng.buckets:
+        obs = calibration_obs(b, A, seed=900 + b)
+        got, ref = eng.act(obs), cpu.act(obs)
+        eager = eng.forward(torch.from_numpy(obs).cuda()).cpu().numpy()
+        if not np.array_equal(got, eager):
+            fail(f"phase 9: {label} {dtype} bucket {b}: the graph replay differs from the eager "
+                 f"forward (max {np.abs(got - eager).max()})")
+        decisions += got.size
+        if impl == "ddpg":
+            max_err = max(max_err, float(np.abs(got - ref).max()))
+        elif not np.array_equal(got, ref):
+            if impl == "tabular":
+                fail(f"phase 9: {label} {dtype} bucket {b}: a table gather differs from the CPU's")
+            why, ok = q_near_ties(path, obs, got, ref)
+            flips += len(why)
+            explained += why
+            if not ok:
+                fail(f"phase 9: {label} {dtype} bucket {b}: unexplained flips {why}")
+        if timed:
+            obs_cuda = lambda: eng.forward(torch.from_numpy(obs).cuda()).cpu().numpy()  # noqa: E731
+            latency[str(b)] = dict(
+                zip(("replay_p50_ms", "replay_p99_ms"), latency_ms(lambda: eng.act(obs)))
+            ) | dict(zip(("eager_p50_ms", "eager_p99_ms"), latency_ms(obs_cuda))) | dict(
+                zip(("cpu_p50_ms", "cpu_p99_ms"), latency_ms(lambda: cpu.act(obs))))
+    if impl == "ddpg" and max_err > 1e-5:
+        fail(f"phase 9: {label} {dtype}: card against CPU max abs err {max_err} > 1e-5")
+    if flips / decisions >= 1e-4:
+        fail(f"phase 9: {label} {dtype}: {flips} of {decisions} decisions flipped (>= 1e-4)")
+    rec.update(decisions=decisions, flips=flips, flip_share=flips / decisions, flip_causes=explained,
+               max_abs_err=max_err if impl == "ddpg" else None, replay_equals_eager=True)
+    if timed:
+        rec["latency"] = latency
+        rec["sessions"] = serve_sessions_check(label, impl, eng, cpu, A)
+    log(f"phase 9: {json.dumps(rec)}")
+    return rec
+
+
+def serve_sessions_check(label, impl, eng, cpu, A):
+    """Four session steps on the card and on the CPU: the same hp_frac
+    (discrete equal up to explained flips, DDPG within 1e-5), slots
+    [4, ...]; each card step answers what its act does."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.serve import calibration_obs
+
+    s_card, s_cpu = eng.init_sessions(SERVE_SESSIONS), cpu.init_sessions(SERVE_SESSIONS)
+    worst = 0.0
+    for k in range(SERVE_SESSION_STEPS):
+        obs = calibration_obs(SERVE_SESSIONS, A, seed=700 + k)
+        s_card, hp = eng.step(s_card, obs)
+        s_cpu, hp_cpu = cpu.step(s_cpu, obs)
+        if not np.array_equal(hp, eng.act(obs)):
+            fail(f"phase 9: {label} session step {k} differs from act on the card")
+        if not np.array_equal(s_card.hp_frac.cpu().numpy(), hp):
+            fail(f"phase 9: {label} session step {k}: hp_frac is not the served action")
+        err = float(np.abs(hp - hp_cpu).max())
+        worst = max(worst, err)
+        if (impl == "ddpg" and err > 1e-5) or (impl != "ddpg" and (hp != hp_cpu).mean() >= 1e-4):
+            fail(f"phase 9: {label} session step {k}: card against CPU differs ({err})")
+    slots = s_card.slots.cpu().tolist()
+    if slots != [SERVE_SESSION_STEPS] * SERVE_SESSIONS or slots != s_cpu.slots.tolist():
+        fail(f"phase 9: {label} session slots {slots}, CPU {s_cpu.slots.tolist()}")
+    return {"steps": SERVE_SESSION_STEPS, "sessions": SERVE_SESSIONS, "slots": slots,
+            "max_abs_diff_vs_cpu": worst}
+
+
+def drive_gateway(gateway, obs, households, swap_to=None):
+    """8 client threads, each over one keep-alive connection, post their
+    requests to ``/v1/act``; with ``swap_to``, once half the requests have
+    answered, ``POST /admin/swap`` moves the default there. Returns
+    ([(client, i, status, actions, config_hash, sent after the swap)],
+    per-request ms, wall seconds, swap record)."""
+    import http.client
+    import threading
+
+    import numpy as np
+
+    host, port = gateway.host, gateway.port
+    total = sum(len(o) for o in obs)
+    lock, half = threading.Lock(), threading.Event()
+    swapped = threading.Event()
+    answers, times = [], []
+
+    def client(c):
+        conn = http.client.HTTPConnection(host, port, timeout=60)
+        try:
+            for i, row in enumerate(obs[c]):
+                body = json.dumps({"household": households[c][i], "obs": row.tolist()})
+                after = swapped.is_set()
+                start = time.perf_counter()
+                conn.request("POST", "/v1/act", body, {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                doc = json.loads(resp.read())
+                ms = (time.perf_counter() - start) * 1e3
+                with lock:
+                    answers.append((c, i, resp.status, doc.get("actions"), doc.get("config_hash"), after))
+                    times.append(ms)
+                    if len(answers) >= total // 2:
+                        half.set()
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(len(obs))]
+    start = time.perf_counter()
+    for t in threads:
+        t.start()
+    swap = None
+    if swap_to is not None:
+        if not half.wait(120):
+            fail("phase 9: the gateway clients did not reach half their requests in 120 s")
+        conn = http.client.HTTPConnection(host, port, timeout=60)
+        conn.request("POST", "/admin/swap", json.dumps({"config_hash": swap_to}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        swap = {"status": resp.status, "answered_before": len(answers), **json.loads(resp.read())}
+        conn.close()
+        swapped.set()
+    for t in threads:
+        t.join(300)
+        if t.is_alive():
+            fail("phase 9: a gateway client did not finish in 300 s")
+    wall = time.perf_counter() - start
+    return answers, np.asarray(times), wall, swap
+
+
+def record_batches(engine):
+    """Wrap ``engine.act`` so that each row it computes is kept, keyed by
+    its observation's bytes: what the engine answered for that request in
+    the batch it rode."""
+    rows, act = {}, engine.act
+
+    def recorded(obs):
+        out = act(obs)
+        for o, a in zip(obs, out):
+            rows[o.tobytes()] = a.copy()
+        return out
+
+    engine.act = recorded
+    return rows
+
+
+def serve_gateway_front(batching, ddpg_paths):
+    """(d) One front over the two DDPG bundles: 8 clients x 64 requests, the
+    default swapped to seed 1 halfway, every answer held bit for bit to the
+    row ``engine.act`` of the bundle that answered computed for it
+    (``record_batches``), and to ``engine.act`` on its observation alone
+    (bucket 1): cuBLAS picks its kernel by shape, so the actor's sums may
+    run in another order from one bucket to the next; those differences
+    are counted."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.serve import AdmissionConfig, GatewayServer, build_gateway, calibration_obs
+
+    start = time.perf_counter()
+    gateway = build_gateway(ddpg_paths, max_batch=SERVE_WIDE_BATCH, device="cuda", batching=batching,
+                            admission=AdmissionConfig(**SERVE_ADMISSION))
+    build_s = time.perf_counter() - start
+    h0, h1 = gateway.registry.hashes
+    engines = {h: gateway.registry.get(h).engine for h in (h0, h1)}
+    computed = {h: record_batches(e) for h, e in engines.items()}
+    server = GatewayServer(gateway)
+    server.start()
+    try:
+        obs = [calibration_obs(SERVE_CLIENT_REQUESTS, SERVE_WIDE_A, seed=500 + c)
+               for c in range(SERVE_CLIENTS)]
+        households = [[f"house-{c}-{i % 4}" for i in range(SERVE_CLIENT_REQUESTS)]
+                      for c in range(SERVE_CLIENTS)]
+        answers, times, wall, swap = drive_gateway(gateway, obs, households, swap_to=h1)
+        stats = gateway.stats_snapshot()
+        served = {h: (e.padding_waste, e.stats["batches"]) for h, e in engines.items()}
+        summaries = {h: b.telemetry.summary() for h, b in
+                     ((h, gateway.registry.get(h)) for h in (h0, h1))}
+    finally:
+        server.stop()
+    failed = [a for a in answers if a[2] != 200]
+    if failed or len(answers) != SERVE_CLIENTS * SERVE_CLIENT_REQUESTS:
+        fail(f"phase 9: {batching} gateway: {len(failed)} failed of {len(answers)}: {failed[:3]}")
+    if swap["status"] != 200 or swap["default"] != h1:
+        fail(f"phase 9: {batching} gateway swap answered {swap}")
+    alone_differs, spread = 0, 0.0
+    for c, i, _, actions, config_hash, after in answers:
+        if after and config_hash != h1:
+            fail(f"phase 9: {batching} gateway: a request sent after the swap answered from {config_hash}")
+        got = np.asarray(actions, np.float32)
+        row = computed[config_hash].get(obs[c][i].tobytes())
+        if row is None or not np.array_equal(got, row):
+            fail(f"phase 9: {batching} gateway: an answer is not the row its engine computed")
+        alone = engines[config_hash].act(obs[c][i][None])[0]
+        alone_differs += int(not np.array_equal(got, alone))
+        spread = max(spread, float(np.abs(got - alone).max()))
+    occ = summaries[h0]["histograms"].get("serve.batch_occupancy", {})
+    rec = dict(
+        front=batching, requests=len(answers), failed=0,
+        equal_to_the_engines_row=True, differ_from_act_alone=alone_differs,
+        max_abs_diff_from_act_alone=spread,
+        answered_by={h: sum(a[4] == h for a in answers) for h in (h0, h1)},
+        swap_after_requests=swap["answered_before"], p50_ms=float(np.percentile(times, 50)),
+        p99_ms=float(np.percentile(times, 99)), requests_per_s=len(answers) / wall,
+        padding_waste={h: w for h, (w, _) in served.items()},
+        batches={h: n for h, (_, n) in served.items()},
+        occupancy_mean=occ.get("mean"), shed=stats["gateway"]["shed"],
+        queue_wait_p95_ms={h: b["recent_wait_p95_ms"] for h, b in stats["bundles"].items()},
+        build_s=build_s, hot_swap_capture_s=sum(engines[h1].capture_s.values()),
+        graph_pool_bytes={h: e.graph_pool_bytes for h, e in engines.items()},
+    )
+    log(f"phase 9: {json.dumps(rec)}")
+    return rec
+
+
+def serve_gateway_tabular(path):
+    """(d) 256 requests to cfg1's table through the micro front, each
+    answer held to ``engine.act`` bit for bit."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.serve import AdmissionConfig, GatewayServer, build_gateway, calibration_obs
+
+    gateway = build_gateway([path], max_batch=SERVE_NARROW_BATCH, device="cuda", batching="micro",
+                            admission=AdmissionConfig(**SERVE_ADMISSION))
+    engine = gateway.registry.get(gateway.registry.default_hash).engine
+    per = SERVE_TABULAR_REQUESTS // SERVE_CLIENTS
+    obs = [calibration_obs(per, 2, seed=600 + c) for c in range(SERVE_CLIENTS)]
+    households = [[f"home-{c}-{i}" for i in range(per)] for c in range(SERVE_CLIENTS)]
+    server = GatewayServer(gateway)
+    server.start()
+    try:
+        answers, times, wall, _ = drive_gateway(gateway, obs, households)
+        shed = gateway.stats["shed"]
+        waste, batches = engine.padding_waste, engine.stats["batches"]
+        wait_p95 = gateway.stats_snapshot()["bundles"][gateway.registry.default_hash]["recent_wait_p95_ms"]
+    finally:
+        server.stop()
+    bad = [a for a in answers if a[2] != 200 or not np.array_equal(
+        np.asarray(a[3], np.float32), engine.act(obs[a[0]][a[1]][None])[0])]
+    if bad or len(answers) != SERVE_TABULAR_REQUESTS:
+        fail(f"phase 9: tabular gateway: {len(bad)} failed or differing of {len(answers)}")
+    rec = dict(front="micro", bundle="tabular cfg1", requests=len(answers), failed=0,
+               bit_exact_vs_engine_act=True, p50_ms=float(np.percentile(times, 50)),
+               p99_ms=float(np.percentile(times, 99)), requests_per_s=len(answers) / wall,
+               padding_waste=waste, batches=batches, shed=shed, queue_wait_p95_ms=wait_p95)
+    log(f"phase 9: {json.dumps(rec)}")
+    return rec
+
+
+def phase_serving(counters):
+    """Phase 9: bundles, the engine's graphs against the CPU engine, latency
+    per bucket, and the gateway end to end on both fronts; no K1-K7
+    launch."""
+    import shutil
+    import tempfile
+
+    from p2pmicrogrid_tpu_torch import config as tc
+
+    start = time.perf_counter()
+    reset(counters)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    out = {"exports": [], "engines": [], "gateway": []}
+    try:
+        paths = {}
+        for label, cfg, state in serve_states(tc):
+            paths[label], rec = serve_export(label, cfg, state, tmp)
+            out["exports"].append(rec)
+        for label, impl, A, mb in (("tabular", "tabular", 2, SERVE_NARROW_BATCH),
+                                   ("dqn", "dqn", SERVE_WIDE_A, SERVE_WIDE_BATCH),
+                                   ("ddpg_seed0", "ddpg", SERVE_WIDE_A, SERVE_WIDE_BATCH)):
+            for dtype in SERVE_DTYPES:
+                if paths[label][dtype] is not None:
+                    out["engines"].append(serve_engine_check(
+                        label, impl, dtype, paths[label][dtype], A, mb, timed=dtype == "float32"))
+        ddpg = [paths["ddpg_seed0"]["float32"], paths["ddpg_seed1"]["float32"]]
+        for batching in ("micro", "continuous"):
+            out["gateway"].append(serve_gateway_front(batching, ddpg))
+        out["gateway"].append(serve_gateway_tabular(paths["tabular"]["float32"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if any(launches.values()):
+        fail(f"phase 9: serving launched hand-written kernels: {launches}")
+    out["kernel_launches"] = launches
+    out["seconds"] = time.perf_counter() - start
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -3098,7 +3582,7 @@ def main() -> None:
     # With no arguments every phase runs (the check); a comma-separated list
     # of phase numbers (e.g. "2,5") runs only those, builds first, and prints
     # no result line.
-    all_phases = {"2", "3", "4", "5", "6", "7", "8"}
+    all_phases = {"2", "3", "4", "5", "6", "7", "8", "9"}
     phases = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else all_phases
     start = time.perf_counter()
     card = phase_device_and_build()
@@ -3159,6 +3643,9 @@ def main() -> None:
         for name in launches:
             launches[name] += g_launches[name] + c_launches[name] + s_launches[name]
         log(f"phase 8 done ({time.perf_counter() - start:.1f} s)")
+    if "9" in phases:
+        log(json.dumps({"serve": phase_serving(counters)}))
+        log(f"phase 9 done ({time.perf_counter() - start:.1f} s)")
     if phases != all_phases:
         log(f"partial run of phases {sorted(phases)}: no result ({time.perf_counter() - start:.1f} s)")
         return

@@ -9,7 +9,9 @@ and clearing passes are the CUDA kernels of ``csrc/matrix_market.cu``, and
 with the fused slot, the whole slot as the one CUDA kernel
 ``csrc/slot_fused.cu``; and chunked aggregate-scenario training, its traces
 made on the device and each chunk episode replayed as one CUDA graph
-(``parallel/device_gen.py``, ``parallel/graph.py``).
+(``parallel/device_gen.py``, ``parallel/graph.py``); and serving
+(``serve/``): policy bundles in the JAX package's format, a greedy engine
+with one CUDA graph per padding bucket, its fronts and the HTTP gateway.
 Entry points default to ``device="cuda"`` and raise without a card unless the
 caller passes ``device="cpu"``.
 """

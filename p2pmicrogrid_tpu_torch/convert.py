@@ -28,6 +28,12 @@ package's S independent learners (``jax.vmap(init_policy_state)``'s output:
 a ``TabularState``, ``DQNState`` or ``DDPGState`` with a leading [S] axis on
 every leaf) to and from the port's one state of S * A per-agent learners,
 scenario-major (``parallel/scenarios.py::init_independent_state``).
+
+``greedy_tree``, ``flat_tree`` and ``nested_tree`` give policy bundles
+(``serve/export.py``) the JAX package's layout: a greedy parameter subtree
+(the Q-table, the online Q-network, the actor) as a numpy tree of flax's
+names and shapes, flattened to '/'-joined paths (``Dense_0/kernel``, ...)
+and back; ``network_from_tree`` builds the port's network from such a tree.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from p2pmicrogrid_tpu_torch.models.networks import Actor, QNetwork
 from p2pmicrogrid_tpu_torch.models.replay import LockstepReplay, ReplayState
 from p2pmicrogrid_tpu_torch.models.tabular import TabularState
 from p2pmicrogrid_tpu_torch.parallel.scenarios import DDPGScenState
+from p2pmicrogrid_tpu_torch.train.checkpoint import _nest, _walk_leaves
 
 _TENSOR_TYPES = {cls.__name__: cls for cls in (TabularState, PhysState, AgentRatings, EpisodeArrays)}
 _RING_TYPES = {cls.__name__: cls for cls in (ReplayState, LockstepReplay)}
@@ -83,10 +90,11 @@ def _ring(np_tree, cls, dev):
     return cls(*(_tensor(b, dev) for b in bufs), int(cursor), int(count))
 
 
-def _network(tree: dict, cls, dev):
+def network_from_tree(tree: dict, cls, dev: torch.device):
     """A flax parameter tree of ``QNetwork``/``Critic`` or ``Actor`` as the
-    port's module: per agent for ``[A, in, out]`` kernels, shared for
-    ``[in, out]``."""
+    port's module on ``dev``: per agent for ``[A, in, out]`` kernels, shared
+    for ``[in, out]`` (the share flag is the kernel's ndim, as the JAX
+    package's ``serve/export.py`` reads it)."""
     kernel0 = np.asarray(tree["Dense_0"]["kernel"])
     n_agents = kernel0.shape[0] if kernel0.ndim == 3 else None
     d_in, hidden = kernel0.shape[-2:]
@@ -120,12 +128,12 @@ def _load_adam(opt: torch.optim.Adam, net, opt_state) -> None:
 
 
 def _target(tree: dict, cls, dev):
-    return _network(tree, cls, dev).requires_grad_(False)
+    return network_from_tree(tree, cls, dev).requires_grad_(False)
 
 
 def _dqn_state(np_tree, dev, cfg: DQNConfig) -> DQNState:
     _check_fields(np_tree, DQNState)
-    online = _network(np_tree.online, QNetwork, dev)
+    online = network_from_tree(np_tree.online, QNetwork, dev)
     opt = make_optimizer(cfg, online)
     _load_adam(opt, online, np_tree.opt_state)
     return DQNState(
@@ -139,8 +147,8 @@ def _dqn_state(np_tree, dev, cfg: DQNConfig) -> DQNState:
 
 def _ddpg_params(np_tree, dev, cfg: DDPGConfig) -> DDPGParams:
     _check_fields(np_tree, DDPGParams)
-    actor = _network(np_tree.actor, Actor, dev)
-    critic = _network(np_tree.critic, QNetwork, dev)
+    actor = network_from_tree(np_tree.actor, Actor, dev)
+    critic = network_from_tree(np_tree.critic, QNetwork, dev)
     actor_opt, critic_opt = make_optimizers(cfg, actor, critic)
     _load_adam(actor_opt, actor, np_tree.actor_opt)
     _load_adam(critic_opt, critic, np_tree.critic_opt)
@@ -264,6 +272,31 @@ def state_to_numpy(tree):
             *(state_to_numpy(b) for b in bufs), np.int32(cursor), np.int32(count)
         )
     return type(tree)(*(state_to_numpy(x) for x in tree))
+
+
+def greedy_tree(node):
+    """A greedy parameter subtree as a numpy tree in flax's layout: a
+    network (``QNetwork``, ``Actor``) as ``{"Dense_i": {"kernel", "bias"}}``
+    (kernels ``[A, in, out]`` per agent, ``[in, out]`` shared), a tensor (the
+    Q-table) as its array, and a dict (a structure-free checkpoint read,
+    ``train/checkpoint.py::restore_raw``) key by key."""
+    if isinstance(node, torch.nn.Module):
+        return _tree_to_numpy(node)
+    if isinstance(node, dict):
+        return {str(k): greedy_tree(v) for k, v in node.items()}
+    return state_to_numpy(node) if isinstance(node, torch.Tensor) else np.asarray(node)
+
+
+def flat_tree(tree: dict) -> dict:
+    """A nested dict of arrays as ``{'/'-joined path: array}`` in sorted
+    path order, the JAX package's ``jax.tree_util`` flattening of a flax
+    tree."""
+    return dict(_walk_leaves(tree))
+
+
+def nested_tree(flat: dict) -> dict:
+    """``flat_tree``'s inverse: ``{'a/b': x}`` as ``{'a': {'b': x}}``."""
+    return _nest(flat)
 
 
 def _map_arrays(fn, tree):

@@ -64,7 +64,12 @@ class Captured(NamedTuple):
     pool_bytes: int
 
 
-def capture(fn: Callable[[], Any], stage: Callable[[], None], warmup_runs: int = 1) -> Captured:
+def capture(
+    fn: Callable[[], Any],
+    stage: Callable[[], None],
+    warmup_runs: int = 1,
+    capture_error_mode: str = "global",
+) -> Captured:
     """Capture ``fn()`` into a CUDA graph.
 
     ``stage()`` writes the inputs that ``fn`` reads into their static
@@ -72,7 +77,11 @@ def capture(fn: Callable[[], Any], stage: Callable[[], None], warmup_runs: int =
     (after ``stage()`` each time: autograd and the libraries set themselves up
     outside the capture), then once under capture, after a last
     ``stage()``. A capture does not run ``fn``'s device work: the caller
-    stages a chunk's inputs and calls ``replay``.
+    stages a chunk's inputs and calls ``replay``. ``capture_error_mode`` is
+    ``torch.cuda.graph``'s: ``"global"`` refuses the capture if any thread
+    makes an unsafe CUDA call meanwhile; ``"thread_local"`` (the serving
+    engine's, ``serve/engine.py``, whose other threads keep serving) only
+    the capturing thread's.
     """
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -90,7 +99,7 @@ def capture(fn: Callable[[], Any], stage: Callable[[], None], warmup_runs: int =
     start = _time.perf_counter()
     _build._capture_tally = {}
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode=capture_error_mode):
             outputs = fn()
         launches = _build._capture_tally
     finally:

@@ -4,7 +4,8 @@ The JAX package's names for what is ported (``registry.py``, ``spans.py``,
 ``device_metrics.py``, ``async_drain.py``, ``profiling.py``). Not ported:
 ``SqliteSink`` and ``report.py`` (they come with the results store and the
 CLI, ROADMAP.md, Queue 1, item 12), ``dc_psum``/``dc_mesh_sum`` (the mesh,
-item 7), ``tracing.py`` (the serving fleet's).
+item 7). ``tracing.py`` (the serving fronts' trace context) is imported by
+module.
 """
 
 from p2pmicrogrid_tpu_torch.telemetry.async_drain import (

@@ -9,6 +9,7 @@ from p2pmicrogrid_tpu_torch.train.checkpoint import (
     checkpoint_dir,
     latest_checkpoint,
     restore_checkpoint,
+    restore_raw,
     restore_resume_state,
     save_checkpoint,
     verify_checkpoint,
@@ -40,6 +41,7 @@ __all__ = [
     "make_policy",
     "make_tabular_policy",
     "restore_checkpoint",
+    "restore_raw",
     "restore_resume_state",
     "save_checkpoint",
     "train_block",

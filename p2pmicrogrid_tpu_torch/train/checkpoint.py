@@ -22,6 +22,9 @@ written as one ``payload.npz`` whose keys are the leaves' '/'-joined paths.
   ``restore_checkpoint``, ``restore_resume_state``: corrupt, incomplete or
   malformed steps are skipped with a warning, and the restore falls back to
   the newest step that verifies; ``CheckpointCorrupt`` when none does.
+* **Raw reads.** ``restore_raw`` reads the newest step that verifies
+  without a template: the saved state as a nested dict of numpy arrays,
+  which is all a policy bundle's export needs (``serve/export.py``).
 * **Restores write in place.** A restore copies the saved values into the
   tensors of the state it is given (``convert.load_state_``), so a captured
   CUDA graph and a capturable Adam's on-device step counts keep reading the
@@ -462,6 +465,20 @@ def restore_resume_state(path: str, template_pol_state) -> ResumeState:
         )
     if any_step:
         raise CheckpointCorrupt(f"no checkpoint step under {path} verifies")
+    raise FileNotFoundError(f"no restorable checkpoint under {path}")
+
+
+def restore_raw(path: str) -> Tuple[dict, int, str]:
+    """Structure-free read of the newest verified step under ``path``:
+    ``(pol_state as a nested dict of numpy arrays keyed by field, episode,
+    step_path)``, with no learner state built (no optimiser, ring or target
+    network). Corrupt steps are skipped with a warning, as
+    ``restore_checkpoint`` skips them; raises ``FileNotFoundError`` when no
+    step verifies."""
+    for _ep, step, _manifest, raw in _verified_steps(path):
+        if "pol_state" not in raw:
+            raise RuntimeError(f"checkpoint {step} has no 'pol_state' tree (keys: {sorted(raw)})")
+        return raw["pol_state"], int(raw["episode"]), step
     raise FileNotFoundError(f"no restorable checkpoint under {path}")
 
 

@@ -794,3 +794,95 @@ def test_chunked_resume_digest(cuda_generator, tmp_path):
     pol, _, _, _ = sc.train_scenarios_chunked(cfg, policy, pol, ratings, 5, 1, 2, episode0=episode + 1)
     digest = lambda s: tree_digest({"pol_state": state_to_numpy(s)})[0]
     assert digest(pol) == digest(full)
+
+
+def _serving_bundle(tmp_path, impl, A, share=False):
+    """A bundle exported on the card from a state drawn there (the tabular
+    table drawn too, so its argmax is not trivially 0)."""
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.serve import export_policy_bundle
+    from p2pmicrogrid_tpu_torch.train.policies import init_policy_state
+
+    cfg = tc.default_config(
+        sim=tc.SimConfig(n_agents=A),
+        train=tc.TrainConfig(implementation=impl),
+        dqn=tc.DQNConfig(buffer_size=16),
+        ddpg=tc.DDPGConfig(buffer_size=16, batch_size=2, share_across_agents=share),
+    )
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ps = init_policy_state(cfg, "cuda", gen)
+    if impl == "tabular":
+        ps = ps._replace(q_table=torch.randn(ps.q_table.shape, generator=gen, device="cuda"))
+    return export_policy_bundle(cfg, ps, str(tmp_path / impl), device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl, A", [("tabular", 2), ("dqn", 16), ("ddpg", 16)])
+def test_serving_graphs_replay_eager_and_match_cpu(cuda_generator, tmp_path, impl, A):
+    """The engine's graph per bucket equals its eager forward on the card
+    bit for bit, and the CPU engine's actions (discrete: equal up to Q
+    near-ties, at most one; DDPG within 1e-5); a session step on the card
+    answers what its act does and counts its slots."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.serve import PolicyEngine, calibration_obs
+
+    path = _serving_bundle(tmp_path, impl, A)
+    card = PolicyEngine(bundle_dir=path, max_batch=16, device="cuda")
+    cpu = PolicyEngine(bundle_dir=path, max_batch=16, device="cpu")
+    assert card.warmup() == [1, 2, 4, 8, 16]
+    assert card.stats["aot_compiles"] == 10 and card.stats["aot_hits"] == 0
+    assert set(card.capture_s) == {1, 2, 4, 8, 16} and card.graph_pool_bytes > 0
+    for b in (1, 3, 8, 16, 21):
+        obs = calibration_obs(b, A, seed=b)
+        got = card.act(obs)
+        eager = np.concatenate([
+            card.forward(torch.from_numpy(obs[i:i + 16]).cuda()).cpu().numpy()
+            for i in range(0, b, 16)
+        ])
+        if b in (1, 8, 16):  # an exact bucket: the same shape as the eager pass
+            assert np.array_equal(got, eager)
+        ref = cpu.act(obs)
+        if impl == "ddpg":
+            np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+        else:
+            assert (got != ref).sum() <= 1
+    assert card.stats["aot_compiles"] == 10  # no capture after warmup
+    sessions = card.init_sessions(3)
+    obs = calibration_obs(3, A, seed=40)
+    sessions, hp = card.step(sessions, obs)
+    sessions, hp = card.step(sessions, obs)
+    assert np.array_equal(hp, card.act(obs))
+    assert sessions.slots.cpu().tolist() == [2, 2, 2]
+    assert np.array_equal(sessions.hp_frac.cpu().numpy(), hp)
+
+
+@pytest.mark.cuda
+def test_serving_late_capture_and_threads(cuda_generator, tmp_path):
+    """A bucket never warmed is captured on first use; calls from several
+    threads serialise on the engine's lock and each gets its own copy."""
+    import threading
+
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.serve import PolicyEngine, calibration_obs
+
+    path = _serving_bundle(tmp_path, "ddpg", 32, share=True)
+    card = PolicyEngine(bundle_dir=path, max_batch=8, device="cuda")
+    obs = [calibration_obs(b, 32, seed=b) for b in (1, 2, 3, 5, 8)]
+    want = [card.act(o) for o in obs]
+    assert card.stats["aot_compiles"] == 4  # buckets 1, 2, 4, 8 captured on first use
+    got = {}
+
+    def run(i):
+        for _ in range(20):
+            got[i] = card.act(obs[i % len(obs)])
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(10)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads)
+    for i, out in got.items():
+        assert np.array_equal(out, want[i % len(obs)])

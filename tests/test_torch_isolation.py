@@ -21,6 +21,9 @@ from p2pmicrogrid_tpu_torch.models.replay import lockstep_replay_init
 from p2pmicrogrid_tpu_torch.models.tabular import tabular_init
 from p2pmicrogrid_tpu_torch.parallel import device_gen as tdg
 from p2pmicrogrid_tpu_torch.parallel import scenarios as tsc
+from p2pmicrogrid_tpu_torch.serve import engine as tengine
+from p2pmicrogrid_tpu_torch.serve import export as texport
+from p2pmicrogrid_tpu_torch.serve import gateway as tgateway
 from p2pmicrogrid_tpu_torch.train import health as thealth
 from p2pmicrogrid_tpu_torch.train import loop as tloop
 from p2pmicrogrid_tpu_torch.train import make_policy
@@ -55,7 +58,15 @@ def test_every_module_imports_without_jax():
                 "p2pmicrogrid_tpu_torch.train.checkpoint",
                 "p2pmicrogrid_tpu_torch.train.faults",
                 "p2pmicrogrid_tpu_torch.train.health",
-                "p2pmicrogrid_tpu_torch.train.resilience"} <= set(names), names
+                "p2pmicrogrid_tpu_torch.train.resilience",
+                "p2pmicrogrid_tpu_torch.telemetry.tracing",
+                "p2pmicrogrid_tpu_torch.serve.auth",
+                "p2pmicrogrid_tpu_torch.serve.continuous",
+                "p2pmicrogrid_tpu_torch.serve.engine",
+                "p2pmicrogrid_tpu_torch.serve.export",
+                "p2pmicrogrid_tpu_torch.serve.gateway",
+                "p2pmicrogrid_tpu_torch.serve.registry",
+                "p2pmicrogrid_tpu_torch.serve.wire"} <= set(names), names
         leaked = sorted(
             n for n, m in sys.modules.items()
             if m is not None and (n == "jax" or n.startswith(("jax.", "jaxlib", "flax", "optax"))
@@ -131,6 +142,14 @@ def _cfg(impl="tabular"):
             cfg, make_policy(cfg), None, tcom.make_ratings(cfg, np.random.default_rng(0)), 0, 1, 2,
             telemetry=None,
         ),
+        lambda cfg: tengine.PolicyEngine(manifest={}, params={}),
+        lambda cfg: texport.export_policy_bundle(cfg, None, "unused"),
+        lambda cfg: texport.export_bundle_from_checkpoint(cfg, "unused", "unused"),
+        lambda cfg: texport.aot_compile_bundle({}, {}, [1]),
+        lambda cfg: tgateway.build_bundle("unused"),
+        lambda cfg: tgateway.make_bundle_factory(),
+        lambda cfg: tgateway.build_registry(["unused"]),
+        lambda cfg: tgateway.build_gateway(["unused"]),
     ],
     ids=["init_shared_state", "init_policy_state", "tabular_init", "init_physical",
          "ratings_to", "stack_scenario_arrays", "init_shared_state_dqn", "dqn_init",
@@ -138,7 +157,10 @@ def _cfg(impl="tabular"):
          "device_scenario_traces", "device_episode_arrays", "make_device_episode_fn",
          "train_scenarios_chunked", "build_episode_arrays", "init_policy_state_ddpg",
          "ddpg_init", "train_community", "evaluate_community", "init_independent_state",
-         "evaluate_multi_community", "make_greedy_eval", "train_chunked_with_health"],
+         "evaluate_multi_community", "make_greedy_eval", "train_chunked_with_health",
+         "PolicyEngine", "export_policy_bundle", "export_bundle_from_checkpoint",
+         "aot_compile_bundle", "build_bundle", "make_bundle_factory", "build_registry",
+         "build_gateway"],
 )
 def test_entry_points_default_to_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
