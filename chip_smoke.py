@@ -146,10 +146,47 @@ Phases (each failure exits non-zero):
    requests to cfg1's table through the microbatch front, each equal to
    ``engine.act`` on its observation. Latency, requests/s, padding waste,
    occupancy and sheds in one ``{"serve": {...}}`` line.
-10. One JSON line with the DDPG rows' numbers, one with the chunked rows',
+10. The recurrent models (``models/ddpg_recurrent.py``,
+   ``train/recurrent.py``, ``models/forecast.py``), which launch none of
+   K1-K7 (their counts set to 0 first and read after). (a) The serving step
+   scanned over 96 slots from zeros against the whole-sequence actor on the
+   card (atol 1e-6) and the card's sequence against the CPU's (1e-5), A=1000
+   agents. (b) ``train_recurrent_community`` at A=8 over 3 days on the card
+   and on the CPU from one CPU draw (day rewards, costs and losses at rtol
+   2e-4), the seed-0 init digest printed only where it equals the CPU
+   tests' pin; then at A=1000 over 4 days: seconds a day, one day's rollout
+   and learn step timed alone and profiled, peak memory. (c) float32 and
+   float16 bundles of that state (int8 refused), each engine on the card
+   against the CPU engine at every bucket up to 64 on a live carry (1e-5),
+   each replay equal to the eager step bit for bit, four sessions stepped
+   over 96 slots against the whole sequence, latency per bucket. (d) The
+   continuous batcher's hidden ring stepped by hand (continuity, eviction
+   re-initialising bit for bit, slot exhaustion deferring), then the
+   gateway's continuous front, 8 clients x 64 requests with household ids,
+   each answer against its household's own carry through ``engine.act``;
+   latency and the ring's graph pool. (e) The forecaster at the reference's
+   widths, two epochs on the card against the CPU from one init and the
+   same permutations (loss rtol 1e-4), seconds per epoch.
+11. The scenario regime engine (``regimes/``, ``ops/auction.py``). (a) An
+   all-baseline portfolio against the plain shared episode, tabular,
+   A=1000, S=64, bit for bit. (b) The northstar config (shared DDPG, A=1000,
+   128 scenarios a chunk) over ``baseline, winter, ev_evening,
+   double_auction`` through ``train_scenarios_chunked(runner=)`` for 8
+   chunks, a swap to ``dr_spike, islanding_noon, cold_snap, uniform_price``
+   and 8 more: one graph captured, K1's launches counted against (1 + 2K) x
+   96, one chunk's replay after the swap equal to the eager episode bit for
+   bit, env-steps/s and the idle share beside a bare northstar runner timed
+   in the same call. (c) Counters against rewards (rtol 1e-4), zero grid
+   exchange in islanded slots, every slot's P2P power netting to zero. (d)
+   The card against the CPU at A=6, S=8 over 4 regimes (rewards rtol
+   2e-4). (e) ``evaluate_regimes`` over both portfolios at A=1000, 4
+   scenarios a regime.
+12. One JSON line with the DDPG rows' numbers, one with the chunked rows',
    one with the single rows', one with phase 7's rows, one with phase 8's,
-   one with every kernel's, then the last line ``{"ok": true, "device":
-   {...}}``.
+   one with phase 10's (``{"recurrent": ...}``), one with phase 11's
+   (``{"regimes": ...}``), one with every kernel's (K1's phase-11 launches
+   under ``at_128x1000.regime_launches``), then the last line ``{"ok":
+   true, "device": {...}}``.
 
 With arguments (a comma-separated list of phase numbers, e.g. ``5``) it
 builds and runs only those phases and prints no result line.
@@ -3558,6 +3595,690 @@ def phase_serving(counters):
     return out
 
 
+# --- phase 10 ---------------------------------------------------------------
+
+# The recurrent models: the day-granular DDPG at the northstar community's
+# size (A=1000, 4 days; card against CPU at A=8 over 3 days), its bundles
+# with buckets up to 64 and four sessions stepped over a whole day, the
+# continuous batcher's ring and the gateway, and the forecaster at the
+# reference's widths (ml.py:198-229: 20/100/100/20, windows 3/3/3, batch 32).
+RECURRENT_A, RECURRENT_DAYS = 1000, 4
+RECURRENT_SMALL_A, RECURRENT_SMALL_DAYS = 8, 3
+RECURRENT_BATCH, RECURRENT_SESSIONS, RECURRENT_LATENCY_CALLS = 64, 4, 20
+FORECAST_EPOCHS = 2
+
+
+def recurrent_config(tc, A):
+    return tc.default_config(
+        sim=tc.SimConfig(n_agents=A), train=tc.TrainConfig(implementation="ddpg_recurrent")
+    )
+
+
+def synced_seconds(fn):
+    """(``fn()``, host seconds ending in a device synchronisation)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+def recurrent_step_check(card, cpu):
+    """(a) The step scanned over 96 slots from zeros against the whole
+    sequence on the card (atol 1e-6), and the card's sequence against the
+    CPU's (TF32 off, atol 1e-5): A=1000 agents' days of random
+    observations."""
+    import torch
+
+    from p2pmicrogrid_tpu_torch.models.ddpg_recurrent import recurrent_actor_init_hidden, recurrent_actor_step
+
+    obs = torch.rand((RECURRENT_A, 96, 4), generator=torch.Generator().manual_seed(5))
+    obs_c = obs.cuda()
+    with torch.no_grad():
+        full = card.actor(obs_c)[..., 0]
+        h = recurrent_actor_init_hidden((RECURRENT_A,), card.actor.lstm_features, device="cuda")
+        steps = []
+        for t in range(96):
+            a, h = recurrent_actor_step(card.actor, obs_c[:, t], h)
+            steps.append(a)
+        scan_err = float((torch.stack(steps, 1) - full).abs().max())
+        cpu_err = float((full.cpu() - cpu.actor(obs)[..., 0]).abs().max())
+    if scan_err > 1e-6:
+        fail(f"phase 10: the step scanned from zeros differs from the sequence by {scan_err} > 1e-6")
+    if cpu_err > 1e-5:
+        fail(f"phase 10: the card's sequence differs from the CPU's by {cpu_err} > 1e-5")
+    rec = {"A": RECURRENT_A, "T": 96, "scan_max_abs_err": scan_err, "card_vs_cpu_max_abs_err": cpu_err}
+    log(f"phase 10: (a) {json.dumps(rec)}")
+    return rec
+
+
+def recurrent_training(tc):
+    """(b) ``train_recurrent_community`` at A=8 over 3 days on the card and
+    on the CPU from one CPU draw (rtol 2e-4), the seed-0 init digest against
+    the pinned one; then A=1000 over 4 days from a CPU-drawn init: seconds
+    a day, one day's rollout and one learn step timed alone and profiled,
+    peak memory. Returns (record, the trained A=1000 state, its config)."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch.convert import state_from_jax, state_to_numpy
+    from p2pmicrogrid_tpu_torch.data.traces import SLOTS_PER_DAY, synthetic_traces
+    from p2pmicrogrid_tpu_torch.draw_digests import PINNED_RECURRENT, recurrent_init_digest
+    from p2pmicrogrid_tpu_torch.envs.community import build_episode_arrays, init_physical, make_ratings, ratings_to
+    from p2pmicrogrid_tpu_torch.models.ddpg_recurrent import recurrent_ddpg_init, recurrent_ddpg_learn
+    from p2pmicrogrid_tpu_torch.train.recurrent import RecurrentDraws, rollout_day, train_recurrent_community
+
+    digest = recurrent_init_digest()
+    rec = {"init_digest": digest if digest == PINNED_RECURRENT else "differs from the CPU tests' pin",
+           "init_digest_equal": digest == PINNED_RECURRENT}
+    A = RECURRENT_SMALL_A
+    cfg = recurrent_config(tc, A)
+    gen = torch.Generator().manual_seed(0)
+    state0 = state_to_numpy(recurrent_ddpg_init(cfg.ddpg, gen, device="cpu"))
+    draws = RecurrentDraws(torch.randn((2, A), generator=gen),
+                           torch.randn((RECURRENT_SMALL_DAYS, SLOTS_PER_DAY, A), generator=gen))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        runs[dev] = train_recurrent_community(
+            cfg, RECURRENT_SMALL_DAYS, state=state_from_jax(state0, device=dev, cfg=cfg.ddpg),
+            draws=draws, device=dev,
+        )
+    small = {}
+    for field in ("day_rewards", "day_costs", "losses"):
+        got, ref = getattr(runs["cuda"], field), getattr(runs["cpu"], field)
+        rel = float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1e-12)))
+        if not np.isfinite(got).all() or rel > 2e-4:
+            fail(f"phase 10: A={A} {field} card {got} against CPU {ref}: rel err {rel} > 2e-4")
+        small[field] = {"card": got.tolist(), "cpu": ref.tolist(), "max_rel_err": rel}
+    rec["card_vs_cpu_A8"] = small
+
+    A = RECURRENT_A
+    cfg = recurrent_config(tc, A)
+    state = state_from_jax(
+        state_to_numpy(recurrent_ddpg_init(cfg.ddpg, torch.Generator().manual_seed(1), device="cpu")),
+        device="cuda", cfg=cfg.ddpg,
+    )
+    card_gen = torch.Generator(device="cuda").manual_seed(2)
+    torch.cuda.reset_peak_memory_stats()
+    res, secs = synced_seconds(lambda: train_recurrent_community(
+        cfg, RECURRENT_DAYS, card_gen, state=state, device="cuda"))
+    peak = torch.cuda.max_memory_allocated()
+    if not (np.isfinite(res.day_rewards).all() and np.isfinite(res.losses).all()):
+        fail(f"phase 10: A={A} training is not finite: {res.day_rewards} {res.losses}")
+    # One day's pieces alone, on a copy of the trained state.
+    ratings = make_ratings(cfg, np.random.default_rng(cfg.train.seed))
+    arrays = build_episode_arrays(cfg, synthetic_traces(), ratings, device="cuda")
+    day = type(arrays)(*(x[:SLOTS_PER_DAY] for x in arrays))
+    rd = ratings_to(ratings, "cuda")
+    copy = state_from_jax(state_to_numpy(res.state), device="cuda", cfg=cfg.ddpg)
+    phys = init_physical(cfg, torch.randn((2, A), generator=card_gen, device="cuda"), device="cuda")
+    normals = torch.randn((SLOTS_PER_DAY, A), generator=card_gen, device="cuda")
+    roll = lambda: rollout_day(cfg, copy.actor, phys, day, rd, normals)  # noqa: E731
+    ro, roll_s = synced_seconds(roll)
+    learn = lambda: recurrent_ddpg_learn(  # noqa: E731
+        cfg.ddpg, copy, ro.obs_seq, ro.act_seq, ro.reward_seq.sum(dim=-1), ro.obs_seq)
+    _, learn_s = synced_seconds(learn)
+    _, day_s = synced_seconds(lambda: (roll(), learn()))
+    kernels, _ = profile_episode(lambda: (roll(), learn()), SLOTS_PER_DAY, day_s)
+    busy = None if kernels is None else sum(ms for _, ms in kernels.values())
+    rec["A1000"] = dict(
+        A=A, days=RECURRENT_DAYS, seconds=secs, s_per_day=secs / RECURRENT_DAYS,
+        rollout_s=roll_s, learn_s=learn_s, rollout_plus_learn_s=day_s,
+        device_busy_ms_per_day=busy, device_ops_per_day=None if kernels is None else sum(
+            n for n, _ in kernels.values()),
+        idle_share=None if busy is None else 1 - busy / (day_s * 1e3),
+        peak_memory_gib=peak / 2**30, day_rewards=res.day_rewards.tolist(),
+        day_costs=res.day_costs.tolist(), losses=res.losses.tolist(),
+    )
+    log(f"phase 10: (b) {json.dumps(rec)}")
+    return rec, res.state, cfg
+
+
+def recurrent_reference_actor(path):
+    """The bundle's actor as the engine loads it (float32), on the card."""
+    import torch
+
+    from p2pmicrogrid_tpu_torch.convert import network_from_tree
+    from p2pmicrogrid_tpu_torch.models.ddpg_recurrent import RecurrentActor
+    from p2pmicrogrid_tpu_torch.serve import load_policy_bundle
+    from p2pmicrogrid_tpu_torch.serve.engine import _float32_tree
+
+    _, params = load_policy_bundle(path)
+    return network_from_tree(_float32_tree(params), RecurrentActor, torch.device("cuda"))
+
+
+def recurrent_bundles(cfg, state, tmp):
+    """(c) float32 and float16 bundles of the A=1000 state, int8 refused.
+    Each engine on the card against the CPU engine at every bucket up to 64
+    on a live carry (actions and carry within 1e-5), each replay equal to
+    the eager step bit for bit; four sessions stepped over 96 slots against
+    the whole sequence; the float32 engine's latency per bucket. Returns
+    (record, {dtype: path})."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch.serve import PolicyEngine, calibration_obs, export_policy_bundle
+
+    A = RECURRENT_A
+    try:
+        export_policy_bundle(cfg, state, os.path.join(tmp, "rec_int8"), dtype="int8", device="cuda")
+        fail("phase 10: an int8 recurrent export was accepted")
+    except ValueError as exc:
+        if "int8" not in str(exc):
+            raise
+    rec, paths = {"int8": "refused"}, {}
+    for dtype in ("float32", "float16"):
+        path = paths[dtype] = export_policy_bundle(cfg, state, os.path.join(tmp, f"rec_{dtype}"),
+                                                   dtype=dtype, device="cuda")
+        eng = PolicyEngine(bundle_dir=path, max_batch=RECURRENT_BATCH, device="cuda")
+        cpu = PolicyEngine(bundle_dir=path, max_batch=RECURRENT_BATCH, device="cpu")
+        eng.warmup()
+        worst, latency = 0.0, {}
+        for b in eng.buckets:
+            obs = calibration_obs(b, A, seed=800 + b)
+            _, h = cpu.act(obs, np.zeros((b, A, eng.hidden_dim), np.float32))  # a live carry
+            got, got_h = eng.act(obs, h)
+            with torch.no_grad():
+                ea, eh = eng.forward(torch.from_numpy(obs).cuda(), torch.from_numpy(h).cuda())
+            if not (np.array_equal(got, ea.cpu().numpy()) and np.array_equal(got_h, eh.cpu().numpy())):
+                fail(f"phase 10: {dtype} bucket {b}: the graph replay differs from the eager step")
+            ref, ref_h = cpu.act(obs, h)
+            worst = max(worst, float(np.abs(got - ref).max()), float(np.abs(got_h - ref_h).max()))
+            if dtype == "float32":
+                latency[str(b)] = dict(zip(("replay_p50_ms", "replay_p99_ms"),
+                                           latency_ms(lambda: eng.act(obs, h), RECURRENT_LATENCY_CALLS)))
+        if worst > 1e-5:
+            fail(f"phase 10: {dtype} engine: card against CPU max abs err {worst} > 1e-5")
+        # Four sessions over a whole day against the whole sequence.
+        n = RECURRENT_SESSIONS
+        seq = calibration_obs(96 * n, A, seed=77).reshape(96, n, A, 4)
+        sessions = eng.init_sessions(n)
+        served = []
+        for t in range(96):
+            sessions, hp = eng.step(sessions, seq[t])
+            served.append(hp)
+        served = np.stack(served)  # [96, n, A]
+        with torch.no_grad():
+            x = torch.from_numpy(np.ascontiguousarray(seq.transpose(1, 2, 0, 3)).reshape(n * A, 96, 4)).cuda()
+            full = recurrent_reference_actor(path)(x)[..., 0].reshape(n, A, 96).permute(2, 0, 1)
+        seq_err = float(np.abs(served - full.cpu().numpy()).max())
+        if seq_err > 1e-5 or sessions.slots.cpu().tolist() != [96] * n:
+            fail(f"phase 10: {dtype} 96 session steps against the whole sequence: {seq_err} > 1e-5")
+        rec[dtype] = dict(
+            buckets=eng.buckets, card_vs_cpu_max_abs_err=worst, replay_equals_eager=True,
+            sessions=n, session_steps=96, sessions_vs_sequence_max_abs_err=seq_err,
+            captures=eng.stats["aot_compiles"], capture_s_total=sum(eng.capture_s.values()),
+            graph_pool_bytes=eng.graph_pool_bytes, param_bytes=eng.manifest["param_bytes"],
+        )
+        if latency:
+            rec[dtype]["latency"] = latency
+    log(f"phase 10: (c) {json.dumps(rec)}")
+    return rec, paths
+
+
+def recurrent_ring(path):
+    """(d) The continuous batcher's ring on the card, stepped by hand:
+    households keep their trajectories, an evicted slot re-initialises bit
+    for bit, slot exhaustion defers. Then the gateway's continuous front:
+    8 clients x 64 requests with household ids, each answer against that
+    household's own carry stepped through ``engine.act``; latency and the
+    ring's graph pool."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.serve import (
+        AdmissionConfig,
+        ContinuousBatcher,
+        GatewayServer,
+        PolicyEngine,
+        build_gateway,
+        calibration_obs,
+    )
+
+    A = RECURRENT_A
+    eng = PolicyEngine(bundle_dir=path, max_batch=RECURRENT_BATCH, device="cuda")
+    eng.warmup(include_step=False)
+    obs = calibration_obs(8, A, seed=91)
+    fresh = lambda i: eng.act(obs[i][None], eng.init_hidden(1))[0][0]  # noqa: E731
+    rec = {}
+    with ContinuousBatcher(eng, max_slots=4, autostart=False) as cb:
+        warmed = cb.warmup()
+        got = {h: [] for h in ("h0", "h1", "h2")}
+        for t in range(5):
+            futs = {h: cb.submit(obs[t], household=h) for h in got}
+            cb.step_once()
+            for h, f in futs.items():
+                got[h].append(f.result(5))
+        h = eng.init_hidden(1)
+        cont = 0.0
+        for t in range(5):
+            a, h = eng.act(obs[t][None], h)
+            cont = max(cont, max(float(np.abs(got[k][t] - a[0]).max()) for k in got))
+        if cont > 1e-5:
+            fail(f"phase 10: ring continuity against engine.act: {cont} > 1e-5")
+        rec.update(warmed=warmed, ring_graph_pool_bytes=cb.graph_pool_bytes, continuity_max_abs_err=cont)
+    with ContinuousBatcher(eng, max_slots=1, autostart=False) as cb:
+        cb.warmup([1])
+        for _ in range(2):
+            for i, hh in enumerate(("a", "b")):
+                f = cb.submit(obs[i], household=hh)
+                cb.step_once()
+                if not np.array_equal(f.result(5), fresh(i)):
+                    fail("phase 10: an evicted slot's re-init differs from a fresh carry")
+        evictions = cb.stats["evictions"]
+        fa, fb = cb.submit(obs[2], household="c"), cb.submit(obs[3], household="d")
+        cb.step_once()
+        deferred = cb.stats["slot_deferrals"]
+        if deferred != 1 or cb.stats["scratch_rows"] or fb.done():
+            fail(f"phase 10: slot exhaustion did not defer: {cb.stats}")
+        cb.step_once()
+        fa.result(5), fb.result(5)
+        rec.update(eviction_reinit_bit_exact=True, evictions=evictions, deferrals=deferred)
+    gateway = build_gateway([path], max_batch=RECURRENT_BATCH, device="cuda", batching="continuous",
+                            admission=AdmissionConfig(**SERVE_ADMISSION), max_slots=64)
+    bundle = gateway.registry.get(gateway.registry.default_hash)
+    server = GatewayServer(gateway)
+    server.start()
+    try:
+        obs_c = [calibration_obs(SERVE_CLIENT_REQUESTS, A, seed=520 + c) for c in range(SERVE_CLIENTS)]
+        households = [[f"home-{c}-{i % 4}" for i in range(SERVE_CLIENT_REQUESTS)] for c in range(SERVE_CLIENTS)]
+        answers, times, wall, _ = drive_gateway(gateway, obs_c, households)
+        occ = bundle.telemetry.summary()["histograms"].get("serve.batch_occupancy", {})
+        ring_pool = bundle.queue.graph_pool_bytes
+    finally:
+        server.stop()
+    failed = [a for a in answers if a[2] != 200]
+    if failed or len(answers) != SERVE_CLIENTS * SERVE_CLIENT_REQUESTS:
+        fail(f"phase 10: recurrent gateway: {len(failed)} failed of {len(answers)}: {failed[:3]}")
+    carries, exact, worst = {}, 0, 0.0
+    for c, i, _, actions, _, _ in sorted(answers, key=lambda a: (a[0], a[1])):
+        hh = households[c][i]
+        a, carries[hh] = bundle.engine.act(obs_c[c][i][None], carries.get(hh, bundle.engine.init_hidden(1)))
+        got = np.asarray(actions, np.float32)
+        exact += int(np.array_equal(got, a[0]))
+        worst = max(worst, float(np.abs(got - a[0]).max()))
+    if worst > 1e-5:
+        fail(f"phase 10: recurrent gateway answers differ from each household's carry by {worst} > 1e-5")
+    rec["gateway"] = dict(
+        front="continuous", requests=len(answers), households=len(carries), failed=0,
+        bit_equal_to_own_carry=exact, max_abs_diff_from_own_carry=worst,
+        p50_ms=float(np.percentile(times, 50)), p99_ms=float(np.percentile(times, 99)),
+        requests_per_s=len(answers) / wall, occupancy_mean=occ.get("mean"),
+        ring_graph_pool_bytes=ring_pool, engine_graph_pool_bytes=bundle.engine.graph_pool_bytes,
+    )
+    log(f"phase 10: (d) {json.dumps(rec)}")
+    return rec
+
+
+def forecaster_check():
+    """(e) The forecaster at the reference's widths: features built from
+    ``synthetic_traces()`` as the JAX CLI builds them (cli.py:1518-1529),
+    two epochs on the card against the CPU from one init and the same
+    permutations (loss rtol 1e-4); seconds per epoch."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch.config import ForecastConfig
+    from p2pmicrogrid_tpu_torch.convert import greedy_tree, network_from_tree
+    from p2pmicrogrid_tpu_torch.data.traces import synthetic_traces
+    from p2pmicrogrid_tpu_torch.models import forecast as fc
+    from p2pmicrogrid_tpu_torch.models.networks import adam
+
+    cfg = ForecastConfig()
+    tr = synthetic_traces().normalized()
+    feats = np.stack([tr.time, tr.t_out / 20.0, tr.load[:, 0], tr.pv[:, 0]], axis=1)
+    x, y = fc.make_windows(feats, cfg.input_width, cfg.label_width, cfg.shift)
+    cpu = fc.forecast_init(cfg, x.shape[-1], torch.Generator().manual_seed(0), device="cpu")
+    model = network_from_tree(greedy_tree(cpu.params), fc.ForecastModel, torch.device("cuda"))
+    card = fc.ForecastState(model, adam(model, cfg.learning_rate))
+    data = {dev: (torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)) for dev in ("cuda", "cpu")}
+    epochs = []
+    for e in range(FORECAST_EPOCHS):
+        perm = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(10 + e))
+        (_, loss_c), secs_c = synced_seconds(lambda: fc.forecast_train_epoch(cfg, card, *data["cuda"], perm=perm))
+        start = time.perf_counter()
+        _, loss_p = fc.forecast_train_epoch(cfg, cpu, *data["cpu"], perm=perm)
+        secs_p = time.perf_counter() - start
+        loss_c, loss_p = float(loss_c), float(loss_p)
+        rel = abs(loss_c - loss_p) / abs(loss_p)
+        if rel > 1e-4:
+            fail(f"phase 10: forecaster epoch {e}: card loss {loss_c} against CPU {loss_p} (rel {rel} > 1e-4)")
+        epochs.append(dict(card_loss=loss_c, cpu_loss=loss_p, rel_err=rel, card_s=secs_c, cpu_s=secs_p))
+    rec = dict(windows=int(x.shape[0]), batch=cfg.batch_size, batches_per_epoch=int(x.shape[0]) // cfg.batch_size,
+               widths=[cfg.hidden_pre, cfg.hidden_mid, cfg.lstm_features, cfg.hidden_post], epochs=epochs)
+    log(f"phase 10: (e) {json.dumps(rec)}")
+    return rec
+
+
+def phase_recurrent(counters):
+    """Phase 10: the recurrent models on the card; K1-K7 never launch."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.convert import state_from_jax, state_to_numpy
+    from p2pmicrogrid_tpu_torch.models.ddpg_recurrent import recurrent_ddpg_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    start = time.perf_counter()
+    reset(counters)
+    out = {}
+    cfg = recurrent_config(tc, RECURRENT_A)
+    cpu = recurrent_ddpg_init(cfg.ddpg, torch.Generator().manual_seed(3), device="cpu")
+    card = state_from_jax(state_to_numpy(cpu), device="cuda", cfg=cfg.ddpg)
+    out["step_vs_sequence"] = recurrent_step_check(card, cpu)
+    out["training"], state, cfg = recurrent_training(tc)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recurrent_")
+    try:
+        out["bundles"], paths = recurrent_bundles(cfg, state, tmp)
+        out["serving"] = recurrent_ring(paths["float32"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["forecaster"] = forecaster_check()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if any(launches.values()):
+        fail(f"phase 10: the recurrent models launched hand-written kernels: {launches}")
+    out["kernel_launches"] = launches
+    out["seconds"] = time.perf_counter() - start
+    return out
+
+
+# --- phase 11 ---------------------------------------------------------------
+
+# The scenario regime engine at the northstar config (shared DDPG, battery
+# on, A=1000, 128 scenarios a chunk, K1 bf16 at [128,1000]): 32 scenarios of
+# each regime, 8 chunks an episode, then a swap to a held-out portfolio.
+REGIME_TRAIN = ("baseline", "winter", "ev_evening", "double_auction")
+REGIME_HELD_OUT = ("dr_spike", "islanding_noon", "cold_snap", "uniform_price")
+REGIME_K, REGIME_EVAL_S = 8, 4
+REGIME_PLAIN_A, REGIME_PLAIN_S = 1000, 64
+
+
+def regime_baseline_vs_plain(counters, tc):
+    """(a) An all-baseline portfolio against the plain shared episode on the
+    card: tabular, A=1000, S=64, one episode from one state and seed,
+    rewards, losses and the table bit for bit; K1 once a slot each."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import regimes as rg
+    from p2pmicrogrid_tpu_torch.envs.community import make_ratings, ratings_to
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+    from p2pmicrogrid_tpu_torch.parallel.device_gen import device_episode_arrays
+    from p2pmicrogrid_tpu_torch.train import make_policy
+
+    A, S = REGIME_PLAIN_A, REGIME_PLAIN_S
+    cfg = chunked_config(tc, "tabular", A, S)
+    ratings = make_ratings(cfg, np.random.default_rng(42))
+    policy = make_policy(cfg)
+    arrays = device_episode_arrays(cfg, ratings_to(ratings, "cuda"), S,
+                                   generator=torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    fns = {
+        "plain": sc.make_shared_episode_fn(cfg, policy, arrays, ratings),
+        "regime": rg.make_regime_episode_fn(
+            cfg, policy, ratings, rg.build_portfolio(["baseline"], S, device="cuda").scenario_params, arrays_s=arrays),
+    }
+    out = {}
+    for name, fn in fns.items():
+        pol, scen = sc.init_shared_state(cfg, "cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+        reset(counters)
+        (pol, _), ys = fn((pol, scen), torch.Generator(device="cuda").manual_seed(7))
+        torch.cuda.synchronize()
+        out[name] = (ys, pol.q_table.clone(), counters["merged_min_sums"].launches)
+    (ys_p, q_p, k_p), (ys_r, q_r, k_r) = out["plain"], out["regime"]
+    equal = all(torch.equal(a, b) for a, b in zip(ys_p, ys_r)) and torch.equal(q_p, q_r)
+    if not equal or k_p != 96 or k_r != 96:
+        fail(f"phase 11: all-baseline regime episode differs from the plain one (K1 {k_p}, {k_r})")
+    rec = {"A": A, "S": S, "impl": "tabular", "bit_equal": True, "k1_launches_each": k_r}
+    log(f"phase 11: (a) {json.dumps(rec)}")
+    return rec
+
+
+def regime_chunk_runner(cfg, policy, ratings, portfolio, graph):
+    """A regime episode over traces made on the card and its chunk runner:
+    ``REGIME_K`` chunks through the graph, or one chunk eagerly."""
+    from p2pmicrogrid_tpu_torch import regimes as rg
+    from p2pmicrogrid_tpu_torch.envs.community import ratings_to
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+    from p2pmicrogrid_tpu_torch.parallel.device_gen import device_episode_arrays
+
+    S = cfg.sim.n_scenarios
+    rd = ratings_to(ratings, "cuda")
+    fn = rg.make_regime_episode_fn(
+        cfg, policy, ratings, portfolio.scenario_params,
+        arrays_fn=lambda d: device_episode_arrays(cfg, rd, S, draws=d), n_scenarios=S, device="cuda",
+    )
+    return sc.make_chunked_episode_runner(cfg, fn, REGIME_K if graph else 1, graph=graph)
+
+
+def regime_northstar(counters, tc, card):
+    """(b) The northstar config over the training portfolio through
+    ``train_scenarios_chunked(runner=)``: an episode of 8 chunks (the
+    capture), a swap to the held-out portfolio, an episode more (timed);
+    one capture in all; K1 once a slot of every chunk run; one chunk's
+    replay after the swap against the eager episode with the new regimes,
+    bit for bit; env-steps/s and the idle share beside a bare northstar
+    runner timed in the same call. Returns (record, trained state, cfg,
+    policy, ratings, held-out portfolio, K1 launches on the main path)."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import regimes as rg
+    from p2pmicrogrid_tpu_torch.envs.community import make_ratings
+    from p2pmicrogrid_tpu_torch.parallel import graph as cuda_graph
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+    from p2pmicrogrid_tpu_torch.train import make_policy
+
+    cfg = northstar_config()
+    S, T, K = cfg.sim.n_scenarios, 96, REGIME_K
+    ratings = make_ratings(cfg, np.random.default_rng(42))
+    policy = make_policy(cfg)
+    pol0 = sc.init_shared_pol_state(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    train_pf = rg.build_portfolio(list(REGIME_TRAIN), S, device="cuda")
+    held_pf = rg.build_portfolio(list(REGIME_HELD_OUT), S, device="cuda")
+    # The bare northstar runner, timed in this call; one chunk's replay
+    # under the profiler (busy a chunk against the timed episode's share).
+    _, _, bare = chunked_runner(cfg, True, K)
+    pol = copy_state(cfg, pol0, "cuda")
+    sc.train_scenarios_chunked(cfg, policy, pol, ratings, 0, 1, K, runner=bare)
+    _, _, _, bare_s = sc.train_scenarios_chunked(cfg, policy, pol, ratings, 1, 1, K, runner=bare, episode0=1)
+    (captured,) = bare.graphs.values()
+    bare_kernels, _ = profile_episode(lambda: cuda_graph.replay(captured[0]), T, bare_s / K)
+    del bare, captured
+    torch.cuda.empty_cache()
+    # The regime runner: capture, swap, timed episode; K1 counted.
+    runner = regime_chunk_runner(cfg, policy, ratings, train_pf, graph=True)
+    pol = copy_state(cfg, pol0, "cuda")
+    reset(counters)
+    pol, r0, _, warm_s = sc.train_scenarios_chunked(cfg, policy, pol, ratings, 0, 1, K, runner=runner)
+    runner.episode_fn.with_regimes(held_pf.scenario_params)
+    pol, r1, l1, secs = sc.train_scenarios_chunked(cfg, policy, pol, ratings, 1, 1, K, runner=runner, episode0=1)
+    k1 = counters["merged_min_sums"].launches
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if launches != {name: ((1 + 2 * K) * T if name == "merged_min_sums" else 0) for name in counters}:
+        fail(f"phase 11: regime northstar launches {launches}, expected K1 {(1 + 2 * K) * T}")
+    if len(runner.graphs) != 1:
+        fail(f"phase 11: {len(runner.graphs)} graphs captured across the portfolio swap, expected 1")
+    if not (np.isfinite(r0).all() and np.isfinite(r1).all() and np.isfinite(l1).all()):
+        fail("phase 11: regime northstar rewards or losses are not finite")
+    (captured,) = runner.graphs.values()
+    graph = graph_stats(captured[0])
+    # One chunk's replay after the swap against the eager episode, from one
+    # copy of the state (the runner writes its result into ``pol``, the
+    # state it captured).
+    start = copy_state(cfg, pol, "cuda")
+    seeds = sc.chunk_seed_schedule(5, 3, 1, K)[0]
+    eager = regime_chunk_runner(cfg, policy, ratings, held_pf, graph=False)
+    out_e = eager(copy_state(cfg, start, "cuda"), seeds=seeds[:1])
+    out_g = runner(copy_state(cfg, start, "cuda"), seeds=seeds)
+    for i, what in ((1, "rewards"), (2, "losses")):
+        if not torch.equal(out_g[i][:S], out_e[i]):
+            fail(f"phase 11: the chunk replay after the swap differs from the eager episode ({what})")
+    regime_kernels, _ = profile_episode(lambda: cuda_graph.replay(captured[0]), T, secs / K)
+    busy = lambda k: None if k is None else sum(ms for _, ms in k.values())  # noqa: E731
+    steps = T * S * K
+    rec = dict(
+        card=card, A=cfg.sim.n_agents, S=S, K=K, portfolios=[list(REGIME_TRAIN), list(REGIME_HELD_OUT)],
+        scenarios_per_regime=S // 4, captures=len(runner.graphs), graph=graph,
+        replay_after_swap_equals_eager=True, k1_launches=k1, k1_expected=(1 + 2 * K) * T,
+        env_steps_per_s=steps / secs, episode_s=secs, s_per_chunk=secs / K, warm_episode_s=warm_s,
+        bare_env_steps_per_s=steps / bare_s, bare_s_per_chunk=bare_s / K,
+        regime_over_bare_chunk_time=secs / bare_s,
+        busy_ms_per_chunk=busy(regime_kernels), bare_busy_ms_per_chunk=busy(bare_kernels),
+        idle_share=None if busy(regime_kernels) is None else 1 - busy(regime_kernels) * K / (secs * 1e3),
+        bare_idle_share=None if busy(bare_kernels) is None else 1 - busy(bare_kernels) * K / (bare_s * 1e3),
+        rewards_mean=[float(r0.mean()), float(r1.mean())],
+    )
+    log(f"phase 11: (b) {json.dumps(rec)}")
+    return rec, pol, cfg, policy, ratings, held_pf, k1
+
+
+def regime_counters_and_physics(cfg, policy, pol, ratings, portfolio):
+    """(c) At the northstar width over the held-out portfolio: one
+    collecting training episode (counters' rewards against the episode's,
+    rtol 1e-4), and one greedy day slot by slot: zero grid exchange in the
+    islanded scenarios' window, exactly, and every slot's matched P2P power
+    netting to zero (atol 1e-4 of its scale)."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import regimes as rg
+    from p2pmicrogrid_tpu_torch.envs.community import EpisodeArrays, init_physical, ratings_to
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+    from p2pmicrogrid_tpu_torch.parallel.device_gen import device_episode_arrays
+
+    S, A = cfg.sim.n_scenarios, cfg.sim.n_agents
+    rd = ratings_to(ratings, "cuda")
+    fn = rg.make_regime_episode_fn(
+        cfg, policy, ratings, portfolio.scenario_params,
+        arrays_fn=lambda d: device_episode_arrays(cfg, rd, S, draws=d), n_scenarios=S,
+        collect_regime_metrics=True, one_hot=portfolio.one_hot, device="cuda",
+    )
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    scen = sc.init_scen_state_only(cfg, "cuda", generator=gen)
+    _, (rewards, _, rc) = fn((copy_state(cfg, pol, "cuda"), scen), gen)
+    want = (rewards @ portfolio.one_hot).cpu().numpy()
+    got = rc.reward.cpu().numpy()
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    if rel > 1e-4:
+        fail(f"phase 11: counters' rewards {got} against the episode's {want} (rel {rel} > 1e-4)")
+    rp = portfolio.scenario_params
+    arrays = rg.apply_weather_regimes(device_episode_arrays(cfg, rd, S, generator=gen, device="cuda"), rp)
+    xs = EpisodeArrays(*(x.transpose(0, 1) for x in arrays))
+    phys = init_physical(cfg, torch.randn((S, 2, A), generator=gen, device="cuda"), (S,), device="cuda")
+    ev = rg.init_ev_need(rp, A)
+    island = torch.nonzero(rp.outage_end_slot > rp.outage_start_slot)[:, 0]
+    worst, islanded_grid, islanded_slots = 0.0, 0.0, 0
+    with torch.no_grad():
+        for t in range(96):
+            phys, _, out, _, _, ev, _ = rg.regime_slot_batched(
+                cfg, policy, pol, phys, ev, tuple(x[t] for x in xs), None, rd, rp, explore=False)
+            net = out.p_p2p.sum(dim=-1).abs() / (out.p_p2p.abs().sum(dim=-1) + 1.0)
+            worst = max(worst, float(net.max()))
+            inside = (t >= rp.outage_start_slot[island]) & (t < rp.outage_end_slot[island])
+            if bool(inside.any()):
+                islanded_slots += int(inside.sum())
+                islanded_grid = max(islanded_grid, float(out.p_grid[island[inside]].abs().max()))
+    if islanded_grid != 0.0 or islanded_slots == 0:
+        fail(f"phase 11: grid exchange {islanded_grid} in {islanded_slots} islanded scenario-slots")
+    if worst > 1e-4:
+        fail(f"phase 11: matched P2P power does not net to zero: {worst} > 1e-4 of its scale")
+    rec = dict(counters_vs_rewards_max_rel_err=rel, counters=rg.rc_to_dicts(rc, list(portfolio.names)),
+               islanded_scenario_slots=islanded_slots, islanded_max_abs_grid_w=islanded_grid,
+               p2p_net_max_share=worst)
+    log(f"phase 11: (c) {json.dumps(rec)}")
+    return rec
+
+
+def regime_small_parity(tc):
+    """(d) A=6, S=8 over 4 regimes, one episode on the card and on the CPU
+    from the same CPU draws and state, tabular and shared DDPG: rewards
+    rtol 2e-4 (the card's factored clearing against the CPU's matrix
+    path)."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import regimes as rg
+    from p2pmicrogrid_tpu_torch.convert import state_from_jax, state_to_numpy
+    from p2pmicrogrid_tpu_torch.envs.community import make_ratings
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+    from p2pmicrogrid_tpu_torch.train import make_policy
+
+    names = ["winter", "ev_evening", "islanding_noon", "uniform_price"]
+    rec = {}
+    for impl in ("tabular", "ddpg"):
+        cfg = chunked_config(tc, impl, 6, 8, buffer_size=16, batch_size=4)
+        ratings = make_ratings(cfg, np.random.default_rng(42))
+        policy = make_policy(cfg)
+        arrays = sc.stack_scenario_arrays(cfg, sc.make_scenario_traces(cfg, seed=0), ratings, "cpu")
+        pol, scen = sc.init_shared_state(cfg, "cpu", generator=torch.Generator().manual_seed(0))
+        pol_np = state_to_numpy(pol)
+        scen_np = None if scen is None else state_to_numpy(scen)
+        sub = {"ddpg": cfg.ddpg}.get(impl)
+        out, draws = {}, None
+        for dev in ("cpu", "cuda"):
+            arr = type(arrays)(*(x.to(dev) for x in arrays))
+            rp = rg.build_portfolio(names, 8, device=dev).scenario_params
+            fn = rg.make_regime_episode_fn(cfg, policy, ratings, rp, arrays_s=arr)
+            if draws is None:
+                draws = fn.draw(torch.Generator().manual_seed(1))
+            carry = (state_from_jax(pol_np, device=dev, cfg=sub),
+                     None if scen_np is None else state_from_jax(scen_np, device=dev))
+            _, (r, _) = fn(carry, draws=sc._map_tensors(lambda x: x.to(dev), draws))
+            out[dev] = r.cpu().numpy()
+        rel = float(np.max(np.abs(out["cuda"] - out["cpu"]) / np.abs(out["cpu"])))
+        if rel > 2e-4:
+            fail(f"phase 11: A=6 S=8 {impl} regime rewards card {out['cuda']} against CPU {out['cpu']}: {rel}")
+        rec[impl] = {"max_rel_err": rel, "rewards_card": out["cuda"].tolist()}
+    log(f"phase 11: (d) {json.dumps(rec)}")
+    return rec
+
+
+def regime_evaluation(cfg, policy, pol, ratings):
+    """(e) ``evaluate_regimes`` of the trained northstar learner over the
+    training and the held-out portfolios, 4 evaluation scenarios a regime,
+    its ``regime_eval`` events counted."""
+    from p2pmicrogrid_tpu_torch import regimes as rg
+    from p2pmicrogrid_tpu_torch.telemetry.registry import MemorySink, Telemetry
+
+    sink = MemorySink()
+    tel = Telemetry(sinks=[sink])
+    rec = {}
+    for label, names, held in (("train", REGIME_TRAIN, False), ("held_out", REGIME_HELD_OUT, True)):
+        start = time.perf_counter()
+        rows = rg.evaluate_regimes(cfg, policy, pol, ratings, list(names), s_per_regime=REGIME_EVAL_S,
+                                   telemetry=tel, held_out=held, device="cuda")
+        rec[label] = {"seconds": time.perf_counter() - start, "rows": rows}
+    tel.close()
+    events = sum(r.get("kind") == "regime_eval" for r in sink.records)
+    if events != len(REGIME_TRAIN) + len(REGIME_HELD_OUT):
+        fail(f"phase 11: {events} regime_eval events, expected {len(REGIME_TRAIN) + len(REGIME_HELD_OUT)}")
+    rec["regime_eval_events"] = events
+    log(f"phase 11: (e) {json.dumps(rec)}")
+    return rec
+
+
+def phase_regimes(counters, card):
+    """Phase 11: the regime engine on the card. Returns (record, K1's
+    launches on (b)'s main path)."""
+    import torch
+
+    from p2pmicrogrid_tpu_torch import config as tc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    start = time.perf_counter()
+    out = {"baseline_vs_plain": regime_baseline_vs_plain(counters, tc)}
+    out["northstar"], pol, cfg, policy, ratings, held_pf, k1 = regime_northstar(counters, tc, card)
+    out["counters_and_physics"] = regime_counters_and_physics(cfg, policy, pol, ratings, held_pf)
+    out["card_vs_cpu"] = regime_small_parity(tc)
+    out["evaluation"] = regime_evaluation(cfg, policy, pol, ratings)
+    out["seconds"] = time.perf_counter() - start
+    return out, k1
+
+
 def main() -> None:
     import torch
 
@@ -3582,7 +4303,7 @@ def main() -> None:
     # With no arguments every phase runs (the check); a comma-separated list
     # of phase numbers (e.g. "2,5") runs only those, builds first, and prints
     # no result line.
-    all_phases = {"2", "3", "4", "5", "6", "7", "8", "9"}
+    all_phases = {"2", "3", "4", "5", "6", "7", "8", "9", "10", "11"}
     phases = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else all_phases
     start = time.perf_counter()
     card = phase_device_and_build()
@@ -3646,6 +4367,14 @@ def main() -> None:
     if "9" in phases:
         log(json.dumps({"serve": phase_serving(counters)}))
         log(f"phase 9 done ({time.perf_counter() - start:.1f} s)")
+    recurrent, regimes = {}, {}
+    if "10" in phases:
+        recurrent = phase_recurrent(counters)
+        log(f"phase 10 done ({time.perf_counter() - start:.1f} s)")
+    if "11" in phases:
+        regimes, regime_k1 = phase_regimes(counters, card)
+        launches["merged_min_sums"] += regime_k1
+        log(f"phase 11 done ({time.perf_counter() - start:.1f} s)")
     if phases != all_phases:
         log(f"partial run of phases {sorted(phases)}: no result ({time.perf_counter() - start:.1f} s)")
         return
@@ -3670,6 +4399,7 @@ def main() -> None:
             rec[key] = profiled[name].get((64, 1000, "tabular", rounds))
             rec["at_256x50"][key] = profiled[name].get((256, 50, "tabular", rounds))
             if name == "merged_min_sums":
+                rec["at_128x1000"]["regime_launches"] = regimes["northstar"]["k1_launches"]
                 rec["at_2048x50"][key] = profiled[name].get((2048, 50, "ddpg", 1))
                 rec["at_8x1000"]["launches_per_eval"] = guarded["northstar"]["eval_launches"]
                 rec["ddpg_64x1000"] = {key: profiled[name].get((64, 1000, "ddpg", 1))}
@@ -3692,6 +4422,8 @@ def main() -> None:
     log(json.dumps({"single_rows": single_rows}))
     log(json.dumps({"multi_rows": multi_rows}))
     log(json.dumps({"guarded": guarded}))
+    log(json.dumps({"recurrent": recurrent}))
+    log(json.dumps({"regimes": regimes}))
     log(json.dumps({"kernels": records}))
     log(f"total {time.perf_counter() - start:.1f} s")
     print(

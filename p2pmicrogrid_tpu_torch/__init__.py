@@ -11,7 +11,11 @@ with the fused slot, the whole slot as the one CUDA kernel
 made on the device and each chunk episode replayed as one CUDA graph
 (``parallel/device_gen.py``, ``parallel/graph.py``); and serving
 (``serve/``): policy bundles in the JAX package's format, a greedy engine
-with one CUDA graph per padding bucket, its fronts and the HTTP gateway.
+with one CUDA graph per padding bucket, its fronts and the HTTP gateway;
+the recurrent LSTM models (``models/ddpg_recurrent.py``, its day-granular
+trainer ``train/recurrent.py``, the forecaster ``models/forecast.py``),
+served through a hidden-state ring; and the scenario regime engine
+(``regimes/``, ``ops/auction.py``) through the chunk graph.
 Entry points default to ``device="cuda"`` and raise without a card unless the
 caller passes ``device="cpu"``.
 """

@@ -5,13 +5,15 @@ leaves already converted to numpy (``jax.tree.map(np.asarray, state)``) and
 returns the port's NamedTuple of the same name with tensors on ``device``:
 ``TabularState``, ``PhysState``, ``AgentRatings``, ``EpisodeArrays``,
 ``ReplayState``, ``LockstepReplay``, ``DQNState``, ``DDPGParams``,
-``DDPGState`` or ``DDPGScenState``. The match is by class name and field
+``DDPGState``, ``DDPGScenState`` or ``RecurrentDDPGState``. The match is by class name and field
 names, so this module imports nothing of the JAX package.
 
 A ``DQNState``, ``DDPGParams`` or ``DDPGState`` carries flax parameter trees,
 ``{"Dense_i": {"kernel", "bias"}}`` with the kernel ``[A, in, out]`` per
 agent or ``[in, out]`` shared, which load in place into the port's networks
-(the same layout), and optax's Adam states ``(ScaleByAdamState(count, mu,
+(the same layout; a ``RecurrentDDPGState``'s LSTM cell adds
+``OptimizedLSTMCell_0/{ii,if,ig,io}/kernel`` and ``{hi,hf,hg,ho}/{kernel,
+bias}``, ``models/networks.py::flax_leaves`` maps both), and optax's Adam states ``(ScaleByAdamState(count, mu,
 nu), EmptyState())``, which become ``torch.optim.Adam`` states at the same
 step count (``count`` is ``[A]`` per agent, a scalar shared). Adam's
 learning rate is not part of that state, so these need their config
@@ -47,8 +49,13 @@ from p2pmicrogrid_tpu_torch.config import DDPGConfig, DQNConfig
 from p2pmicrogrid_tpu_torch.device import resolve_device
 from p2pmicrogrid_tpu_torch.envs.community import AgentRatings, EpisodeArrays, PhysState
 from p2pmicrogrid_tpu_torch.models.ddpg import DDPGParams, DDPGState, make_optimizers
+from p2pmicrogrid_tpu_torch.models.ddpg_recurrent import (
+    RecurrentActor,
+    RecurrentCritic,
+    RecurrentDDPGState,
+)
 from p2pmicrogrid_tpu_torch.models.dqn import DQNState, make_optimizer
-from p2pmicrogrid_tpu_torch.models.networks import Actor, QNetwork
+from p2pmicrogrid_tpu_torch.models.networks import Actor, QNetwork, adam, flax_leaves
 from p2pmicrogrid_tpu_torch.models.replay import LockstepReplay, ReplayState
 from p2pmicrogrid_tpu_torch.models.tabular import TabularState
 from p2pmicrogrid_tpu_torch.parallel.scenarios import DDPGScenState
@@ -56,7 +63,6 @@ from p2pmicrogrid_tpu_torch.train.checkpoint import _nest, _walk_leaves
 
 _TENSOR_TYPES = {cls.__name__: cls for cls in (TabularState, PhysState, AgentRatings, EpisodeArrays)}
 _RING_TYPES = {cls.__name__: cls for cls in (ReplayState, LockstepReplay)}
-_LAYERS = ("Dense_0", "Dense_1", "Dense_2")
 
 
 class ScaleByAdamState(NamedTuple):
@@ -90,41 +96,61 @@ def _ring(np_tree, cls, dev):
     return cls(*(_tensor(b, dev) for b in bufs), int(cursor), int(count))
 
 
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _put(tree: dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
 def network_from_tree(tree: dict, cls, dev: torch.device):
-    """A flax parameter tree of ``QNetwork``/``Critic`` or ``Actor`` as the
-    port's module on ``dev``: per agent for ``[A, in, out]`` kernels, shared
-    for ``[in, out]`` (the share flag is the kernel's ndim, as the JAX
-    package's ``serve/export.py`` reads it)."""
+    """A flax parameter tree as the port's module ``cls`` on ``dev``:
+    ``QNetwork``/``Critic`` or ``Actor``, per agent for ``[A, in, out]``
+    kernels, shared for ``[in, out]`` (the share flag is the kernel's ndim,
+    as the JAX package's ``serve/export.py`` reads it); or a recurrent
+    network (``RecurrentActor``, ``RecurrentCritic``, the forecaster), its
+    widths read off the tree as the JAX package's export reads them."""
     kernel0 = np.asarray(tree["Dense_0"]["kernel"])
-    n_agents = kernel0.shape[0] if kernel0.ndim == 3 else None
-    d_in, hidden = kernel0.shape[-2:]
-    net = cls(n_agents, hidden, d_in - cls.action_dim, device=dev)
-    with torch.no_grad():
-        for name in _LAYERS:
-            layer = getattr(net, name)
-            layer.kernel.copy_(_tensor(tree[name]["kernel"], dev))
-            layer.bias.copy_(_tensor(tree[name]["bias"], dev))
+    if "OptimizedLSTMCell_0" in tree:
+        width = lambda name: np.asarray(tree[name]["bias"]).shape[-1]
+        last = max((k for k in tree if k.startswith("Dense_")), key=lambda k: int(k[6:]))
+        net = cls(
+            kernel0.shape[0] - cls.action_dim, device=dev,
+            hidden_pre=width("Dense_0"), hidden_mid=width("Dense_1"),
+            lstm_features=np.asarray(tree["OptimizedLSTMCell_0"]["hf"]["bias"]).shape[0],
+            hidden_post=width("Dense_2"), n_out=width(last),
+        )
+    else:
+        n_agents = kernel0.shape[0] if kernel0.ndim == 3 else None
+        d_in, hidden = kernel0.shape[-2:]
+        net = cls(n_agents, hidden, d_in - cls.action_dim, device=dev)
+    _load_net_(net, tree)
     return net
 
 
 def _load_adam(opt: torch.optim.Adam, net, opt_state) -> None:
     """optax's ``(ScaleByAdamState, EmptyState)`` of ``net`` into ``opt``."""
-    adam, _ = opt_state
-    if type(adam).__name__ != "ScaleByAdamState":
-        raise TypeError(f"state_from_jax: opt_state[0] must be ScaleByAdamState, got {type(adam).__name__}")
-    counts = np.asarray(adam.count).reshape(-1)
+    adam_state, _ = opt_state
+    if type(adam_state).__name__ != "ScaleByAdamState":
+        raise TypeError(
+            f"state_from_jax: opt_state[0] must be ScaleByAdamState, got {type(adam_state).__name__}"
+        )
+    counts = np.asarray(adam_state.count).reshape(-1)
     if not (counts == counts[0]).all():
         raise ValueError("state_from_jax: per-agent Adam step counts differ")
-    for name in _LAYERS:
-        for field in ("kernel", "bias"):
-            p = getattr(getattr(net, name), field)
-            # A capturable Adam (on the card) keeps its count on the device.
-            on = p.device if opt.defaults["capturable"] else "cpu"
-            opt.state[p] = {
-                "step": torch.tensor(float(counts[0]), dtype=torch.float32, device=on),
-                "exp_avg": _tensor(adam.mu[name][field], p.device),
-                "exp_avg_sq": _tensor(adam.nu[name][field], p.device),
-            }
+    for path, p in flax_leaves(net):
+        # A capturable Adam (on the card) keeps its count on the device.
+        on = p.device if opt.defaults["capturable"] else "cpu"
+        opt.state[p] = {
+            "step": torch.tensor(float(counts[0]), dtype=torch.float32, device=on),
+            "exp_avg": _tensor(_get(adam_state.mu, path), p.device),
+            "exp_avg_sq": _tensor(_get(adam_state.nu, path), p.device),
+        }
 
 
 def _target(tree: dict, cls, dev):
@@ -175,10 +201,28 @@ def _ddpg_state(np_tree, dev, cfg: DDPGConfig) -> DDPGState:
     )
 
 
+def _recurrent_state(np_tree, dev, cfg: DDPGConfig) -> RecurrentDDPGState:
+    _check_fields(np_tree, RecurrentDDPGState)
+    actor = network_from_tree(np_tree.actor, RecurrentActor, dev)
+    critic = network_from_tree(np_tree.critic, RecurrentCritic, dev)
+    actor_opt, critic_opt = adam(actor, cfg.actor_lr), adam(critic, cfg.critic_lr)
+    _load_adam(actor_opt, actor, np_tree.actor_opt)
+    _load_adam(critic_opt, critic, np_tree.critic_opt)
+    return RecurrentDDPGState(
+        actor=actor,
+        critic=critic,
+        actor_target=_target(np_tree.actor_target, RecurrentActor, dev),
+        critic_target=_target(np_tree.critic_target, RecurrentCritic, dev),
+        actor_opt=actor_opt,
+        critic_opt=critic_opt,
+    )
+
+
 _LEARNER_STATES = {
     "DQNState": (_dqn_state, DQNConfig),
     "DDPGParams": (_ddpg_params, DDPGConfig),
     "DDPGState": (_ddpg_state, DDPGConfig),
+    "RecurrentDDPGState": (_recurrent_state, DDPGConfig),
 }
 
 
@@ -211,28 +255,22 @@ def state_from_jax(np_tree, device="cuda", cfg=None):
 
 
 def _tree_to_numpy(net) -> dict:
-    return {
-        name: {
-            field: state_to_numpy(getattr(getattr(net, name), field))
-            for field in ("kernel", "bias")
-        }
-        for name in _LAYERS
-    }
+    tree: dict = {}
+    for path, p in flax_leaves(net):
+        _put(tree, path, state_to_numpy(p))
+    return tree
 
 
 def _adam_to_numpy(opt: torch.optim.Adam, net) -> tuple:
     mu, nu = {}, {}
     step = 0
-    for name in _LAYERS:
-        mu[name], nu[name] = {}, {}
-        for field in ("kernel", "bias"):
-            p = getattr(getattr(net, name), field)
-            st = opt.state.get(p, {})
-            zeros = np.zeros(tuple(p.shape), np.float32)
-            mu[name][field] = state_to_numpy(st["exp_avg"]) if st else zeros
-            nu[name][field] = state_to_numpy(st["exp_avg_sq"]) if st else zeros
-            step = int(st["step"]) if st else 0
-    shape = () if net.n_agents is None else (net.n_agents,)
+    for path, p in flax_leaves(net):
+        st = opt.state.get(p, {})
+        zeros = np.zeros(tuple(p.shape), np.float32)
+        _put(mu, path, state_to_numpy(st["exp_avg"]) if st else zeros)
+        _put(nu, path, state_to_numpy(st["exp_avg_sq"]) if st else zeros)
+        step = int(st["step"]) if st else 0
+    shape = () if getattr(net, "n_agents", None) is None else (net.n_agents,)
     count = np.full(shape, step, dtype=np.int32)
     return (ScaleByAdamState(count=count, mu=mu, nu=nu), EmptyState())
 
@@ -250,6 +288,15 @@ def state_to_numpy(tree):
             opt_state=_adam_to_numpy(tree.opt_state, tree.online),
             replay=state_to_numpy(tree.replay),
             epsilon=state_to_numpy(tree.epsilon),
+        )
+    if isinstance(tree, RecurrentDDPGState):
+        return RecurrentDDPGState(
+            actor=_tree_to_numpy(tree.actor),
+            critic=_tree_to_numpy(tree.critic),
+            actor_target=_tree_to_numpy(tree.actor_target),
+            critic_target=_tree_to_numpy(tree.critic_target),
+            actor_opt=_adam_to_numpy(tree.actor_opt, tree.actor),
+            critic_opt=_adam_to_numpy(tree.critic_opt, tree.critic),
         )
     if isinstance(tree, (DDPGParams, DDPGState)):
         params = dict(
@@ -350,25 +397,24 @@ def _copy_into(dst: torch.Tensor, src) -> None:
 
 
 def _load_net_(net, tree: dict) -> None:
-    for name in _LAYERS:
-        for field in ("kernel", "bias"):
-            _copy_into(getattr(getattr(net, name), field).data, tree[name][field])
+    with torch.no_grad():
+        for path, p in flax_leaves(net):
+            _copy_into(p.data, _get(tree, path))
 
 
 def _load_adam_(opt: torch.optim.Adam, net, opt_state) -> None:
     from p2pmicrogrid_tpu_torch.parallel.scenarios import _adam_leaves
 
-    adam, _ = opt_state
-    counts = np.asarray(adam.count).reshape(-1)
+    adam_state, _ = opt_state
+    counts = np.asarray(adam_state.count).reshape(-1)
     if not (counts == counts[0]).all():
         raise ValueError("load_state_: per-agent Adam step counts differ")
     _adam_leaves(opt, net)  # the state a first step would make, where there is none
-    for name in _LAYERS:
-        for field in ("kernel", "bias"):
-            st = opt.state[getattr(getattr(net, name), field)]
-            st["step"].fill_(float(counts[0]))
-            _copy_into(st["exp_avg"], adam.mu[name][field])
-            _copy_into(st["exp_avg_sq"], adam.nu[name][field])
+    for path, p in flax_leaves(net):
+        st = opt.state[p]
+        st["step"].fill_(float(counts[0]))
+        _copy_into(st["exp_avg"], _get(adam_state.mu, path))
+        _copy_into(st["exp_avg_sq"], _get(adam_state.nu, path))
 
 
 def load_state_(state, np_tree):
@@ -390,6 +436,12 @@ def load_state_(state, np_tree):
                 replay=load_state_(state.replay, np_tree.replay),
                 epsilon=load_state_(state.epsilon, np_tree.epsilon),
             )
+        if isinstance(state, RecurrentDDPGState):
+            for net in ("actor", "critic", "actor_target", "critic_target"):
+                _load_net_(getattr(state, net), getattr(np_tree, net))
+            _load_adam_(state.actor_opt, state.actor, np_tree.actor_opt)
+            _load_adam_(state.critic_opt, state.critic, np_tree.critic_opt)
+            return state
         if isinstance(state, (DDPGParams, DDPGState)):
             for net in ("actor", "critic", "actor_target", "critic_target"):
                 _load_net_(getattr(state, net), getattr(np_tree, net))

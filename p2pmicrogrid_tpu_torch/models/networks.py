@@ -50,6 +50,24 @@ def truncated_normal(shape, std: float, generator: Optional[torch.Generator] = N
         out = torch.where(outside, torch.empty_like(out).normal_(0.0, std, generator=generator), out)
 
 
+def require_full_float32(x: torch.Tensor, net: nn.Module) -> None:
+    """Refuse TF32 for ``net``'s matrix products on the card: TF32 keeps ~3
+    decimal digits, and the acts and the learn steps, like the JAX
+    reference, run in full float32."""
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            f"{type(net).__name__} runs in full float32: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False"
+        )
+
+
+def flax_leaves(net: nn.Module):
+    """``(flax path, parameter)`` of every parameter of ``net``: the
+    modules keep flax's names, so ``Dense_0.kernel`` is the path
+    ``("Dense_0", "kernel")`` of the JAX package's parameter tree."""
+    return [(tuple(name.split(".")), p) for name, p in net.named_parameters()]
+
+
 class Dense(nn.Module):
     """One flax ``Dense`` layer: ``y = x @ kernel + bias``, x ``[N, in]``."""
 
@@ -114,13 +132,7 @@ class _ThreeLayer(nn.Module):
             layer.reset_parameters(generator)
 
     def _layers(self, x: torch.Tensor) -> torch.Tensor:
-        if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-            # TF32 keeps ~3 decimal digits: the acts and the learn steps, like
-            # the JAX reference, run in full float32.
-            raise RuntimeError(
-                f"{type(self).__name__} runs in full float32: set "
-                "torch.backends.cuda.matmul.allow_tf32 = False"
-            )
+        require_full_float32(x, self)
         x = torch.relu(self.Dense_0(x))
         x = torch.relu(self.Dense_1(x))
         return self.Dense_2(x)

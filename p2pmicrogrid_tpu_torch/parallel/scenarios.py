@@ -456,6 +456,7 @@ def make_shared_episode_fn(
     n_scenarios: Optional[int] = None,
     collect_device_metrics: bool = False,
     device="cuda",
+    slot_hooks=None,
 ) -> Callable:
     """One shared-parameter training episode over S scenarios.
 
@@ -498,6 +499,14 @@ def make_shared_episode_fn(
     owns settlement and refuses it. ``record_only=True`` (DQN only) builds the replay-warmup episode: act and
     record transitions, no parameter update, loss 0 (the reference's
     ``init_buffers``, community.py:125-147).
+
+    ``slot_hooks`` changes the world the slots simulate (the regime engine,
+    ``regimes/train.py``): ``slot_hooks.begin(xs) -> xs'`` runs at the
+    start of every episode, after its traces are in place, on the
+    time-major slot inputs (the 7 ``EpisodeArrays`` fields, [T, S(, A)]) and
+    returns the inputs the slots read; ``slot_hooks.slot`` replaces
+    ``slot_dynamics_batched`` (same arguments and returns). Both run inside
+    a CUDA graph of the episode.
 
     ``episode.draw(generator, replay_count=0)`` makes every draw of one
     episode up front, on the device, as one ``EpisodeDraws`` (what a CUDA
@@ -553,6 +562,7 @@ def make_shared_episode_fn(
     batch_size = cfg.ddpg.batch_size if impl == "ddpg" else cfg.dqn.batch_size
     delay = cfg.ddpg.actor_delay_updates if impl == "ddpg" else 0
     tally = SlotTally(T) if collect_device_metrics else None
+    slot_fn = slot_dynamics_batched if slot_hooks is None else slot_hooks.slot
 
     def check_draws(draws):
         missing = []
@@ -640,9 +650,10 @@ def make_shared_episode_fn(
         phys_s = init_physical(cfg, normals, (S,), device=device)
         rewards = torch.empty((T, S), dtype=torch.float32, device=device)
         losses = torch.empty((T, S), dtype=torch.float32, device=device)
+        xs_ep = xs if slot_hooks is None else slot_hooks.begin(xs)
         for t in range(T):
-            phys_s, _, outputs, tr, ou = slot_dynamics_batched(
-                cfg, policy, pol_state, phys_s, tuple(x[t] for x in xs),
+            phys_s, _, outputs, tr, ou = slot_fn(
+                cfg, policy, pol_state, phys_s, tuple(x[t] for x in xs_ep),
                 slot_draws(t, generator, draws), ratings_d, explore=True, fused=fused,
                 explore_state=scen_state.ou if impl == "ddpg" else None,
                 settlement_hook=settlement_hook,
@@ -873,6 +884,7 @@ def make_independent_episode_fn(
     arrays_s: EpisodeArrays,
     ratings: AgentRatings,
     fused: Optional[bool] = None,
+    slot_hooks=None,
 ) -> Callable:
     """One training episode for each of S independent communities, each with
     its own per-agent learners (JAX source :336, the single community's
@@ -894,9 +906,11 @@ def make_independent_episode_fn(
     Rewards are the per-scenario sums over slots of the agent-mean reward,
     losses the per-scenario means of the learn loss. The learners update in
     place. ``fused`` (tabular and DQN) None resolves ``SimConfig.fused_slot``.
+    ``slot_hooks`` is ``make_shared_episode_fn``'s (the regime engine).
     """
     impl = cfg.train.implementation
     fused = resolve_use_fused(cfg) if fused is None else bool(fused)
+    slot_fn = slot_dynamics_batched if slot_hooks is None else slot_hooks.slot
     if fused and impl not in ("tabular", "dqn"):
         raise ValueError(f"fused episodes support tabular/dqn, got {impl!r}")
     device = arrays_s.load_w.device
@@ -934,6 +948,7 @@ def make_independent_episode_fn(
         phys = init_physical(cfg, normals, (S,), device=device)
         rewards = torch.empty((T, S), dtype=torch.float32, device=device)
         losses = torch.empty((T, S), dtype=torch.float32, device=device)
+        xs_ep = xs if slot_hooks is None else slot_hooks.begin(xs)
         for t in range(T):
             if draws is not None:
                 slot_draws = tuple(d[t] for d in rounds)
@@ -953,8 +968,8 @@ def make_independent_episode_fn(
                     count = min(ring.count + 1, ring.capacity)
                     idx = sample_indices(count, S * A, B, generator, device)
             ou = getattr(pol_state, "ou_state", None)
-            phys, pol_state, out, tr, ou = slot_dynamics_batched(
-                cfg_single, lifted, pol_state, phys, tuple(x[t] for x in xs), slot_draws,
+            phys, pol_state, out, tr, ou = slot_fn(
+                cfg_single, lifted, pol_state, phys, tuple(x[t] for x in xs_ep), slot_draws,
                 ratings_d, explore=True, fused=fused,
                 explore_state=None if ou is None else ou.reshape(S, A),
             )

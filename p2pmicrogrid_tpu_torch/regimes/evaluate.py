@@ -1,0 +1,158 @@
+"""Per-regime greedy evaluation: the regime dimension of every verdict.
+
+The port of the JAX package's ``regimes/evaluate.py``. ``make_regime_eval``
+is the regime-portfolio mirror of ``train/health.py::make_greedy_eval``: a
+greedy (explore=False) episode over a FIXED held-out mixed-regime scenario
+batch, returning per-regime cost and reward and the per-regime
+``RegimeCounters``, whatever the portfolio mixes. ``evaluate_regimes`` is
+the host-facing table: one dict per regime, each also emitted as a
+``regime_eval`` telemetry event.
+
+``evaluate_bundle_regimes`` grafts a serving bundle into a fresh learner
+through ``train/continual.py::state_from_bundle``, which is not ported yet
+(ROADMAP.md, Queue 1, item 10): it raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from p2pmicrogrid_tpu_torch.config import ExperimentConfig
+from p2pmicrogrid_tpu_torch.device import resolve_device
+from p2pmicrogrid_tpu_torch.envs.community import init_physical, ratings_to
+from p2pmicrogrid_tpu_torch.regimes.engine import (
+    apply_weather_regimes,
+    init_ev_need,
+    rc_add,
+    rc_from_slot,
+    rc_to_dicts,
+    rc_zero,
+    regime_slot_batched,
+)
+from p2pmicrogrid_tpu_torch.regimes.train import RegimePortfolio, build_portfolio
+
+# Held-out eval draws: distinct from the training seeds and from the health
+# eval's fixed set (train/health.py uses 10_000).
+REGIME_EVAL_SEED = 20_000
+
+
+def make_regime_eval(
+    cfg: ExperimentConfig,
+    policy,
+    ratings,
+    portfolio: RegimePortfolio,
+    s_per_regime: int = 4,
+    eval_seed: int = REGIME_EVAL_SEED,
+    device="cuda",
+):
+    """``fn(pol_state, generator=None, rp=None) -> (cost_r [R], reward_r
+    [R], RegimeCounters)`` over a fixed held-out batch of ``R *
+    s_per_regime`` scenarios (regime r owns scenarios [r*s, (r+1)*s), so
+    per-regime means are exact segment means), its traces made once on
+    ``device`` from a generator seeded ``eval_seed``. ``generator`` draws
+    the initial temperatures (default: seeded ``eval_seed + 1``); ``rp``
+    overrides the portfolio's [S] params (same regimes, other values)."""
+    from p2pmicrogrid_tpu_torch.parallel.device_gen import device_episode_arrays
+
+    dev = resolve_device(device)
+    R = portfolio.n_regimes
+    S = R * s_per_regime
+    A = cfg.sim.n_agents
+    block = np.repeat(np.arange(R), s_per_regime).astype(np.int32)
+    pf = build_portfolio(list(portfolio.specs), S, assignment=block, device=dev)
+    ratings_d = ratings_to(ratings, dev)
+    eval_arrays = device_episode_arrays(
+        cfg, ratings_d, S, generator=torch.Generator(device=dev).manual_seed(eval_seed), device=dev
+    )
+    counts = pf.one_hot.sum(dim=0)  # [R] scenarios per regime
+
+    @torch.no_grad()
+    def eval_fn(pol_state, generator: Optional[torch.Generator] = None, rp=None):
+        rp = pf.scenario_params if rp is None else rp
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(eval_seed + 1)
+        phys = init_physical(cfg, torch.randn((S, 2, A), generator=generator, device=dev), (S,), device=dev)
+        arrs = apply_weather_regimes(eval_arrays, rp)
+        xs = tuple(x.transpose(0, 1) for x in arrs)
+        ev_need = init_ev_need(rp, A)
+        rc = rc_zero(R, dev)
+        cost_s = torch.zeros((S,), device=dev)
+        reward_s = torch.zeros((S,), device=dev)
+        for t in range(xs[0].shape[0]):
+            phys, _, out, _, _, ev_need, extras = regime_slot_batched(
+                cfg, policy, pol_state, phys, ev_need, tuple(x[t] for x in xs), None,
+                ratings_d, rp, explore=False,
+            )
+            rc = rc_add(rc, rc_from_slot(cfg, out, extras, pf.one_hot))
+            cost_s = cost_s + out.cost.sum(dim=-1)
+            reward_s = reward_s + out.reward.mean(dim=-1)
+        return (cost_s @ pf.one_hot) / counts, (reward_s @ pf.one_hot) / counts, rc
+
+    eval_fn.portfolio = pf
+    eval_fn.s_per_regime = s_per_regime
+    eval_fn.arrays = eval_arrays
+    return eval_fn
+
+
+def evaluate_regimes(
+    cfg: ExperimentConfig,
+    policy,
+    pol_state,
+    ratings,
+    regimes: Sequence,
+    generator: Optional[torch.Generator] = None,
+    s_per_regime: int = 4,
+    eval_seed: int = REGIME_EVAL_SEED,
+    telemetry=None,
+    held_out: bool = False,
+    eval_fn=None,
+    bundle: Optional[str] = None,
+    device="cuda",
+) -> list:
+    """Per-regime greedy eval table: one dict per regime with the cost,
+    reward and counter breakdown (counters as per-scenario means), each
+    emitted as a ``regime_eval`` telemetry event when ``telemetry`` is
+    given. ``eval_fn`` (a ``make_regime_eval`` of the SAME regime list)
+    reuses its held-out batch across policies; ``bundle`` tags the events
+    with the evaluated policy's identity."""
+    if eval_fn is None:
+        names = list(regimes)
+        eval_fn = make_regime_eval(
+            cfg, policy, ratings, build_portfolio(names, len(names), device=device),
+            s_per_regime=s_per_regime, eval_seed=eval_seed, device=device,
+        )
+    cost_r, reward_r, rc = eval_fn(pol_state, generator)
+    names = list(eval_fn.portfolio.names)
+    rows = rc_to_dicts(rc, names)
+    # host-sync: the eval table is a host artifact.
+    cost_r, reward_r = cost_r.cpu().numpy(), reward_r.cpu().numpy()
+    s = eval_fn.s_per_regime
+    out = []
+    for i, row in enumerate(rows):
+        d = {
+            "regime": names[i],
+            "held_out": bool(held_out),
+            "cost_eur": float(cost_r[i]),
+            "reward": float(reward_r[i]),
+            "n_scenarios": s,
+            **{k: float(v) / s for k, v in row.items() if k not in ("regime", "cost_eur", "reward")},
+        }
+        out.append(d)
+        if telemetry is not None:
+            attrs = {k: (round(v, 6) if isinstance(v, float) else v) for k, v in d.items()}
+            if bundle is not None:
+                attrs["bundle"] = bundle
+            telemetry.event("regime_eval", **attrs)
+    return out
+
+
+def evaluate_bundle_regimes(*args, **kwargs) -> dict:
+    """Per-regime held-out eval of a serving bundle: needs
+    ``train/continual.py::state_from_bundle``, not ported yet."""
+    raise NotImplementedError(
+        "evaluate_bundle_regimes needs train/continual.py::state_from_bundle, "
+        "which is not ported yet: ROADMAP.md, Queue 1, item 10"
+    )

@@ -10,7 +10,8 @@ observation:
 * ``engine``     load a bundle and serve ``act(obs_batch)`` through
                  power-of-two padding buckets, one CUDA graph each, with
                  per-household sessions and a microbatching queue.
-* ``continuous`` the slot-level continuous-batching front.
+* ``continuous`` the slot-level continuous-batching front, and for
+                 recurrent bundles (``ddpg_recurrent``) the hidden-state ring.
 * ``registry``   multi-bundle routing table keyed by manifest config_hash:
                  atomic hot-swap, percentage-split A/B, household pinning.
 * ``gateway``    the network front: asyncio HTTP/1.1 (and the multiplexed
@@ -19,10 +20,9 @@ observation:
 * ``wire``       the persistent multiplexed transport.
 * ``auth``       HMAC-signed per-household bearer tokens and TLS helpers.
 
-Not ported yet (ROADMAP.md, Queue 1): recurrent bundles (item 9), the
-results store behind ``results_db=`` (item 12), and the fleet: the load
-generator, the router, fault injection, process fleets and the proxy
-(item 14).
+Not ported yet (ROADMAP.md, Queue 1): the results store behind
+``results_db=`` (item 12), and the fleet: the load generator, the router,
+fault injection, process fleets and the proxy (item 14).
 """
 
 from p2pmicrogrid_tpu_torch.serve.auth import (

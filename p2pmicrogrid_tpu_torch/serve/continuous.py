@@ -1,13 +1,12 @@
-"""Slot-level continuous batching: join/leave serving.
+"""Slot-level continuous batching: join/leave serving with a hidden-state ring.
 
-The port of the JAX package's ``serve/continuous.py`` for feed-forward
-bundles. ``MicroBatchQueue`` (serve/engine.py) dispatches a microbatch as
-ONE unit: the coalescing window holds early arrivals back up to
-``max_wait_s``, and a request that misses a dispatch waits out the whole
-in-flight batch before its own batch even forms. Iteration-level scheduling
-removes that wait class: the engine steps continuously, requests JOIN the
-padded in-flight batch between steps and completed rows RETIRE between
-steps.
+The port of the JAX package's ``serve/continuous.py``. ``MicroBatchQueue``
+(serve/engine.py) dispatches a microbatch as ONE unit: the coalescing window
+holds early arrivals back up to ``max_wait_s``, and a request that misses a
+dispatch waits out the whole in-flight batch before its own batch even
+forms. Iteration-level scheduling removes that wait class: the engine steps
+continuously, requests JOIN the padded in-flight batch between steps and
+completed rows RETIRE between steps.
 
 ``ContinuousBatcher`` is that front, duck-typing ``MicroBatchQueue``
 (``submit``/``depth``/``recent_wait_ms``/``close``) so the gateway,
@@ -20,27 +19,42 @@ registry stats and admission control work unchanged:
   meantime. No window, no barrier.
 * **Row slots + household affinity.** With ``sessions`` on, each household
   owns a row slot carrying its cross-slot session (served-action /
-  slot-count metadata), kept while the household stays on this replica.
+  slot-count metadata; for recurrent bundles the policy's hidden state),
+  kept while the household stays on this replica.
 * **Generation counters.** Every slot carries a generation, bumped on
   every retire/evict/reassign. A request's slot resolution is tagged
   ``(slot, gen)`` when it joins a step, and state is only written under a
-  matching generation — a late joiner never touches a RETIRED row's state.
-* **Stateless bit-exactness.** Every step executes through ``engine.act``,
-  the same per-bucket graphs the microbatch path replays, so continuous
-  serving answers what the microbatch queue answers — only the queueing
-  schedule moves, never the math.
+  matching generation — a late joiner never touches a RETIRED row's state;
+  an evicted slot re-initialises to the fresh (zero) carry.
+* **The hidden-state ring.** For recurrent bundles the per-household flat
+  LSTM carry lives in ONE tensor ``[max_slots + 1, A, H]`` on the engine's
+  device; row ``max_slots`` is the scratch row that pad rows and anonymous
+  requests gather from and write into. A step gathers its rows
+  (``index_select``), zeroes the fresh-session rows, steps the actor and
+  writes the new carries back (``index_copy_``). On the card each bucket's
+  step is one CUDA graph with static ``rows`` (int64) and ``fresh`` inputs.
+  A graph holds the ring's address, so the ring is allocated once and only
+  written in place (the JAX package donates and rebinds its ring; here a
+  rebind would leave the graphs writing to a stale buffer).
+* **Stateless bit-exactness.** Feed-forward bundles execute through
+  ``engine.act``, the same per-bucket graphs the microbatch path replays,
+  so continuous serving answers what the microbatch queue answers — only
+  the queueing schedule moves, never the math.
 * **Observability.** Every step emits ``serve.batch_occupancy`` (live
   rows / padded bucket) and per-request ``serve.slot_wait_ms`` histograms
   plus the same ``serve_request`` trace events the microbatch queue
   streams (``source="continuous"``).
 
-Households beyond ``max_slots`` with nothing to evict overflow to the
-scratch row: their actions depend only on the observation, so only session
-metadata is lost. Recurrent bundles, whose hidden-state ring this front
-carries in the JAX package, are not ported yet (ROADMAP.md, Queue 1, item
-9): the engine refuses them. The JAX package's
-``serve_bench_continuous_compare`` needs the load generator, which comes
-with the fleet (item 14).
+Anonymous requests (no household id) run from a fresh zero carry on the
+scratch row. A recurrent bundle with ``sessions=False`` is REFUSED at
+construction, a household never steps twice in one batch (its requests
+serialize through consecutive steps), and under slot exhaustion a recurrent
+household's request is DEFERRED (FIFO position kept) rather than served
+from a zero carry; past ``slot_wait_timeout_s`` it fails loudly naming the
+fix. Stateless households overflow to the scratch row (their actions
+depend only on the observation; only session metadata is lost). The JAX
+package's ``serve_bench_continuous_compare`` needs the load generator,
+which comes with the fleet (ROADMAP.md, Queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -50,9 +64,10 @@ import time
 from collections import OrderedDict, deque
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -62,8 +77,19 @@ class _SlotMeta:
     household: Optional[str] = None
     gen: int = 0
     last_used: int = -1       # step counter, for deterministic LRU
+    fresh: bool = True        # next read must re-init (zero carry)
     served: int = 0           # session slot counter (Sessions.slots mirror)
     hp_frac: Optional[np.ndarray] = None  # [A] last served action
+
+
+class _RingGraph(NamedTuple):
+    """One bucket's captured ring step and its static inputs."""
+
+    captured: Any          # parallel/graph.py::Captured; outputs = actions [b, A]
+    obs: torch.Tensor      # [b, A, 4]
+    rows: torch.Tensor     # [b] int64 ring rows (scratch for pads)
+    fresh: torch.Tensor    # [b] float32, 1 where the carry re-initialises
+    host: torch.Tensor     # [b, A * 4 + 2] pinned staging: obs, row, fresh
 
 
 @dataclass
@@ -74,6 +100,7 @@ class _Request:
     household: Optional[str]
     slot: int = -1
     gen: int = -1
+    fresh: bool = True
     trace: object = None        # TraceContext when the caller is traced
     request_id: Optional[str] = None
     t_enq_epoch: float = 0.0
@@ -84,8 +111,8 @@ class ContinuousBatcher:
 
     Duck-types ``MicroBatchQueue`` for the gateway/registry. ``max_slots``
     bounds resident sessions (LRU eviction past it, re-init on return);
-    ``sessions=False`` disables per-household state entirely.
-    ``max_wait_s`` is accepted for interface compatibility and ignored —
+    ``sessions=False`` disables per-household state entirely (stateless
+    bundles only). ``max_wait_s`` is accepted for interface compatibility and ignored —
     continuous batching has no coalescing window, which is the point.
     ``autostart=False`` is the manual-stepping mode: no worker thread; the
     owner drives ``step_once()`` (an external control loop, and the
@@ -102,14 +129,25 @@ class ContinuousBatcher:
         max_slots: int = 256,
         sessions: bool = True,
         autostart: bool = True,
+        slot_wait_timeout_s: float = 5.0,
     ):
         del max_wait_s  # no coalescing window by design
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
+        if getattr(engine, "is_recurrent", False) and not sessions:
+            raise ValueError(
+                "recurrent bundle needs sessions: serving a hidden-state "
+                "policy with sessions disabled would silently act from a "
+                "zero carry every slot — a different policy. Enable "
+                "sessions (the default) or export a feedforward bundle."
+            )
         self.engine = engine
         self.max_batch = min(max_batch or engine.max_batch, engine.max_batch)
         self.sessions_enabled = sessions
         self.max_slots = max_slots
+        # How long a recurrent household's request may wait for a session
+        # slot under exhaustion before it fails loudly naming the fix.
+        self.slot_wait_timeout_s = slot_wait_timeout_s
         self._pending: List[_Request] = []
         self._cv = threading.Condition()
         self._closed = False
@@ -124,6 +162,7 @@ class ContinuousBatcher:
         self.stats = {
             "steps": 0, "joins": 0, "evictions": 0, "retired": 0,
             "scratch_rows": 0, "stale_generation_drops": 0,
+            "slot_deferrals": 0, "slot_wait_expired": 0,
             "cancelled_drops": 0, "spill_rejoins": 0,
         }
         # Spill meter: households seen returning after an LRU eviction. A
@@ -131,19 +170,104 @@ class ContinuousBatcher:
         # Bounded at 4x max_slots; only recency matters for the signal.
         self._recently_evicted: OrderedDict = OrderedDict()
         self._recently_evicted_cap = 4 * max_slots
+        # The recurrent hidden ring, allocated once (graphs hold its
+        # address), and one step graph per bucket on the card.
+        self._ring = None
+        self._ring_graphs: Dict[int, "_RingGraph"] = {}
+        self.graph_pool_bytes = 0
+        if engine.is_recurrent:
+            self._ring = torch.zeros(
+                (max_slots + 1, engine.n_agents, engine.hidden_dim),
+                dtype=torch.float32, device=engine.device,
+            )
         self._thread: Optional[threading.Thread] = None
         if autostart:
+            self.start()
+
+    def start(self) -> None:
+        """Start the worker thread (construction does, unless
+        ``autostart=False``; the gateway starts it after ``warmup``)."""
+        if self._thread is None:
             self._thread = threading.Thread(target=self._worker, daemon=True)
             self._thread.start()
 
     def warmup(self, buckets=None) -> List[int]:
-        """Prepare the engine's act buckets up to ``max_batch``
-        (``PolicyEngine.warmup``: their CUDA graphs on the card) so the
-        first request of each size never pays a capture in-slot."""
-        buckets = buckets if buckets is not None else self.engine.buckets
-        return self.engine.warmup(
-            [b for b in buckets if b <= self.max_batch], include_step=False
+        """Prepare every padding bucket up to ``max_batch`` before traffic:
+        the ring-step graphs of a recurrent bundle (captured on scratch
+        rows only), else the engine's act graphs (``PolicyEngine.warmup``).
+        On the CPU there is nothing to prepare."""
+        buckets = [b for b in (buckets if buckets is not None else self.engine.buckets) if b <= self.max_batch]
+        if not self.engine.is_recurrent:
+            return self.engine.warmup(buckets, include_step=False)
+        if self.engine.device.type == "cuda":
+            with self.engine._lock:
+                for b in buckets:
+                    if b not in self._ring_graphs:
+                        self._capture_ring_step(b)
+        return buckets
+
+    # -- the hidden-state ring ------------------------------------------------
+
+    def _ring_step(self, obs: torch.Tensor, rows: torch.Tensor, fresh: torch.Tensor) -> torch.Tensor:
+        """Gather the stepping rows' carries, zero the fresh-session rows,
+        step the actor one slot, write the new carries back (pads and
+        anonymous rows into the scratch row). Returns actions [b, A]."""
+        h = self._ring.index_select(0, rows)
+        h = torch.where(fresh[:, None, None] > 0.5, torch.zeros_like(h), h)
+        actions, h2 = self.engine.forward(obs, h)
+        self._ring.index_copy_(0, rows, h2)
+        return actions
+
+    def _capture_ring_step(self, bucket: int) -> "_RingGraph":
+        """One bucket's ring step as a CUDA graph (engine lock held). The
+        static rows start on the scratch row and every row is fresh, so the
+        capture's warm-up runs write the scratch row only."""
+        from p2pmicrogrid_tpu_torch.parallel.graph import capture
+        from p2pmicrogrid_tpu_torch.serve.engine import _CAPTURE_LOCK
+
+        dev, A = self.engine.device, self.engine.n_agents
+        g = _RingGraph(
+            captured=None,
+            obs=torch.zeros((bucket, A, 4), device=dev),
+            rows=torch.full((bucket,), self.max_slots, dtype=torch.int64, device=dev),
+            fresh=torch.ones((bucket,), device=dev),
+            host=torch.zeros((bucket, A * 4 + 2), pin_memory=True),
         )
+        with _CAPTURE_LOCK, torch.cuda.device(dev):
+            captured = capture(
+                lambda: self._ring_step(g.obs, g.rows, g.fresh), lambda: None,
+                capture_error_mode="thread_local",
+            )
+        g = g._replace(captured=captured)
+        self._ring_graphs[bucket] = g
+        self.graph_pool_bytes += captured.pool_bytes
+        self.engine.stats["aot_compiles"] += 1
+        return g
+
+    def _ring_execute(self, obs: np.ndarray, rows: np.ndarray, fresh: np.ndarray) -> np.ndarray:
+        """One padded ring step on the engine's device: host obs [bucket,
+        A, 4], rows [bucket], fresh [bucket] -> actions [bucket, A] on the
+        host."""
+        bucket = obs.shape[0]
+        with self.engine._lock:
+            if self.engine.device.type != "cuda":
+                actions = self._ring_step(
+                    torch.from_numpy(obs), torch.from_numpy(rows), torch.from_numpy(fresh)
+                )
+            else:
+                g = self._ring_graphs.get(bucket) or self._capture_ring_step(bucket)
+                # One pinned staging row a bucket row: obs, then row, fresh.
+                g.host[:, :-2].copy_(torch.from_numpy(obs.reshape(bucket, -1)))
+                g.host[:, -2].copy_(torch.from_numpy(rows.astype(np.float32)))
+                g.host[:, -1].copy_(torch.from_numpy(fresh))
+                staged = g.host.to(g.obs.device, non_blocking=True)
+                g.obs.copy_(staged[:, :-2].reshape(g.obs.shape))
+                g.rows.copy_(staged[:, -2].long())
+                g.fresh.copy_(staged[:, -1])
+                g.captured.graph.replay()
+                actions = g.captured.outputs
+            # host-sync: the step's serving latency boundary.
+            return actions.cpu().numpy().copy()
 
     # -- public queue interface ----------------------------------------------
 
@@ -246,6 +370,7 @@ class ContinuousBatcher:
         m = self._slots[slot]
         m.household = None
         m.gen += 1
+        m.fresh = True
         m.served = 0
         m.hp_frac = None
         self._free.append(slot)
@@ -291,6 +416,7 @@ class ContinuousBatcher:
         if self._recently_evicted.pop(household, None) is not None:
             self.stats["spill_rejoins"] += 1
         m.household = household
+        m.fresh = True
         m.served = 0
         m.hp_frac = None
         self._by_household[household] = slot
@@ -302,10 +428,20 @@ class ContinuousBatcher:
     def _compose_locked(self) -> List[_Request]:
         """Pop the next step's requests off the FIFO queue (up to
         ``max_batch``), resolving each to a (slot, gen) under the current
-        generations. Rows are order-independent for a feed-forward policy,
-        so a household's burst rides one step. Cancelled requests are
-        dropped."""
+        generations. For a RECURRENT engine, at most one request per slot
+        per step: a household's back-to-back requests serialize through
+        consecutive steps (each reads the carry the previous one writes);
+        later households may overtake its second request, never its first.
+        Stateless rows are order-independent, so a household's burst rides
+        one step. Cancelled requests are dropped; recurrent requests that
+        out-waited ``slot_wait_timeout_s`` for a slot fail loudly naming the
+        ``max_slots`` fix."""
         batch: List[_Request] = []
+        expired: List[_Request] = []
+        taken: set = set()
+        deferred: set = set()
+        recurrent = self.engine.is_recurrent
+        now = time.monotonic()
         pending_households = {
             r.household for r in self._pending if r.household is not None
         }
@@ -313,19 +449,66 @@ class ContinuousBatcher:
         for req in self._pending:
             if req.future.cancelled():
                 # The caller gave up (gateway request timeout): dropping
-                # the corpse here keeps the admission depth honest.
+                # the corpse here keeps the admission depth honest, and
+                # never advances a household's carry for nobody.
                 self.stats["cancelled_drops"] += 1
                 continue
             if len(batch) >= self.max_batch:
                 remaining.append(req)
                 continue
-            slot = self.SCRATCH
-            if req.household is not None:
+            if req.household is None:
+                req.slot, req.gen, req.fresh = self.SCRATCH, -1, True
+                batch.append(req)
+                continue
+            if req.household in deferred:
+                remaining.append(req)
+                continue
+            slot = self._by_household.get(req.household)
+            if recurrent and slot is not None and slot in taken:
+                # This household already steps this round: its next
+                # request reads the carry this step writes.
+                deferred.add(req.household)
+                remaining.append(req)
+                continue
+            if slot is None:
                 slot = self._resolve_slot_locked(req.household, pending_households)
-            req.slot = slot
-            req.gen = -1 if slot == self.SCRATCH else self._slots[slot].gen
+            if slot == self.SCRATCH:
+                if recurrent:
+                    # Slot exhaustion: a hidden-state household never serves
+                    # from the scratch row's zero carry. It keeps its FIFO
+                    # place and joins once a resident household goes idle,
+                    # or fails past slot_wait_timeout_s.
+                    if now - req.t_enq > self.slot_wait_timeout_s:
+                        expired.append(req)
+                        continue
+                    self.stats["slot_deferrals"] += 1
+                    deferred.add(req.household)
+                    remaining.append(req)
+                    continue
+                req.slot, req.gen, req.fresh = self.SCRATCH, -1, True
+                batch.append(req)
+                continue
+            m = self._slots[slot]
+            req.slot, req.gen, req.fresh = slot, m.gen, m.fresh
+            taken.add(slot)
             batch.append(req)
         self._pending = remaining
+        for req in expired:
+            self.stats["slot_wait_expired"] += 1
+            if not req.future.done():
+                try:
+                    req.future.set_exception(
+                        RuntimeError(
+                            "no session slot freed within "
+                            f"{self.slot_wait_timeout_s:g}s: max_slots="
+                            f"{self.max_slots} is below this replica's "
+                            "concurrent recurrent household count — raise "
+                            "--max-sessions (or spread households over "
+                            "more replicas)"
+                        )
+                    )
+                except InvalidStateError:
+                    pass
         return batch
 
     def _worker(self) -> None:
@@ -337,7 +520,11 @@ class ContinuousBatcher:
                     return
                 batch = self._compose_locked()
             if not batch:
-                continue  # every pending request was a cancelled one
+                # Every pending request was cancelled or is deferred: park
+                # briefly rather than spin on the lock.
+                with self._cv:
+                    self._cv.wait(timeout=0.001)
+                continue
             try:
                 self._execute(batch)
             except Exception as err:  # noqa: BLE001 — fail waiters, not loop
@@ -358,9 +545,28 @@ class ContinuousBatcher:
             self.recent_wait_ms.append(
                 (dispatch_t, (dispatch_t - req.t_enq) * 1e3)
             )
-        # The SAME per-bucket graphs the microbatch path replays —
-        # continuous serving answers what MicroBatchQueue answers.
-        actions = self.engine.act(obs)
+        if self.engine.is_recurrent:
+            rows = np.full((bucket,), self.max_slots, np.int64)
+            fresh = np.ones((bucket,), np.float32)
+            for i, req in enumerate(batch):
+                if req.slot != self.SCRATCH:
+                    rows[i] = req.slot
+                    fresh[i] = 1.0 if req.fresh else 0.0
+            padded = np.zeros((bucket,) + obs.shape[1:], np.float32)
+            padded[:b] = obs
+            actions = self._ring_execute(padded, rows, fresh)[:b]
+            self.engine.stats["rows"] += b
+            self.engine.stats["batches"] += 1
+            self.engine.stats["padded_rows"] += bucket - b
+            tel = self.engine.telemetry
+            if tel is not None:
+                tel.counter("serve.requests", b)
+                tel.counter("serve.batches")
+                tel.counter("serve.padded_rows", bucket - b)
+        else:
+            # The SAME per-bucket graphs the microbatch path replays —
+            # continuous serving answers what MicroBatchQueue answers.
+            actions = self.engine.act(obs)
         service_s = time.monotonic() - dispatch_t
 
         with self._cv:
@@ -378,6 +584,7 @@ class ContinuousBatcher:
                     # must not be touched under a stale generation.
                     self.stats["stale_generation_drops"] += 1
                     continue
+                m.fresh = False
                 m.served += 1
                 m.last_used = self._step_counter
                 m.hp_frac = actions[i].copy()

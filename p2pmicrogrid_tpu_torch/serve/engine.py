@@ -41,15 +41,23 @@ Design points:
   graph, which writes the actions and bumps the slot counters of its static
   session buffers in place; the caller's session tensors are updated in
   place from them. Padded rows get zeros and are sliced away.
+* **Recurrent bundles.** A bundle whose manifest carries ``hidden_state``
+  (``ddpg_recurrent``, ``models/ddpg_recurrent.py``) threads its per-agent
+  flat LSTM carry through every act: ``act(obs, hidden)`` returns
+  ``(actions, hidden')``, ``Sessions.hidden`` [N, A, H] rides the session
+  step, and on the card the carry is a static input and a static output of
+  each bucket's graph, next to the observation. A recurrent bundle refuses
+  ``act`` without a carry (a hidden-state policy served statelessly is a
+  different policy), and a feed-forward bundle refuses one.
 * **Microbatching.** ``MicroBatchQueue`` fronts the engine for concurrent
   callers: single-community requests coalesce until ``max_batch`` or
-  ``max_wait_s``, then execute as one padded batch; the slot-level
-  ``serve/continuous.py::ContinuousBatcher`` is the other front.
+  ``max_wait_s``, then execute as one padded batch; it refuses recurrent
+  bundles. The slot-level ``serve/continuous.py::ContinuousBatcher`` is the
+  other front, and the one that serves recurrent bundles.
 
-Recurrent bundles (``ddpg_recurrent``) are not ported yet (ROADMAP.md,
-Queue 1, item 9); the engine refuses them. Entry points default to
-``device="cuda"``; the JAX package's ``device="auto"`` placement (a
-crossover measured on a TPU host) is not ported.
+Entry points default to ``device="cuda"``; the JAX package's
+``device="auto"`` placement (a crossover measured on a TPU host) is not
+ported.
 """
 
 from __future__ import annotations
@@ -64,11 +72,7 @@ import numpy as np
 import torch
 
 from p2pmicrogrid_tpu_torch.device import resolve_device
-from p2pmicrogrid_tpu_torch.serve.export import (
-    RECURRENT_IMPLEMENTATIONS,
-    RECURRENT_NOT_PORTED,
-    load_policy_bundle,
-)
+from p2pmicrogrid_tpu_torch.serve.export import load_policy_bundle
 
 # One capture at a time in the process: ``parallel/graph.py::capture``
 # tallies kernel launches in a module-level slot while it records.
@@ -80,15 +84,18 @@ class Sessions(NamedTuple):
 
     hp_frac: torch.Tensor  # [N, A] last served action fraction
     slots: torch.Tensor    # [N] int32 slots served
+    hidden: Optional[torch.Tensor] = None  # [N, A, H] recurrent carry (None: feed-forward)
 
 
 class _BucketGraph(NamedTuple):
     """One bucket's captured forward (or session step) and its buffers."""
 
-    captured: Any            # parallel/graph.py::Captured; outputs = [b, A]
+    captured: Any            # parallel/graph.py::Captured; outputs = [b, A] (and [b, A, H])
     static_in: torch.Tensor  # [b, A, 4] on the card
     host_in: torch.Tensor    # [b, A, 4] pinned staging buffer
     slots: Optional[torch.Tensor]  # [b] int32 session counters (step graphs)
+    static_hidden: Optional[torch.Tensor] = None  # [b, A, H] carry in (recurrent)
+    host_hidden: Optional[torch.Tensor] = None    # [b, A, H] pinned staging
 
 
 def _bucket_sizes(max_batch: int) -> list:
@@ -152,8 +159,11 @@ class PolicyEngine:
         self.telemetry = telemetry
         self.n_agents = int(manifest["n_agents"])
         self._impl = manifest["implementation"]
-        if manifest.get("hidden_state") is not None or self._impl in RECURRENT_IMPLEMENTATIONS:
-            raise NotImplementedError(RECURRENT_NOT_PORTED)
+        # The session ring and the carry are sized from the manifest's
+        # hidden_state block, never from the architecture fields.
+        hidden_spec = manifest.get("hidden_state")
+        self.is_recurrent = hidden_spec is not None
+        self.hidden_dim = int(hidden_spec["shape"][-1]) if self.is_recurrent else 0
         self.forward = self._build_forward(_float32_tree(params))
         self._lock = threading.Lock()
         self._graphs: dict = {}
@@ -168,7 +178,9 @@ class PolicyEngine:
     # --- greedy forward passes (the training greedy paths) ------------------
 
     def _build_forward(self, params: dict):
-        """``forward(obs [B, A, 4] float32 on the device) -> [B, A]``."""
+        """``forward(obs [B, A, 4] float32 on the device) -> [B, A]``; for a
+        recurrent bundle ``forward(obs, hidden [B, A, H]) -> ([B, A],
+        hidden')``."""
         from p2pmicrogrid_tpu_torch.config import DQNConfig, QLearningConfig
         from p2pmicrogrid_tpu_torch.convert import network_from_tree
         from p2pmicrogrid_tpu_torch.models.dqn import _q_all_actions, action_values_on
@@ -193,6 +205,23 @@ class PolicyEngine:
 
             def forward(obs):
                 return values[torch.argmax(_q_all_actions(dcfg, net, obs), dim=-1)]
+
+        elif self._impl == "ddpg_recurrent":
+            from p2pmicrogrid_tpu_torch.models.ddpg_recurrent import (
+                RecurrentActor,
+                recurrent_actor_step,
+            )
+
+            actor = network_from_tree(params, RecurrentActor, dev).requires_grad_(False)
+
+            # One shared actor across agents AND batch rows: [B, A] flattened
+            # into the leading axis, one step of the cell, restored.
+            def forward(obs, hidden):
+                B, A, F = obs.shape
+                a, h = recurrent_actor_step(
+                    actor, obs.reshape(B * A, F), hidden.reshape(B * A, hidden.shape[-1])
+                )
+                return a.reshape(B, A), h.reshape(B, A, -1)
 
         elif self._impl == "ddpg":
             actor = network_from_tree(params, Actor, dev).requires_grad_(False)
@@ -235,16 +264,21 @@ class PolicyEngine:
         static_in = torch.zeros((bucket, self.n_agents, 4), device=self.device)
         host_in = torch.zeros((bucket, self.n_agents, 4), pin_memory=True)
         slots = torch.zeros((bucket,), dtype=torch.int32, device=self.device) if step else None
+        static_hidden = host_hidden = None
+        if self.is_recurrent:
+            shape = (bucket, self.n_agents, self.hidden_dim)
+            static_hidden = torch.zeros(shape, device=self.device)
+            host_hidden = torch.zeros(shape, pin_memory=True)
 
         def fn():
-            out = self.forward(static_in)
+            out = self.forward(static_in) if static_hidden is None else self.forward(static_in, static_hidden)
             if slots is not None:
                 slots.add_(1)
             return out
 
         with _CAPTURE_LOCK, torch.cuda.device(self.device):
             captured = capture(fn, lambda: None, capture_error_mode="thread_local")
-        g = _BucketGraph(captured, static_in, host_in, slots)
+        g = _BucketGraph(captured, static_in, host_in, slots, static_hidden, host_hidden)
         (self._step_graphs if step else self._graphs)[bucket] = g
         if not step:
             self.capture_s[bucket] = time.perf_counter() - start
@@ -283,47 +317,102 @@ class PolicyEngine:
             )
         return obs
 
-    def act(self, obs) -> np.ndarray:
+    def act(self, obs, hidden=None):
         """Greedy actions for a batch of community observations.
 
         obs [B, A, 4] -> hp fraction [B, A] float32. B may exceed
         ``max_batch`` (the batch is split); sub-bucket batches are padded
-        with zeros and the pad rows discarded."""
+        with zeros and the pad rows discarded. A recurrent bundle threads
+        its carry: pass ``hidden`` [B, A, H] (``init_hidden`` for fresh
+        sessions) and get ``(actions [B, A], hidden' [B, A, H])`` on the
+        host; without ``hidden`` it refuses, and a feed-forward bundle
+        refuses a ``hidden``."""
         obs = self._check_obs(obs)
-        if obs.shape[0] == 0:
-            return np.zeros((0, self.n_agents), dtype=np.float32)
+        if self.is_recurrent and hidden is None:
+            raise ValueError(
+                "recurrent bundle: act() needs the hidden carry "
+                "([B, A, H]; init_hidden() for fresh sessions) — serve it "
+                "through session-carrying paths (ContinuousBatcher with "
+                "sessions on), not the stateless act/microbatch path"
+            )
+        if not self.is_recurrent and hidden is not None:
+            raise ValueError(f"{self._impl!r} bundle is feedforward — it takes no hidden carry")
+        if hidden is not None:
+            hidden = self._check_hidden(hidden, obs.shape[0])
         outs = [
-            self._act_one_batch(obs[i : i + self.max_batch])
+            self._act_one_batch(
+                obs[i : i + self.max_batch],
+                None if hidden is None else hidden[i : i + self.max_batch],
+            )
             for i in range(0, obs.shape[0], self.max_batch)
         ]
-        return np.concatenate(outs, axis=0)
+        empty = np.zeros((0, self.n_agents), dtype=np.float32)
+        if not self.is_recurrent:
+            return np.concatenate(outs, axis=0) if outs else empty
+        if not outs:
+            return empty, np.zeros((0, self.n_agents, self.hidden_dim), np.float32)
+        return (
+            np.concatenate([a for a, _ in outs], axis=0),
+            np.concatenate([h for _, h in outs], axis=0),
+        )
 
-    def _run(self, obs: np.ndarray, bucket: int, step: bool):
+    def _check_hidden(self, hidden, n_rows: int) -> np.ndarray:
+        # host-sync: a caller-supplied carry, read to the host (the session
+        # paths keep theirs on the device instead).
+        if isinstance(hidden, torch.Tensor):
+            hidden = hidden.detach().cpu().numpy()
+        hidden = np.asarray(hidden, dtype=np.float32)
+        want = (n_rows, self.n_agents, self.hidden_dim)
+        if hidden.shape != want:
+            raise ValueError(f"hidden carry must be {list(want)} for this bundle, got {list(hidden.shape)}")
+        return hidden
+
+    def _run(self, obs: np.ndarray, bucket: int, step: bool, hidden=None):
         """The bucket's forward on ``obs`` [b <= bucket, A, 4], lock held:
-        ``[b, A]`` actions (a tensor on the device), and the step graph's
-        slot counters with ``step``."""
+        ``([b, A] actions, [b, A, H] carry or None, the step graph's slot
+        counters or None)``, tensors on the device. ``hidden`` is the carry
+        [b, A, H] of a recurrent bundle: a host array (``act``) or a tensor
+        on the device (``step``); pad rows get zeros."""
         b = obs.shape[0]
         if self.device.type != "cuda":
             padded = np.zeros((bucket,) + obs.shape[1:], np.float32)
             padded[:b] = obs
-            return self.forward(torch.from_numpy(padded))[:b], None
+            if not self.is_recurrent:
+                return self.forward(torch.from_numpy(padded))[:b], None, None
+            h = torch.zeros((bucket, self.n_agents, self.hidden_dim))
+            h[:b] = torch.as_tensor(hidden)
+            a, h = self.forward(torch.from_numpy(padded), h)
+            return a[:b], h[:b], None
         graphs = self._step_graphs if step else self._graphs
         g = graphs.get(bucket) or self._capture(bucket, step)
         g.host_in[:b].copy_(torch.from_numpy(obs))
         g.host_in[b:].zero_()
         g.static_in.copy_(g.host_in, non_blocking=True)
+        if self.is_recurrent:
+            if isinstance(hidden, torch.Tensor):
+                g.static_hidden[:b].copy_(hidden)
+                g.static_hidden[b:].zero_()
+            else:
+                g.host_hidden[:b].copy_(torch.from_numpy(hidden))
+                g.host_hidden[b:].zero_()
+                g.static_hidden.copy_(g.host_hidden, non_blocking=True)
         g.captured.graph.replay()
-        return g.captured.outputs[:b], g.slots
+        if not self.is_recurrent:
+            return g.captured.outputs[:b], None, g.slots
+        a, h = g.captured.outputs
+        return a[:b], h[:b], g.slots
 
-    def _act_one_batch(self, obs: np.ndarray) -> np.ndarray:
+    def _act_one_batch(self, obs: np.ndarray, hidden=None):
         b = obs.shape[0]
         bucket = self.bucket_for(b)
         t0 = time.perf_counter()
         with self._lock:
-            out, _ = self._run(obs, bucket, step=False)
+            out, h, _ = self._run(obs, bucket, step=False, hidden=hidden)
             # host-sync: result delivery; serve latency IS this sync. A
             # copy, never a view of a static output.
             out = out.cpu().numpy().copy()
+            if h is not None:
+                h = h.cpu().numpy().copy()
             self.stats["rows"] += b
             self.stats["batches"] += 1
             self.stats["padded_rows"] += bucket - b
@@ -333,7 +422,7 @@ class PolicyEngine:
             self.telemetry.counter("serve.batches")
             self.telemetry.counter("serve.padded_rows", bucket - b)
             self.telemetry.histogram("serve.batch_ms", secs * 1e3)
-        return out
+        return out if h is None else (out, h)
 
     @property
     def padding_waste(self) -> float:
@@ -343,15 +432,24 @@ class PolicyEngine:
 
     # --- stateful per-community sessions ------------------------------------
 
+    def init_hidden(self, n: int) -> torch.Tensor:
+        """The fresh-session carry [n, A, H] (zeros) on the engine's device:
+        what a session re-init after eviction resets to."""
+        if not self.is_recurrent:
+            raise ValueError(f"{self._impl!r} bundle is feedforward — no hidden carry")
+        return torch.zeros((n, self.n_agents, self.hidden_dim), dtype=torch.float32, device=self.device)
+
     def init_sessions(self, n: int) -> Sessions:
         return Sessions(
             hp_frac=torch.zeros((n, self.n_agents), dtype=torch.float32, device=self.device),
             slots=torch.zeros((n,), dtype=torch.int32, device=self.device),
+            hidden=self.init_hidden(n) if self.is_recurrent else None,
         )
 
     def step(self, sessions: Sessions, obs):
         """Advance ``n`` sessions one slot: act on obs [n, A, 4], record the
-        served action as each session's new ``hp_frac``, bump slot counters.
+        served action as each session's new ``hp_frac``, bump slot counters,
+        and for a recurrent bundle carry each session's hidden state on.
 
         The session tensors are updated in place. Returns (sessions,
         hp_frac [n, A] on the host)."""
@@ -361,14 +459,18 @@ class PolicyEngine:
             raise ValueError(f"{n} obs rows for {int(sessions.slots.shape[0])} sessions")
         if n > self.max_batch:
             raise ValueError(f"sessions batch {n} exceeds max_batch {self.max_batch}")
+        if self.is_recurrent and sessions.hidden is None:
+            raise ValueError("recurrent bundle: these sessions carry no hidden state (init_sessions)")
         bucket = self.bucket_for(n)
         with self._lock:
             if self.device.type == "cuda":
                 g = self._step_graphs.get(bucket) or self._capture(bucket, step=True)
                 g.slots[:n].copy_(sessions.slots)
                 g.slots[n:].zero_()
-            hp, slots = self._run(obs, bucket, step=True)
+            hp, hidden, slots = self._run(obs, bucket, step=True, hidden=sessions.hidden)
             sessions.hp_frac.copy_(hp)
+            if hidden is not None:
+                sessions.hidden.copy_(hidden)
             if slots is None:
                 sessions.slots.add_(1)
             else:
@@ -387,6 +489,16 @@ class MicroBatchQueue:
     """
 
     def __init__(self, engine: PolicyEngine, max_batch=None, max_wait_s=0.002):
+        if getattr(engine, "is_recurrent", False):
+            # A hidden-state policy served through the stateless full-batch
+            # queue would act from a zero carry every slot: a different
+            # policy. Refused at construction, with the fix.
+            raise ValueError(
+                "recurrent bundle cannot serve through MicroBatchQueue "
+                "(sessions are disabled on the stateless full-batch path) "
+                "— serve it through serve.continuous.ContinuousBatcher "
+                "with sessions enabled (gateway: batching='continuous')"
+            )
         self.engine = engine
         self.max_batch = min(max_batch or engine.max_batch, engine.max_batch)
         self.max_wait_s = max_wait_s

@@ -39,8 +39,14 @@ parameters only. The error-bound contract, recorded in
   calibration capture must stay within ``ulp_budget``.
 
 The measurement runs on the device the export is given (``"cuda"`` by
-default, ``"cpu"`` when asked). Recurrent bundles (``ddpg_recurrent``) are
-not exported by the port yet (ROADMAP.md, Queue 1, item 9).
+default, ``"cpu"`` when asked).
+
+Recurrent bundles (``ddpg_recurrent``, ``models/ddpg_recurrent.py``) export
+in float32 and float16 with the manifest's ``hidden_state`` block (the
+per-agent flat carry the engine's session ring allocates, and its layout);
+their architecture is read off the parameters. int8 is refused: its error
+bound is measured on a stateless capture, and quantization error compounds
+through the carry across a session.
 """
 
 from __future__ import annotations
@@ -73,10 +79,6 @@ GREEDY_FIELD = {
 # Implementations whose greedy decision reads cross-slot hidden state; their
 # bundles carry a ``hidden_state`` manifest block.
 RECURRENT_IMPLEMENTATIONS = ("ddpg_recurrent",)
-RECURRENT_NOT_PORTED = (
-    "recurrent bundles (ddpg_recurrent, manifest 'hidden_state') are not "
-    "ported yet: ROADMAP.md, Queue 1, item 9"
-)
 
 # On-disk dtypes for floating leaves. bfloat16 is deliberately absent: numpy
 # cannot persist it natively.
@@ -131,6 +133,16 @@ def _model_spec(cfg, implementation: str, flat_params: dict) -> dict:
         return {"qlearning": dataclasses.asdict(cfg.qlearning)}
     if implementation == "dqn":
         return {"hidden": cfg.dqn.hidden}
+    if implementation == "ddpg_recurrent":
+        # The recurrent actor is not cfg-parameterized: the shared LSTM
+        # cell's gate bias width IS lstm_features, and the Dense widths pin
+        # the trunk and the head.
+        return {
+            "actor": "recurrent_lstm",
+            "hidden_pre": int(flat_params["Dense_0/bias"].shape[0]),
+            "lstm_features": int(flat_params["OptimizedLSTMCell_0/hf/bias"].shape[0]),
+            "hidden_post": int(flat_params["Dense_2/bias"].shape[0]),
+        }
     kernel = flat_params.get("Dense_0/kernel")
     share = kernel is not None and kernel.ndim == 2
     return {"actor_hidden": cfg.ddpg.actor_hidden, "share_across_agents": share}
@@ -267,6 +279,21 @@ def _measure_quant_error(
     return bound
 
 
+def _hidden_state_spec(model: dict) -> dict:
+    """The manifest ``hidden_state`` block of a recurrent bundle: the
+    per-agent flat carry's shape and dtype, which the engine's session ring
+    is sized from (never from the architecture fields), and its layout."""
+    from p2pmicrogrid_tpu_torch.models.ddpg_recurrent import HIDDEN_LAYOUT, actor_hidden_dim
+
+    return {
+        "shape": [actor_hidden_dim(model["lstm_features"])],
+        "dtype": "float32",
+        "layout": list(HIDDEN_LAYOUT),
+        "init": "zeros",
+        "semantics": "per-agent flat LSTM carry (double shared-weight pass)",
+    }
+
+
 def _action_spec(implementation: str) -> dict:
     if implementation in ("tabular", "dqn"):
         return {
@@ -313,8 +340,13 @@ def export_policy_bundle(
     if dtype not in EXPORT_DTYPES:
         raise ValueError(f"dtype must be one of {EXPORT_DTYPES}, got {dtype!r}")
     impl = cfg.train.implementation
-    if impl in RECURRENT_IMPLEMENTATIONS:
-        raise NotImplementedError(RECURRENT_NOT_PORTED)
+    if dtype == "int8" and impl in RECURRENT_IMPLEMENTATIONS:
+        raise ValueError(
+            "int8 export is not defined for recurrent actors: the ulp "
+            "error-bound contract is measured on a stateless calibration "
+            "capture, and quantization error COMPOUNDS through the hidden "
+            "carry across a session — use float32 or float16"
+        )
     flat_src = flat_tree(greedy_tree(greedy_params(impl, pol_state)))
 
     quant = None
@@ -386,6 +418,11 @@ def export_policy_bundle(
     }
     if quant is not None:
         manifest["quant"] = quant
+    if impl in RECURRENT_IMPLEMENTATIONS:
+        # The serving contract of a session-carrying policy: engines size
+        # their hidden ring from this block, and the stateless microbatch
+        # path refuses any bundle that carries one.
+        manifest["hidden_state"] = _hidden_state_spec(manifest["model"])
     if aot_buckets:
         manifest["aot"] = aot_compile_bundle(manifest, flat, aot_buckets, device=device)
     with open(os.path.join(out_dir, MANIFEST_FILE), "w") as f:

@@ -1181,15 +1181,15 @@ def build_bundle(
             telemetry=telemetry, device=device,
         )
         if batching == "continuous":
+            queue = ContinuousBatcher(engine, max_slots=max_slots, autostart=False)
             if warmup:
-                engine.warmup(
-                    [b for b in engine.buckets if b <= max_batch], include_step=False
-                )
-            queue = ContinuousBatcher(engine, max_slots=max_slots)
+                # A recurrent bundle's ring-step graphs, else the act graphs.
+                queue.warmup()
+            queue.start()
         else:
             if warmup:
                 engine.warmup(include_step=False)
-            queue = MicroBatchQueue(engine, max_wait_s=max_wait_s)
+            queue = MicroBatchQueue(engine, max_wait_s=max_wait_s)  # refuses a recurrent bundle
     except BaseException:
         telemetry.close()
         raise

@@ -48,8 +48,9 @@ class DeviceCounters(NamedTuple):
 _DTYPES = (torch.int32, torch.int32, torch.int32, torch.float32, torch.float32)
 
 
-def dc_zero(device="cpu") -> DeviceCounters:
-    """Fresh zero counters on ``device``."""
+def dc_zero(device) -> DeviceCounters:
+    """Fresh zero counters on ``device``, which the caller names: no default
+    can land counters of a run on the card on the CPU."""
     return DeviceCounters(*(torch.zeros((), dtype=dt, device=device) for dt in _DTYPES))
 
 

@@ -886,3 +886,158 @@ def test_serving_late_capture_and_threads(cuda_generator, tmp_path):
     assert not any(t.is_alive() for t in threads)
     for i, out in got.items():
         assert np.array_equal(out, want[i % len(obs)])
+
+
+# --- recurrent models and serving, regimes: the card against the CPU ---------
+
+
+def _recurrent_cfg(A):
+    from p2pmicrogrid_tpu_torch import config as tc
+
+    return tc.default_config(
+        sim=tc.SimConfig(n_agents=A), train=tc.TrainConfig(implementation="ddpg_recurrent")
+    )
+
+
+@pytest.mark.cuda
+def test_recurrent_training_and_step_match_cpu(cuda_generator):
+    """The step scanned from zeros equals the whole sequence on the card
+    (atol 1e-6); two days of train_recurrent_community on the card against
+    the CPU from one CPU draw (rtol 2e-4, the golden episodes')."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.convert import state_from_jax, state_to_numpy
+    from p2pmicrogrid_tpu_torch.data.traces import synthetic_traces
+    from p2pmicrogrid_tpu_torch.models import ddpg_recurrent as rec
+    from p2pmicrogrid_tpu_torch.train.recurrent import RecurrentDraws, train_recurrent_community
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    A = 4
+    cfg = _recurrent_cfg(A)
+    gen = torch.Generator().manual_seed(0)
+    state0 = state_to_numpy(rec.recurrent_ddpg_init(cfg.ddpg, gen, device="cpu"))
+    draws = RecurrentDraws(torch.randn((2, A), generator=gen), torch.randn((2, 96, A), generator=gen))
+    card = state_from_jax(state0, device="cuda", cfg=cfg.ddpg)
+    obs = torch.rand((A, 96, 4), generator=cuda_generator, device="cuda")
+    with torch.no_grad():
+        full = card.actor(obs)[..., 0]
+        h = rec.recurrent_actor_init_hidden((A,), 100, device="cuda")
+        steps = []
+        for t in range(96):
+            a, h = rec.recurrent_actor_step(card.actor, obs[:, t], h)
+            steps.append(a)
+    torch.testing.assert_close(torch.stack(steps, 1), full, atol=1e-6, rtol=0)
+    runs = [
+        train_recurrent_community(
+            cfg, 2, traces=synthetic_traces(n_days=2), state=state_from_jax(state0, device=dev, cfg=cfg.ddpg),
+            draws=draws, device=dev,
+        )
+        for dev in ("cuda", "cpu")
+    ]
+    for field in ("day_rewards", "day_costs", "losses"):
+        np.testing.assert_allclose(getattr(runs[0], field), getattr(runs[1], field), rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_recurrent_serving_graphs_and_ring_match_eager_and_cpu(cuda_generator, tmp_path):
+    """Each bucket's graph carries the hidden state: replays equal the eager
+    step bit for bit at an exact bucket and the CPU engine within 1e-5; the
+    ring's graphs keep a household's trajectory and re-initialise an
+    evicted slot bit for bit."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.models.ddpg_recurrent import recurrent_ddpg_init
+    from p2pmicrogrid_tpu_torch.serve import (
+        ContinuousBatcher,
+        PolicyEngine,
+        calibration_obs,
+        export_policy_bundle,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    A = 4
+    cfg = _recurrent_cfg(A)
+    state = recurrent_ddpg_init(cfg.ddpg, torch.Generator().manual_seed(1), device="cpu")
+    path = export_policy_bundle(cfg, state, str(tmp_path / "rb"), device="cpu")
+    card = PolicyEngine(bundle_dir=path, max_batch=8, device="cuda")
+    cpu = PolicyEngine(bundle_dir=path, max_batch=8, device="cpu")
+    assert card.warmup() == [1, 2, 4, 8] and card.stats["aot_compiles"] == 8
+    obs = calibration_obs(8, A, seed=3)
+    h_c, h_p = card.init_hidden(8).cpu().numpy(), np.zeros((8, A, 400), np.float32)
+    for _ in range(3):
+        with torch.no_grad():
+            eager = card.forward(torch.from_numpy(obs).cuda(), torch.from_numpy(h_c).cuda())
+        a_c, h_next = card.act(obs, h_c)
+        assert np.array_equal(a_c, eager[0].cpu().numpy()) and np.array_equal(h_next, eager[1].cpu().numpy())
+        a_p, h_p = cpu.act(obs, h_p)
+        np.testing.assert_allclose(a_c, a_p, atol=1e-5, rtol=0)
+        h_c = h_next
+    sessions = card.init_sessions(3)
+    sessions, s1 = card.step(sessions, obs[:3])
+    sessions, s2 = card.step(sessions, obs[:3])
+    a1, hh = card.act(obs[:3], card.init_hidden(3))
+    a2, hh = card.act(obs[:3], hh)
+    assert np.array_equal(s2, a2) and np.array_equal(sessions.hidden.cpu().numpy(), hh)
+    with ContinuousBatcher(card, max_slots=2, autostart=False) as cb:
+        assert cb.warmup() == [1, 2, 4, 8] and cb.graph_pool_bytes > 0
+        got = []
+        for t in range(3):
+            f = cb.submit(obs[t], household="main")
+            g = cb.submit(obs[7], household=f"other-{t}")  # evicts the previous other
+            assert cb.step_once() == 2
+            got.append(f.result(1))
+            # Another bucket than act's: cuBLAS may round another way.
+            np.testing.assert_allclose(
+                g.result(1), card.act(obs[7][None], card.init_hidden(1))[0][0], atol=1e-6, rtol=0
+            )
+        assert cb.stats["evictions"] >= 1
+    h = card.init_hidden(1)
+    for t in range(3):
+        a, h = card.act(obs[t][None], h)
+        np.testing.assert_allclose(got[t], a[0], atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_regime_chunk_graph_captures_once_across_a_portfolio_swap(cuda_generator):
+    """Shared DDPG (K1 at [4, 8]) over a 4-regime portfolio through the chunk
+    graph, then a swap to another portfolio: one capture; each episode
+    equals the eager runner's bit for bit, before and after the swap; K1
+    launches once a slot of every chunk run (the capture's eager run
+    included)."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch import regimes as rg
+    from p2pmicrogrid_tpu_torch.convert import state_from_jax, state_to_numpy
+    from p2pmicrogrid_tpu_torch.envs.community import make_ratings, ratings_to
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+    from p2pmicrogrid_tpu_torch.parallel.device_gen import device_episode_arrays
+    from p2pmicrogrid_tpu_torch.train import make_policy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _chunked_cfg()
+    S = cfg.sim.n_scenarios
+    ratings = make_ratings(cfg, np.random.default_rng(0))
+    rd = ratings_to(ratings, "cuda")
+    policy = make_policy(cfg)
+    pol0 = state_to_numpy(sc.init_shared_pol_state(cfg, device="cuda", generator=cuda_generator))
+    first = rg.build_portfolio(["baseline", "winter", "ev_evening", "double_auction"], S, device="cuda")
+    second = rg.build_portfolio(["dr_spike", "islanding_noon", "cold_snap", "uniform_price"], S, device="cuda")
+    out = {}
+    for graph in (False, True):
+        fn = rg.make_regime_episode_fn(
+            cfg, policy, ratings, first.scenario_params,
+            arrays_fn=lambda d: device_episode_arrays(cfg, rd, S, draws=d), n_scenarios=S,
+        )
+        runner = sc.make_chunked_episode_runner(cfg, fn, 2, graph=graph)
+        pol = state_from_jax(pol0, device="cuda", cfg=cfg.ddpg)
+        merged_min_sums.launches = 0
+        pol, r1, _, _ = sc.train_scenarios_chunked(cfg, policy, pol, ratings, 5, 1, 2, runner=runner)
+        fn.with_regimes(second.scenario_params)
+        pol, r2, _, _ = sc.train_scenarios_chunked(cfg, policy, pol, ratings, 5, 1, 2, episode0=1, runner=runner)
+        assert merged_min_sums.launches == (5 if graph else 4) * 96
+        if graph:
+            assert len(runner.graphs) == 1
+        out[graph] = (r1, r2, [x.clone() for x, _ in sc.learner_leaves(pol)])
+    (e1, e2, pe), (g1, g2, pg) = out[False], out[True]
+    assert np.array_equal(g1, e1) and np.array_equal(g2, e2) and not np.array_equal(g1, g2)
+    assert all(torch.equal(a, b) for a, b in zip(pg, pe))

@@ -15,7 +15,13 @@ from p2pmicrogrid_tpu_torch import config as tcfg
 from p2pmicrogrid_tpu_torch.envs import community as tcom
 from p2pmicrogrid_tpu_torch.envs import multi_community as tmc
 from p2pmicrogrid_tpu_torch.data.traces import synthetic_traces
+from p2pmicrogrid_tpu_torch import regimes as treg
+from p2pmicrogrid_tpu_torch.models import forecast as tfc
 from p2pmicrogrid_tpu_torch.models.ddpg import ddpg_init, ddpg_params_init
+from p2pmicrogrid_tpu_torch.models.ddpg_recurrent import (
+    recurrent_actor_init_hidden,
+    recurrent_ddpg_init,
+)
 from p2pmicrogrid_tpu_torch.models.dqn import dqn_init
 from p2pmicrogrid_tpu_torch.models.replay import lockstep_replay_init
 from p2pmicrogrid_tpu_torch.models.tabular import tabular_init
@@ -27,6 +33,7 @@ from p2pmicrogrid_tpu_torch.serve import gateway as tgateway
 from p2pmicrogrid_tpu_torch.train import health as thealth
 from p2pmicrogrid_tpu_torch.train import loop as tloop
 from p2pmicrogrid_tpu_torch.train import make_policy
+from p2pmicrogrid_tpu_torch.train import recurrent as trec
 from p2pmicrogrid_tpu_torch.train.policies import init_policy_state
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(p2pmicrogrid_tpu_torch.__file__)))
@@ -66,7 +73,16 @@ def test_every_module_imports_without_jax():
                 "p2pmicrogrid_tpu_torch.serve.export",
                 "p2pmicrogrid_tpu_torch.serve.gateway",
                 "p2pmicrogrid_tpu_torch.serve.registry",
-                "p2pmicrogrid_tpu_torch.serve.wire"} <= set(names), names
+                "p2pmicrogrid_tpu_torch.serve.wire",
+                "p2pmicrogrid_tpu_torch.models.ddpg_recurrent",
+                "p2pmicrogrid_tpu_torch.models.forecast",
+                "p2pmicrogrid_tpu_torch.train.recurrent",
+                "p2pmicrogrid_tpu_torch.ops.auction",
+                "p2pmicrogrid_tpu_torch.regimes",
+                "p2pmicrogrid_tpu_torch.regimes.spec",
+                "p2pmicrogrid_tpu_torch.regimes.engine",
+                "p2pmicrogrid_tpu_torch.regimes.train",
+                "p2pmicrogrid_tpu_torch.regimes.evaluate"} <= set(names), names
         leaked = sorted(
             n for n, m in sys.modules.items()
             if m is not None and (n == "jax" or n.startswith(("jax.", "jaxlib", "flax", "optax"))
@@ -150,6 +166,31 @@ def _cfg(impl="tabular"):
         lambda cfg: tgateway.make_bundle_factory(),
         lambda cfg: tgateway.build_registry(["unused"]),
         lambda cfg: tgateway.build_gateway(["unused"]),
+        lambda cfg: recurrent_ddpg_init(cfg.ddpg),
+        lambda cfg: recurrent_actor_init_hidden((2,)),
+        lambda cfg: trec.train_recurrent_community(cfg, 2, torch.Generator()),
+        lambda cfg: tfc.forecast_init(cfg.forecast, 4),
+        lambda cfg: tfc.train_forecaster(cfg.forecast, np.zeros((4, 3, 4)), np.zeros((4, 3, 2))),
+        lambda cfg: treg.stack_regime_params([treg.RegimeSpec()]),
+        lambda cfg: treg.assignment_one_hot(np.zeros(2, np.int32), 1),
+        lambda cfg: treg.build_portfolio(["baseline"], 2),
+        lambda cfg: treg.make_regime_episode_fn(
+            cfg, make_policy(cfg), tcom.make_ratings(cfg, np.random.default_rng(0)),
+            treg.build_portfolio(["baseline"], 2, device="cpu").scenario_params,
+            arrays_fn=lambda d: None, n_scenarios=2,
+        ),
+        lambda cfg: treg.train_regime_portfolio(
+            cfg, make_policy(cfg), None, None, tcom.make_ratings(cfg, np.random.default_rng(0)),
+            treg.build_portfolio(["baseline"], 2, device="cpu"), torch.Generator(), 1,
+            arrays_fn=lambda d: None, n_scenarios=2,
+        ),
+        lambda cfg: treg.make_regime_eval(
+            cfg, make_policy(cfg), tcom.make_ratings(cfg, np.random.default_rng(0)),
+            treg.build_portfolio(["baseline"], 2, device="cpu"),
+        ),
+        lambda cfg: treg.evaluate_regimes(
+            cfg, make_policy(cfg), None, tcom.make_ratings(cfg, np.random.default_rng(0)), ["baseline"],
+        ),
     ],
     ids=["init_shared_state", "init_policy_state", "tabular_init", "init_physical",
          "ratings_to", "stack_scenario_arrays", "init_shared_state_dqn", "dqn_init",
@@ -160,7 +201,10 @@ def _cfg(impl="tabular"):
          "evaluate_multi_community", "make_greedy_eval", "train_chunked_with_health",
          "PolicyEngine", "export_policy_bundle", "export_bundle_from_checkpoint",
          "aot_compile_bundle", "build_bundle", "make_bundle_factory", "build_registry",
-         "build_gateway"],
+         "build_gateway", "recurrent_ddpg_init", "recurrent_actor_init_hidden",
+         "train_recurrent_community", "forecast_init", "train_forecaster", "stack_regime_params",
+         "assignment_one_hot", "build_portfolio", "make_regime_episode_fn",
+         "train_regime_portfolio", "make_regime_eval", "evaluate_regimes"],
 )
 def test_entry_points_default_to_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -9,8 +9,6 @@ bit for bit, with its slots, generations, scratch overflow and
 ``end_session``; recurrent bundles are refused, naming ROADMAP item 9.
 """
 
-import json
-import os
 
 import numpy as np
 import pytest
@@ -24,7 +22,6 @@ from p2pmicrogrid_tpu_torch.serve import (
     ContinuousBatcher,
     MicroBatchQueue,
     PolicyEngine,
-    build_bundle,
     calibration_obs,
     export_policy_bundle,
 )
@@ -262,29 +259,3 @@ def test_continuous_worker_thread_serves(tmp_path):
         futs = [cb.submit(o, household=f"h{i % 5}") for i, o in enumerate(obs)]
         got = np.stack([f.result(timeout=WAIT) for f in futs])
     np.testing.assert_array_equal(got, engine.act(obs))
-
-
-def _recurrent_bundle(tmp_path):
-    """A bundle whose manifest declares the recurrent actor and its hidden
-    state (the JAX package's ``ddpg_recurrent`` layout)."""
-    _, _, path = _bundle(tmp_path, "ddpg", name="rec")
-    mpath = os.path.join(path, "manifest.json")
-    with open(mpath) as f:
-        m = json.load(f)
-    m["implementation"] = "ddpg_recurrent"
-    m["hidden_state"] = {"shape": [400], "dtype": "float32", "init": "zeros"}
-    with open(mpath, "w") as f:
-        json.dump(m, f)
-    return path
-
-
-def test_recurrent_bundles_refused_naming_item_9(tmp_path):
-    path = _recurrent_bundle(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        PolicyEngine(bundle_dir=path, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_bundle(path, device="cpu", batching="continuous")
-    cfg = tc.default_config(sim=tc.SimConfig(n_agents=A),
-                            train=tc.TrainConfig(implementation="ddpg_recurrent"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        export_policy_bundle(cfg, {"actor": {}}, str(tmp_path / "r2"), device="cpu")

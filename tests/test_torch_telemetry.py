@@ -306,7 +306,7 @@ def test_slot_tally_matches_dc_from_slot():
     cfg = _single_cfg(tcfg)
     rng = np.random.default_rng(0)
     T, S, A = 5, 3, 4
-    tally, ref = SlotTally(T), dc_zero()
+    tally, ref = SlotTally(T), dc_zero("cpu")
     for t in range(T):
         q = rng.standard_normal((S, A)).astype(np.float32)
         loss = rng.standard_normal((S,)).astype(np.float32)
