@@ -98,7 +98,8 @@ Phases (each failure exits non-zero):
 8. Observable, crash-safe training. (e) The seed-0 draws on this
    machine's CPU hash to the digests the CPU tests pin
    (``draw_digests.py``). (a) ``train.health.train_chunked_with_health`` at
-   the northstar row with telemetry into a temporary run directory, an eval
+   the northstar row (its depth cut to 16 chunks an episode) with
+   telemetry into a temporary run directory, an eval
    of 8 held-out scenarios after every episode (K1 at [8,1000]) and
    ``mitigate="lr-boost"``: a warm episode and two timed ones, then one
    more block with the monitor restored in the basin, so the boosted runner
@@ -106,7 +107,7 @@ Phases (each failure exits non-zero):
    the eval's seconds, the boosted capture's seconds and pool, peak memory,
    each episode's device counters, the replay fill and the host's blocked
    share; the run directory's manifest, metrics and Chrome trace parsed, the
-   profile gauges present, K1's launches (96 x 80 an episode, 96 an eval,
+   profile gauges present, K1's launches (96 x 16 an episode, 96 an eval,
    96 a capture's warm-up; one eval's counted alone) and no other kernel;
    then the first run again with telemetry off (no counters, no records),
    its env-steps/s beside. (b) The device counters of
@@ -181,12 +182,34 @@ Phases (each failure exits non-zero):
    The card against the CPU at A=6, S=8 over 4 regimes (rewards rtol
    2e-4). (e) ``evaluate_regimes`` over both portfolios at A=1000, 4
    scenarios a regime.
-12. One JSON line with the DDPG rows' numbers, one with the chunked rows',
+12. The command line (``cli.py``) on the card, in-process through
+   ``cli.main`` (where the kernels' counts are read) and as ``python -m
+   p2pmicrogrid_tpu_torch`` subprocesses, in a temporary directory. (a) The
+   README's north-star command, ``train --agents 1000 --scenarios 128
+   --shared --share-agents --chunks 8 --implementation ddpg --episodes 2
+   --health-every 1 --seed 0 --results-db DB --model-dir M`` (depth cut
+   from 80 chunks to 8): K1's launches against (2 x 8 + captures + 3) x 96,
+   then ``train_chunked_with_health`` with the same config, seed and device:
+   rewards, losses, health points and the final checkpoint's parameters
+   equal bit for bit; both wall times and the seconds of the SQLite
+   writes. (b) ``eval --test`` on that checkpoint (a ``test_results`` row
+   for every agent and slot of the 5 test days, one ``eval_runs`` row),
+   then ``telemetry-query --gauges`` joining the training run to it. (c)
+   ``export-bundle``, then ``serve-gateway`` answering 32 POSTs into the
+   same warehouse (32 ``serve_request`` records under the bundle's hash,
+   the card named in the listening line). (d) ``train``, ``eval --test``
+   and ``baseline --test`` at A=2, ``train --scenarios 4 --shared --rounds
+   2 --implementation dqn`` at A=8, ``multi`` and its ``eval`` at 8 x 128,
+   each one's launches equal to the library path's; ``train --supervise``
+   with a one-kill fault plan (the child ``-m p2pmicrogrid_tpu_torch``
+   restarted with ``--resume``). (e) ``--device cpu`` launches no kernel.
+13. One JSON line with the DDPG rows' numbers, one with the chunked rows',
    one with the single rows', one with phase 7's rows, one with phase 8's,
    one with phase 10's (``{"recurrent": ...}``), one with phase 11's
-   (``{"regimes": ...}``), one with every kernel's (K1's phase-11 launches
-   under ``at_128x1000.regime_launches``), then the last line ``{"ok":
-   true, "device": {...}}``.
+   (``{"regimes": ...}``), phase 12's (``{"cli": ...}``), one with every
+   kernel's (K1's phase-11 launches under ``at_128x1000.regime_launches``,
+   each kernel's phase-12 launches under ``cli_launches``), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 With arguments (a comma-separated list of phase numbers, e.g. ``5``) it
 builds and runs only those phases and prints no result line.
@@ -2685,6 +2708,10 @@ def phase_independent(counters, card):
 # cut to K=8 chunks and 3 episodes.
 HEALTH_S_EVAL = 8
 RESUME_K, RESUME_EPISODES = 8, 3
+# The guarded run's depth, cut from the northstar's 80 chunks an episode to
+# 16 to keep the whole script inside its time limit (phase 5 times the
+# 80-chunk episode; the width stays 1000 agents x 128 scenarios a chunk).
+GUARDED_K = 16
 
 
 def northstar_config():
@@ -2729,7 +2756,7 @@ def phase_guarded_northstar(counters, card, tmp, bare_env_steps):
     from p2pmicrogrid_tpu_torch.train import make_policy
 
     cfg = northstar_config()
-    A, S, K, T = NORTHSTAR["A"], NORTHSTAR["S"], NORTHSTAR["K"], 96
+    A, S, K, T = NORTHSTAR["A"], NORTHSTAR["S"], GUARDED_K, 96
     what = f"guarded northstar A={A} S={S} K={K}"
     torch.cuda.synchronize()
     gc_collect()
@@ -4279,6 +4306,594 @@ def phase_regimes(counters, card):
     return out, k1
 
 
+# --- phase 12 ---------------------------------------------------------------
+
+# The command line on the card (cli.py). The README's north-star command
+# with its depth cut from 80 chunks an episode to 8 (the width stays: 1000
+# agents, 128 scenarios a chunk), the DDPG defaults of the command line
+# (buffer 10,000, batch 128, learn cap 32,768), two episodes, an eval after
+# each.
+CLI_NORTHSTAR = dict(A=1000, S=128, K=8, episodes=2)
+CLI_GATEWAY_REQUESTS = 32
+
+
+def cli_argv(*args):
+    return [str(a) for a in args]
+
+
+def run_cli(what, argv, counters=None):
+    """``cli.main(argv)`` in this process: (stdout, seconds, launches); a
+    non-zero return or exit is fatal. The counts are set to 0 first."""
+    import contextlib
+    import io
+
+    from p2pmicrogrid_tpu_torch import cli
+
+    if counters is not None:
+        reset(counters)
+    buf = io.StringIO()
+    start = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    except SystemExit as exc:
+        fail(f"phase 12: {what}: exited {exc.code!r}; output: {buf.getvalue()[-2000:]}")
+    secs = time.perf_counter() - start
+    out = buf.getvalue()
+    if rc != 0:
+        fail(f"phase 12: {what}: returned {rc}; output: {out[-2000:]}")
+    for line in out.splitlines()[-3:]:
+        log(f"phase 12: {what} | {line[:300]}")
+    launches = None if counters is None else {n: fn.launches for n, fn in counters.items()}
+    return out, secs, launches
+
+
+def run_module(what, args, timeout=600):
+    """``python -m p2pmicrogrid_tpu_torch args`` from this checkout; its
+    stdout, fatal on a non-zero exit."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "p2pmicrogrid_tpu_torch", *args], capture_output=True, text=True,
+        env=env, timeout=timeout,
+    )
+    if proc.returncode != 0:
+        fail(f"phase 12: {what}: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def nonzero(launches):
+    return {n: v for n, v in launches.items() if v}
+
+
+class SqliteClock:
+    """Seconds spent in the results store's writes while installed: the
+    telemetry sink's batch flushes, run rows, spans and close, and the
+    store's progress and health rows."""
+
+    def __init__(self):
+        from p2pmicrogrid_tpu_torch.data.results import ResultsStore
+        from p2pmicrogrid_tpu_torch.telemetry.registry import SqliteSink
+
+        self.seconds, self.calls = 0.0, 0
+        self.targets = [
+            (SqliteSink, name) for name in ("_flush_locked", "_write_run_row", "write_spans", "close")
+        ] + [(ResultsStore, name) for name in ("__init__", "log_training_progress", "log_training_health")]
+        self.saved = []
+
+    def __enter__(self):
+        for cls, name in self.targets:
+            orig = getattr(cls, name)
+
+            def timed(*a, _orig=orig, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _orig(*a, **kw)
+                finally:
+                    self.seconds += time.perf_counter() - t0
+                    self.calls += 1
+
+            self.saved.append((cls, name, orig))
+            setattr(cls, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig in self.saved:
+            setattr(cls, name, orig)
+
+
+def cli_northstar(counters, tmp):
+    """(a) The north star through ``cli.main`` and through
+    ``train_chunked_with_health`` with the same config, seed and device, in
+    turns (library, command, command, library): K1's launches against
+    (E*K + captures + E + 1) * 96 in every run, rewards, losses, health
+    points and the final parameters equal bit for bit, wall and training
+    seconds of each."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.envs.community import make_ratings
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+    from p2pmicrogrid_tpu_torch.telemetry import config_hash
+    from p2pmicrogrid_tpu_torch.train import health as th
+    from p2pmicrogrid_tpu_torch.train import make_policy
+    from p2pmicrogrid_tpu_torch.train.checkpoint import (
+        _np_state, checkpoint_dir, latest_checkpoint, load_manifest, tree_digest,
+    )
+
+    A, S, K, E = CLI_NORTHSTAR["A"], CLI_NORTHSTAR["S"], CLI_NORTHSTAR["K"], CLI_NORTHSTAR["episodes"]
+    T = 96
+    what = f"north star A={A} S={S} K={K} E={E}"
+    db, models = os.path.join(tmp, "results.db"), os.path.join(tmp, "models")
+    flags = cli_argv("--agents", A, "--scenarios", S, "--shared", "--share-agents", "--chunks", K,
+                     "--implementation", "ddpg", "--episodes", E, "--seed", 0, "--model-dir", models)
+    cfg = tc.default_config(
+        sim=tc.SimConfig(n_agents=A, n_scenarios=S),
+        ddpg=tc.DDPGConfig(share_across_agents=True),
+        train=tc.TrainConfig(max_episodes=E, implementation="ddpg", seed=0),
+    )
+    ckpt = checkpoint_dir(models, f"{cfg.setting}-x{S}-shared-k{K}", "ddpg")
+
+    def command():
+        # The command's own call of the library, observed: its returns.
+        seen, real = {}, th.train_chunked_with_health
+
+        def observed(*a, **kw):
+            seen["kw"] = {k: v for k, v in kw.items() if k not in ("episode_cb", "health_cb", "carry_sync")}
+            seen["out"] = real(*a, **kw)
+            return seen["out"]
+
+        th.train_chunked_with_health = observed
+        try:
+            with SqliteClock() as clock:
+                _, wall, launches = run_cli(
+                    "north star", ["train", *flags, "--health-every", "1", "--results-db", db], counters
+                )
+        finally:
+            th.train_chunked_with_health = real
+        if seen["kw"].get("device") != "cuda" or seen["kw"].get("results_db") != db:
+            fail(f"phase 12: {what}: the command called the trainer with {seen['kw']}")
+        _, rew, loss, secs, monitor = seen["out"]
+        step = latest_checkpoint(ckpt)
+        manifest = load_manifest(step) if step else None
+        if manifest is None or manifest["config_hash"] != config_hash(cfg) or manifest["episode"] != E - 1:
+            fail(f"phase 12: {what}: final checkpoint under {ckpt}: {manifest}")
+        return dict(wall=wall, train=secs, launches=launches, rewards=rew, losses=loss, monitor=monitor,
+                    digest=manifest["digest"], sqlite_s=clock.seconds, sqlite_calls=clock.calls)
+
+    def library(i):
+        reset(counters)
+        start = time.perf_counter()
+        ratings = make_ratings(cfg, np.random.default_rng(0))
+        policy = make_policy(cfg)
+        pol = sc.init_shared_pol_state(cfg, "cuda", torch.Generator(device="cuda").manual_seed(0))
+        pol, rew, loss, secs, monitor = th.train_chunked_with_health(
+            cfg, policy, pol, ratings, 0, E, K, eval_every=1, mitigate="lr-boost",
+            results_db=os.path.join(tmp, f"library{i}.db"), device="cuda",
+        )
+        digest, _ = tree_digest({"pol_state": _np_state(pol), "episode": np.asarray(E - 1)})
+        wall = time.perf_counter() - start
+        return dict(wall=wall, train=secs, launches={n: fn.launches for n, fn in counters.items()},
+                    rewards=rew, losses=loss, monitor=monitor, digest=digest)
+
+    runs = []
+    for i, kind in enumerate(("library", "command", "command", "library")):
+        gc_collect()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        run = library(i) if kind == "library" else command()
+        run["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        gc_collect()
+        run["kind"] = kind
+        captures = 1 + int(any(e < E for e in run["monitor"].basin_entries))
+        expect = {n: ((E * K + captures + E + 1) * T if n == "merged_min_sums" else 0) for n in counters}
+        if run["launches"] != expect:
+            fail(f"phase 12: {what}: {kind} launched {run['launches']}, expected {expect}")
+        ref = runs[0] if runs else run
+        if not (np.array_equal(run["rewards"], ref["rewards"]) and np.array_equal(run["losses"], ref["losses"])):
+            fail(f"phase 12: {what}: the {kind}'s rewards or losses differ from the library's "
+                 f"(max {np.abs(run['rewards'] - ref['rewards']).max():.3e})")
+        if run["digest"] != ref["digest"]:
+            fail(f"phase 12: {what}: the {kind}'s final parameters' digest {run['digest']} differs "
+                 f"from the library's {ref['digest']}")
+        if [p._asdict() for p in run["monitor"].points] != [p._asdict() for p in ref["monitor"].points]:
+            fail(f"phase 12: {what}: the {kind}'s health points differ from the library's")
+        log(f"phase 12: {what}: {kind} {run['wall']:.2f} s wall, {run['train']:.2f} s training "
+            f"({E * K * S * T / run['train']:.1f} env-steps/s), K1 {run['launches']['merged_min_sums']}, "
+            f"peak {run['peak_gib']:.2f} GiB")
+        runs.append(run)
+    steps = E * K * S * T
+    by = lambda kind, key: [r[key] for r in runs if r["kind"] == kind]
+    cli_wall, lib_wall = statistics.mean(by("command", "wall")), statistics.mean(by("library", "wall"))
+    cli_train, lib_train = statistics.mean(by("command", "train")), statistics.mean(by("library", "train"))
+    row = dict(
+        command="train " + " ".join(flags[:-2]) + " --health-every 1 --results-db DB --model-dir M",
+        order=[r["kind"] for r in runs], wall_s=[r["wall"] for r in runs], train_s=[r["train"] for r in runs],
+        peak_gib=[r["peak_gib"] for r in runs],
+        cli_wall_s=cli_wall, library_wall_s=lib_wall, wall_ratio=cli_wall / lib_wall,
+        cli_env_steps_per_s=steps / cli_train, library_env_steps_per_s=steps / lib_train,
+        train_ratio=cli_train / lib_train, sqlite_write_s=by("command", "sqlite_s"),
+        sqlite_write_calls=by("command", "sqlite_calls"),
+        k1_launches=runs[1]["launches"]["merged_min_sums"],
+        basin_entries=list(runs[1]["monitor"].basin_entries), rewards_equal=True, parameters_equal=True,
+        digest=runs[1]["digest"], greedy_costs=[p.greedy_cost_eur for p in runs[1]["monitor"].points],
+    )
+    log(f"phase 12: {what}: the command {cli_wall:.2f} s wall ({steps / cli_train:.1f} env-steps/s), "
+        f"the library {lib_wall:.2f} s ({steps / lib_train:.1f}), ratio {cli_wall / lib_wall:.4f}; SQLite "
+        f"writes {row['sqlite_write_s']} s; rewards, losses, health points and parameters equal bit for bit")
+    launches = {n: sum(r["launches"][n] for r in runs if r["kind"] == "command") for n in counters}
+    return row, launches, flags, db
+
+
+def cli_eval_and_query(counters, flags, db):
+    """(b) ``eval --test`` on the north star's checkpoint: a test_results row
+    for every agent and slot of each test day and one eval_runs row; then
+    ``telemetry-query --gauges`` as a subprocess joins the training run to
+    it on config_hash."""
+    import sqlite3
+
+    what = "north star eval --test"
+    out, secs, launches = run_cli(what, ["eval", *flags, "--test", "--results-db", db], counters)
+    A = CLI_NORTHSTAR["A"]
+    con = sqlite3.connect(db)
+    try:
+        days = con.execute("SELECT day, COUNT(*) FROM test_results GROUP BY day ORDER BY day").fetchall()
+        runs = con.execute("SELECT setting, config_hash, n_days, total_cost_eur FROM eval_runs").fetchall()
+    finally:
+        con.close()
+    if [d for d, _ in days] != [8, 9, 10, 19, 20] or any(n != 96 * A for _, n in days):
+        fail(f"phase 12: {what}: test_results rows by day {days}")
+    if len(runs) != 1 or runs[0][2] != 5:
+        fail(f"phase 12: {what}: eval_runs {runs}")
+    t0 = time.perf_counter()
+    query = run_module("telemetry-query", ["telemetry-query", "--results-db", db, "--gauges"])
+    query_s = time.perf_counter() - t0
+    rows = [json.loads(line) for line in query.splitlines() if line.startswith("{")]
+    joined = [r for r in rows if r["run_id"].startswith("train-chunked") and r["config_hash"] == runs[0][1]]
+    if not joined or not joined[0].get("gauges"):
+        fail(f"phase 12: telemetry-query joined no training run to the eval: {rows}")
+    log(f"phase 12: {what}: {sum(n for _, n in days)} test_results rows over 5 days in {secs:.2f} s, "
+        f"launches {nonzero(launches)}; telemetry-query joined {joined[0]['run_id']} to "
+        f"{joined[0]['eval_setting']} on {runs[0][1]} ({len(joined[0]['gauges'])} gauges)")
+    return dict(eval_s=secs, eval_launches=nonzero(launches), test_rows=sum(n for _, n in days),
+                eval_cost_eur=runs[0][3], query_s=query_s, joined_run=joined[0]["run_id"],
+                config_hash=runs[0][1], n_gauges=len(joined[0]["gauges"]))
+
+
+def cli_gateway(counters, flags, db, tmp):
+    """(c) ``export-bundle`` of the north star's checkpoint, then
+    ``serve-gateway`` as a subprocess answering 32 POSTs to ``/v1/act``
+    into the same warehouse: 32 ``serve_request`` points under the bundle's
+    config_hash, and the listening line names the card."""
+    import sqlite3
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    bundle = os.path.join(tmp, "bundle")
+    out, export_s, launches = run_cli("export-bundle", ["export-bundle", *flags, "--out", bundle], counters)
+    if nonzero(launches):
+        fail(f"phase 12: export-bundle launched {launches}")
+    with open(os.path.join(bundle, "manifest.json")) as f:
+        bundle_hash = json.load(f)["config_hash"]
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    err_path = os.path.join(tmp, "gateway.err")
+
+    def stderr_tail():
+        with open(err_path) as f:
+            return f.read()[-2000:]
+
+    start = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "p2pmicrogrid_tpu_torch", "serve-gateway", "--bundle", bundle,
+             "--port", "0", "--results-db", db, "--serve-seconds", "8"],
+            stdout=subprocess.PIPE, stderr=err, text=True, env=env,
+        )
+    try:
+        line = proc.stdout.readline()
+        ready_s = time.perf_counter() - start
+        try:
+            listening = json.loads(line)
+        except ValueError:
+            fail(f"phase 12: serve-gateway printed {line!r}; stderr {stderr_tail()}")
+        if listening.get("device") != torch.cuda.get_device_name(0) or listening.get("default") != bundle_hash:
+            fail(f"phase 12: the gateway's listening line {listening}")
+        A = CLI_NORTHSTAR["A"]
+        obs = np.random.default_rng(0).uniform(-1, 1, (CLI_GATEWAY_REQUESTS, A, 4)).astype(np.float32)
+        answers, errors = [None] * CLI_GATEWAY_REQUESTS, []
+
+        def post(i):
+            try:
+                req = urllib.request.Request(
+                    f"http://{listening['host']}:{listening['port']}/v1/act",
+                    data=json.dumps({"household": f"h{i}", "obs": obs[i].tolist()}).encode(),
+                    method="POST",
+                )
+                with urllib.request.urlopen(req, timeout=60) as resp:
+                    answers[i] = json.loads(resp.read())
+            except Exception as exc:  # noqa: BLE001 — reported below
+                errors.append(f"{i}: {exc}")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=lambda k=k: [post(i) for i in range(k, CLI_GATEWAY_REQUESTS, 8)])
+                   for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        serve_s = time.perf_counter() - t0
+        if errors or any(a is None or len(a["actions"]) != A or a["config_hash"] != bundle_hash for a in answers):
+            fail(f"phase 12: gateway requests failed: {errors[:4]}")
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        fail(f"phase 12: serve-gateway exited {rc}: {stderr_tail()}")
+    con = sqlite3.connect(db)
+    try:
+        (n,) = con.execute(
+            "SELECT COUNT(*) FROM telemetry_points p JOIN telemetry_runs r USING (run_id) "
+            "WHERE p.kind = 'serve_request' AND r.config_hash = ?", (bundle_hash,),
+        ).fetchone()
+    finally:
+        con.close()
+    if n != CLI_GATEWAY_REQUESTS:
+        fail(f"phase 12: the warehouse holds {n} serve_request records for {bundle_hash}, "
+             f"expected {CLI_GATEWAY_REQUESTS}")
+    actions = np.array([a["actions"] for a in answers], np.float32)
+    if not np.isfinite(actions).all() or actions.min() < 0 or actions.max() > 1:
+        fail("phase 12: gateway actions outside [0, 1]")
+    log(f"phase 12: export-bundle {export_s:.2f} s; serve-gateway on {listening['device']} ready after "
+        f"{ready_s:.1f} s, {CLI_GATEWAY_REQUESTS} requests of A={A} in {serve_s:.2f} s, "
+        f"{n} serve_request records under {bundle_hash}")
+    return dict(export_s=export_s, gateway_ready_s=ready_s, requests=CLI_GATEWAY_REQUESTS,
+                requests_s=serve_s, serve_request_records=n, bundle_config_hash=bundle_hash,
+                listening_device=listening["device"])
+
+
+def cli_small_commands(counters, tmp):
+    """(d) The smaller commands through ``cli.main``, each one's launches
+    against the library path's for the same configuration (its calls made
+    directly, in the same order)."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import cli
+    from p2pmicrogrid_tpu_torch.data import synthetic_traces, train_validation_test_split
+    from p2pmicrogrid_tpu_torch.envs import (
+        build_episode_arrays, make_ratings, rule_baseline_episode,
+    )
+    from p2pmicrogrid_tpu_torch.envs.multi_community import (
+        evaluate_multi_community, train_multi_community,
+    )
+    from p2pmicrogrid_tpu_torch.parallel import scenarios as sc
+    from p2pmicrogrid_tpu_torch.train import evaluate_community, init_policy_state, make_policy
+    from p2pmicrogrid_tpu_torch.train import health as th
+    from p2pmicrogrid_tpu_torch.train import train_community
+
+    models, db = os.path.join(tmp, "small-models"), os.path.join(tmp, "small.db")
+    gen = lambda seed=42: torch.Generator(device="cuda").manual_seed(seed)
+    splits = train_validation_test_split(synthetic_traces(seed=42))
+
+    def cfg_of(argv):
+        parser = capture_parser(cli.main)
+        args = parser.parse_args(argv)
+        return args, cli._build_cfg(args)
+
+    def library(run):
+        reset(counters)
+        run()
+        return {n: fn.launches for n, fn in counters.items()}
+
+    rows = []
+
+    def check(what, argv, run_library, expected):
+        out, secs, got = run_cli(what, argv, counters)
+        want = library(run_library)
+        if got != want:
+            fail(f"phase 12: {what}: the command launched {nonzero(got)}, the library {nonzero(want)}")
+        note = "" if nonzero(got) == expected else f" (PERF.md §6 leads one to expect {expected})"
+        log(f"phase 12: {what}: launches {nonzero(got)} = the library's{note}; {secs:.2f} s")
+        rows.append(dict(command=" ".join(argv[:1] + [a for a in argv[1:] if not a.startswith("/")]),
+                         seconds=secs, launches=nonzero(got), expected=expected, as_expected=not note))
+        return out
+
+    T = 96
+    base = cli_argv("--agents", 2, "--episodes", 2, "--model-dir", models, "--results-db", db)
+    _, cfg = cfg_of(["train", *base])
+
+    def lib_train():
+        ratings = make_ratings(cfg, np.random.default_rng(42))
+        g = gen()
+        train_community(cfg, make_policy(cfg), init_policy_state(cfg, "cuda", g), splits[0], ratings, g,
+                        device="cuda")
+
+    # A single-community episode runs the whole training split, 7 days.
+    T_train = splits[0].time.shape[0]
+    check("train A=2", ["train", *base], lib_train,
+          {"divide_rank1_fused": 2 * T_train, "clear_market_fused": 2 * T_train})
+
+    def lib_eval():
+        rng = np.random.default_rng(42)
+        ratings = make_ratings(cfg, rng)
+        g = gen()
+        evaluate_community(cfg, make_policy(cfg), init_policy_state(cfg, "cuda", g), splits[2], ratings, g,
+                           rng=rng, device="cuda")
+
+    check("eval --test A=2", ["eval", "--test", *base], lib_eval,
+          {"divide_rank1_fused": T, "clear_market_fused": T})
+
+    def lib_baseline():
+        ratings = make_ratings(cfg, np.random.default_rng(42))
+        for _, day in sorted(splits[2].split_by_day().items()):
+            rule_baseline_episode(cfg, cli._initial_physical(cfg, "cuda"),
+                                  build_episode_arrays(cfg, day, ratings, "cuda"))
+
+    check("baseline --test A=2", ["baseline", "--test", *base], lib_baseline, {})
+
+    argv = ["train", *cli_argv("--agents", 8, "--scenarios", 4, "--shared", "--rounds", 2,
+                               "--implementation", "dqn", "--episodes", 1, "--model-dir", models)]
+    _, cfg_q = cfg_of(argv)
+
+    def lib_dqn():
+        ratings = make_ratings(cfg_q, np.random.default_rng(42))
+        g = gen()
+        policy = make_policy(cfg_q)
+        arrays = sc.stack_scenario_arrays(cfg_q, sc.make_scenario_traces(cfg_q, seed=42), ratings, "cuda")
+        pol, scen = sc.init_shared_state(cfg_q, "cuda", g)
+        pol, scen = sc.warmup_shared_dqn(cfg_q, policy, pol, scen, arrays, ratings, g)
+        greedy = th.make_greedy_eval(cfg_q, policy, ratings, device="cuda")
+        th.untrained_reference_cost(cfg_q, policy, greedy, seed=42)
+        sc.train_scenarios_shared(cfg_q, policy, pol, arrays, ratings, g, 1, replay_s=scen,
+                                  episode_cb=lambda ep, r, l, c: greedy(c[0]))
+
+    passes = cfg_q.dqn.warmup_passes + 1 + 2  # warmup, the episode, two greedy evals
+    check("train dqn rounds=2 A=8 S=4", argv, lib_dqn,
+          {k: passes * T for k in ("divide_rank1_fused", "divide_power_fused_with_mean", "clear_market_fused")})
+
+    multi = cli_argv("--communities", 8, "--agents", 128, "--episodes", 1, "--model-dir", models,
+                     "--results-db", db)
+    _, cfg_m = cfg_of(["multi", *multi])
+    cfg_m = cfg_m.replace(sim=dataclasses.replace(cfg_m.sim, n_scenarios=8))
+
+    def lib_multi():
+        ratings = make_ratings(cfg_m, np.random.default_rng(42))
+        g = gen()
+        arrays = sc.stack_scenario_arrays(cfg_m, sc.make_scenario_traces(cfg_m, n_scenarios=8, seed=42),
+                                          ratings, "cuda")
+        pol, scen = sc.init_shared_state(cfg_m, "cuda", g)
+        train_multi_community(cfg_m, make_policy(cfg_m), pol, arrays, ratings, g, 1, replay_s=scen,
+                              episode_cb=lambda *a: None)
+
+    check("multi C=8 A=128", ["multi", *multi], lib_multi, {"merged_min_sums": T})
+
+    def lib_multi_eval():
+        rng = np.random.default_rng(42)
+        ratings = make_ratings(cfg_m, rng)
+        g = gen()
+        evaluate_multi_community(cfg_m, make_policy(cfg_m), init_policy_state(cfg_m, "cuda", g), splits[2],
+                                 ratings, g, rng=rng, device="cuda")
+
+    check("eval --communities 8 A=128 --test", ["eval", "--test", *multi], lib_multi_eval,
+          {"merged_min_sums": T})
+    return rows
+
+
+def capture_parser(main):
+    """The command line's parser, built by ``main`` and caught at its
+    ``parse_args``."""
+    import argparse
+
+    box = []
+    orig = argparse.ArgumentParser.parse_args
+
+    class Captured(Exception):
+        pass
+
+    def capture(self, args=None, namespace=None):
+        box.append(self)
+        raise Captured
+
+    argparse.ArgumentParser.parse_args = capture
+    try:
+        main([])
+    except Captured:
+        pass
+    finally:
+        argparse.ArgumentParser.parse_args = orig
+    return box[0]
+
+
+def cli_supervised(tmp):
+    """(d) ``train --supervise`` with a one-kill fault plan at A=2: the
+    child, ``python -m p2pmicrogrid_tpu_torch``, is SIGKILLed at episode 2,
+    restarted with ``--resume`` and finishes."""
+    from p2pmicrogrid_tpu_torch.train import resilience
+    from p2pmicrogrid_tpu_torch.train.faults import TrainFaultEvent, TrainFaultPlan
+
+    plan = os.path.join(tmp, "plan.json")
+    with open(plan, "w") as f:
+        f.write(TrainFaultPlan(seed=0, events=(TrainFaultEvent(kind="kill", episode=2, attempt=0),)).to_json())
+    children, real = [], resilience.supervise
+
+    def observed(child_argv, **kw):
+        children.append(list(child_argv))
+        return real(child_argv, **kw)
+
+    resilience.supervise = observed
+    saved_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = HERE + os.pathsep + (saved_path or "")
+    try:
+        out, secs, _ = run_cli("train --supervise", cli_argv(
+            "train", "--agents", 2, "--episodes", 4, "--save-episodes", 1, "--supervise", "--fault-plan",
+            plan, "--model-dir", os.path.join(tmp, "supervised")))
+    finally:
+        resilience.supervise = real
+        if saved_path is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved_path
+    rows = [json.loads(line) for line in out.splitlines() if line.startswith('{"metric"')]
+    attempts = [r for r in rows if r["metric"] == "supervise_attempt"]
+    head = rows[-1] if rows else {}
+    if children[0][1:3] != ["-m", "p2pmicrogrid_tpu_torch"] or children[0][0] != sys.executable:
+        fail(f"phase 12: the supervisor's child is {children[0][:4]}")
+    if ([a["exit_code"] for a in attempts] != [-9, 0] or head.get("metric") != "train_supervised"
+            or (head.get("kills"), head.get("resumes"), head.get("exit_code"), head.get("final_episode"))
+            != (1, 1, 0, 3)):
+        fail(f"phase 12: supervised run: attempts {attempts}, headline {head}")
+    if "resumed" not in out or "at episode 1" not in out:
+        fail("phase 12: the restarted child did not resume from episode 1")
+    log(f"phase 12: train --supervise: child {' '.join(children[0][1:3])} killed at episode 2, restarted "
+        f"with --resume, finished; {secs:.1f} s")
+    return dict(child=children[0][1:3], attempts=[a["exit_code"] for a in attempts],
+                attempt_s=[a["duration_s"] for a in attempts], seconds=secs)
+
+
+def phase_cli(counters, card):
+    """Phase 12: the command line on the card."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    saved = {k: os.environ.get(k) for k in ("P2P_TELEMETRY_DIR", "P2P_TELEMETRY")}
+    os.environ["P2P_TELEMETRY_DIR"] = os.path.join(tmp, "runs")
+    os.environ.pop("P2P_TELEMETRY", None)
+    totals = {name: 0 for name in counters}
+    try:
+        northstar, ns_launches, flags, db = cli_northstar(counters, tmp)
+        evaluation = cli_eval_and_query(counters, flags, db)
+        gateway = cli_gateway(counters, flags, db, tmp)
+        small = cli_small_commands(counters, tmp)
+        supervised = cli_supervised(tmp)
+        # (e) --device cpu on the card's machine launches no kernel.
+        _, cpu_s, cpu_launches = run_cli("train --device cpu", cli_argv(
+            "train", "--agents", 2, "--episodes", 1, "--device", "cpu", "--model-dir",
+            os.path.join(tmp, "cpu-models")), counters)
+        if nonzero(cpu_launches):
+            fail(f"phase 12: --device cpu launched {cpu_launches}")
+        log(f"phase 12: train --device cpu: no kernel launched ({cpu_s:.2f} s)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for launches in [ns_launches, evaluation["eval_launches"]] + [row["launches"] for row in small]:
+        for name, n in launches.items():
+            totals[name] += n
+    reading = dict(card=card, northstar=northstar, eval=evaluation, gateway=gateway, small=small,
+                   supervised=supervised, cpu_launches=nonzero(cpu_launches))
+    return reading, totals
+
+
+
 def main() -> None:
     import torch
 
@@ -4303,7 +4918,7 @@ def main() -> None:
     # With no arguments every phase runs (the check); a comma-separated list
     # of phase numbers (e.g. "2,5") runs only those, builds first, and prints
     # no result line.
-    all_phases = {"2", "3", "4", "5", "6", "7", "8", "9", "10", "11"}
+    all_phases = {"2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12"}
     phases = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else all_phases
     start = time.perf_counter()
     card = phase_device_and_build()
@@ -4375,6 +4990,13 @@ def main() -> None:
         regimes, regime_k1 = phase_regimes(counters, card)
         launches["merged_min_sums"] += regime_k1
         log(f"phase 11 done ({time.perf_counter() - start:.1f} s)")
+    cli_launches = {name: 0 for name in counters}
+    if "12" in phases:
+        cli_reading, cli_launches = phase_cli(counters, card)
+        for name in launches:
+            launches[name] += cli_launches[name]
+        log(json.dumps({"cli": cli_reading}))
+        log(f"phase 12 done ({time.perf_counter() - start:.1f} s)")
     if phases != all_phases:
         log(f"partial run of phases {sorted(phases)}: no result ({time.perf_counter() - start:.1f} s)")
         return
@@ -4389,6 +5011,7 @@ def main() -> None:
     for rec in records:
         name = rec["name"]
         rec["launches"] = launches[name]
+        rec["cli_launches"] = cli_launches[name]
         rec["on_main_path"] = name in on_path
         # Device time per call from the main path's profiled tabular episode
         # (no host time in it), where the profiler saw the device; K7 keeps

@@ -14,8 +14,10 @@ made on the device and each chunk episode replayed as one CUDA graph
 with one CUDA graph per padding bucket, its fronts and the HTTP gateway;
 the recurrent LSTM models (``models/ddpg_recurrent.py``, its day-granular
 trainer ``train/recurrent.py``, the forecaster ``models/forecast.py``),
-served through a hidden-state ring; and the scenario regime engine
-(``regimes/``, ``ops/auction.py``) through the chunk graph.
+served through a hidden-state ring; the scenario regime engine
+(``regimes/``, ``ops/auction.py``) through the chunk graph; and the command
+line, ``python -m p2pmicrogrid_tpu_torch`` (``cli.py``), over the results
+store and telemetry warehouse of ``data/results.py``.
 Entry points default to ``device="cuda"`` and raise without a card unless the
 caller passes ``device="cpu"``.
 """

@@ -2,19 +2,25 @@
 
 The port's own copy of the numpy-only part of the JAX package's
 ``data/traces.py``: ``TraceSet`` (with its per-day split), the seeded
-synthetic October-like generator, the per-agent profile assignment and the
-(state, next_state) roll. Values are identical to the JAX package's for the
-same seed. The native C++ generator and the SQLite loader are not ported
-yet.
+synthetic October-like generator, the reference measurement database's
+loader and day split, the per-agent profile assignment and the (state,
+next_state) roll. Values are identical to the JAX package's for the same
+seed or database. The native C++ generator is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+import sqlite3
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
 SLOTS_PER_DAY = 96
+
+# Reference day splits (dataset.py:17-20): October 2021.
+TRAINING_DAYS = list(range(11, 18))
+VALIDATION_DAYS = [18]
+TESTING_DAYS = [8, 9, 10, 19, 20]
 
 
 class TraceSet(NamedTuple):
@@ -120,6 +126,83 @@ def synthetic_traces(
     day = np.repeat(np.arange(start_day, start_day + n_days), SLOTS_PER_DAY).astype(np.int32)
     assert time.shape[0] == T
     return TraceSet(time=time, t_out=t_out, load=load, pv=pv, day=day)
+
+
+def _inner_join(left: list, right: list, left_key, right_key) -> list:
+    """(left row, right row) pairs whose keys match, in pandas' inner-merge
+    order: the left rows in order, each with its matches in the right's
+    order."""
+    by_key: dict = {}
+    for r in right:
+        by_key.setdefault(right_key(r), []).append(r)
+    return [(l, r) for l in left for r in by_key.get(left_key(l), ())]
+
+
+def load_reference_db(
+    db_path: str,
+    month: int = 10,
+    days: Optional[Sequence[int]] = None,
+    load_cols: Sequence[str] = ("l0", "l1", "l2", "l3", "l4"),
+) -> TraceSet:
+    """Ingest the reference's SQLite measurement DB (database.py:28-43 schema).
+
+    Joins ``environment`` and ``load`` on (date, time, utc) (database.py:128-147),
+    computes the slot-of-day encoding (dataset.py:34-44), and tags rows with
+    day-of-month. The JAX package joins with pandas; this loader joins in
+    Python over the same two ``SELECT *`` reads, in pandas' inner-merge row
+    order, with the same casts, so the traces are equal bit for bit.
+    """
+    con = sqlite3.connect(db_path)
+    try:
+        reads = []
+        for table in ("environment", "load"):
+            cur = con.execute(f"SELECT * FROM {table}")
+            cols = [d[0] for d in cur.description]
+            reads.append([dict(zip(cols, row)) for row in cur.fetchall()])
+    finally:
+        con.close()
+
+    key = lambda r: (r["date"], r["time"], r["utc"])
+    rows = []
+    for env, load in _inner_join(reads[0], reads[1], key, key):
+        _, m, d = env["date"].split("-")[:3]
+        if int(m) != month or (days is not None and int(d) not in list(days)):
+            continue
+        rows.append((int(d), env, load))
+
+    def slot(timestr: str) -> float:
+        h, m, _ = timestr.split(":")
+        return int(m) / 15 + int(h) * 4
+
+    def column(values) -> np.ndarray:
+        # pandas' astype(float): strings parse, NULL becomes NaN.
+        return np.array(list(values), dtype=np.float64).reshape(-1)
+
+    time = (np.array([slot(e["time"]) for _, e, _ in rows], dtype=np.float64).reshape(-1)
+            / SLOTS_PER_DAY).astype(np.float32)
+    t_out = column(e["temperature"] for _, e, _ in rows).astype(np.float32)
+    load = np.stack(
+        [column(l[c] for _, _, l in rows) for c in load_cols], axis=1
+    ).astype(np.float32)
+    pv_single = column(e["pv"] for _, e, _ in rows).astype(np.float32)
+    pv = np.repeat(pv_single[:, None], len(load_cols), axis=1)
+
+    # Raw traces; normalize per split via TraceSet.normalized().
+    day = np.array([d for d, _, _ in rows], dtype=np.int64).reshape(-1).astype(np.int32)
+    return TraceSet(time=time, t_out=t_out, load=load, pv=pv, day=day)
+
+
+def train_validation_test_split(
+    traces: TraceSet,
+) -> Tuple[TraceSet, TraceSet, TraceSet]:
+    """Reference day split (dataset.py:17-20,83-95), each split normalized
+    within itself exactly as the reference's process_dataframe does (it runs on
+    the already-filtered days)."""
+    return (
+        traces.select_days(TRAINING_DAYS).normalized(),
+        traces.select_days(VALIDATION_DAYS).normalized(),
+        traces.select_days(TESTING_DAYS).normalized(),
+    )
 
 
 def agent_profiles(

@@ -20,9 +20,8 @@ observation:
 * ``wire``       the persistent multiplexed transport.
 * ``auth``       HMAC-signed per-household bearer tokens and TLS helpers.
 
-Not ported yet (ROADMAP.md, Queue 1): the results store behind
-``results_db=`` (item 12), and the fleet: the load generator, the router,
-fault injection, process fleets and the proxy (item 14).
+Not ported yet (ROADMAP.md, Queue 1, item 14): the fleet: the load
+generator, the router, fault injection, process fleets and the proxy.
 """
 
 from p2pmicrogrid_tpu_torch.serve.auth import (

@@ -3,9 +3,10 @@
 The port of the JAX package's ``serve/gateway.py``, over the port's engine
 (one CUDA graph per padding bucket on the card, ``serve/engine.py``). The
 routes, status codes, admission shedding, drain and auth checks are the JAX
-package's. Not ported yet: the results store (``results_db=`` raises;
-ROADMAP.md, Queue 1, item 12) and the fleet's fault injector
-(``serve/faults.py``, item 14), which ``fault_injector=`` takes duck-typed.
+package's; ``results_db=`` streams each bundle's telemetry into the results
+store's warehouse (``telemetry.SqliteSink``). Not ported yet: the fleet's
+fault injector (``serve/faults.py``, ROADMAP.md, Queue 1, item 14), which
+``fault_injector=`` takes duck-typed.
 
 The engine + microbatch queue (serve/engine.py) serve in-process callers;
 real households are remote. This module is the wire between them — a
@@ -1114,12 +1115,6 @@ class ServeGateway:
 
 # -- construction -------------------------------------------------------------
 
-RESULTS_DB_NOT_PORTED = (
-    "results_db= needs the results store (SqliteSink), which the port does "
-    "not have yet: ROADMAP.md, Queue 1, item 12"
-)
-
-
 def build_bundle(
     bundle_dir: str,
     max_batch: int = 64,
@@ -1131,6 +1126,7 @@ def build_bundle(
     serve_role: str = "candidate",
     batching: str = "micro",
     max_slots: int = 256,
+    shard_id: Optional[str] = None,
 ):
     """Load ONE bundle dir into ``(engine, queue, telemetry)`` — the unit
     ``build_registry`` loops over at startup and ``/admin/register`` runs
@@ -1142,17 +1138,20 @@ def build_bundle(
     coalescing ``MicroBatchQueue``) or ``"continuous"`` (the slot-level
     ``ContinuousBatcher`` with per-household session slots; ``max_slots``
     bounds resident sessions per bundle). With ``warmup`` every padding
-    bucket's graph is captured before the front's worker thread starts."""
+    bucket's graph is captured before the front's worker thread starts.
+
+    With ``results_db`` the bundle's telemetry streams into that SQLite
+    warehouse through a ``SqliteSink`` (its lock serializes the front's
+    worker thread and the caller's); ``shard_id`` names the warehouse shard
+    the sink writes, and rides the run manifest."""
     from p2pmicrogrid_tpu_torch.serve.continuous import ContinuousBatcher
     from p2pmicrogrid_tpu_torch.serve.engine import MicroBatchQueue, PolicyEngine
     from p2pmicrogrid_tpu_torch.serve.export import load_policy_bundle
-    from p2pmicrogrid_tpu_torch.telemetry import Telemetry, run_manifest
+    from p2pmicrogrid_tpu_torch.telemetry import SqliteSink, Telemetry, run_manifest
     from p2pmicrogrid_tpu_torch.telemetry.registry import run_stamp
 
     import uuid
 
-    if results_db is not None:
-        raise NotImplementedError(RESULTS_DB_NOT_PORTED)
     resolve_device(device)
     if batching not in ("micro", "continuous"):
         raise ValueError(
@@ -1165,6 +1164,9 @@ def build_bundle(
         # bundles built back-to-back (registry startup loop, racing
         # /admin/register pushes) from colliding on one run id.
         run_id=f"{run_name}-{run_stamp()}-{uuid.uuid4().hex[:6]}",
+        sinks=(
+            [SqliteSink(results_db, shard_id=shard_id)] if results_db else []
+        ),
         manifest=run_manifest(
             extra={
                 "config_hash": config_hash,
@@ -1205,11 +1207,10 @@ def make_bundle_factory(
     run_name: str = "gateway",
     batching: str = "micro",
     max_slots: int = 256,
+    shard_id: Optional[str] = None,
 ):
     """The ``/admin/register`` hook: a closure over this gateway's engine
     settings building one runtime-registered bundle per call."""
-    if results_db is not None:
-        raise NotImplementedError(RESULTS_DB_NOT_PORTED)
     resolve_device(device)
 
     def factory(bundle_dir: str):
@@ -1217,12 +1218,14 @@ def make_bundle_factory(
             bundle_dir,
             max_batch=max_batch,
             max_wait_s=max_wait_s,
+            results_db=results_db,
             device=device,
             warmup=warmup,
             run_name=run_name,
             serve_role="candidate",
             batching=batching,
             max_slots=max_slots,
+            shard_id=shard_id,
         )
 
     return factory
@@ -1238,13 +1241,16 @@ def build_registry(
     run_name: str = "gateway",
     batching: str = "micro",
     max_slots: int = 256,
+    shard_id: Optional[str] = None,
 ) -> BundleRegistry:
     """Load each bundle dir into an engine + queue + per-bundle telemetry
     registered in a fresh ``BundleRegistry`` (first bundle = default).
 
-    The caller owns the registry (``close_all`` on teardown)."""
-    if results_db is not None:
-        raise NotImplementedError(RESULTS_DB_NOT_PORTED)
+    The caller owns the registry (``close_all`` on teardown). With
+    ``results_db``, every bundle's telemetry streams into the SQLite
+    warehouse keyed by THAT bundle's config_hash, so the per-request
+    ``serve_request`` traces of the fronts join the training and eval rows
+    of the config being served."""
     resolve_device(device)
     if not bundle_dirs:
         raise ValueError("pass at least one bundle directory")
@@ -1258,12 +1264,14 @@ def build_registry(
                 bundle_dir,
                 max_batch=max_batch,
                 max_wait_s=max_wait_s,
+                results_db=results_db,
                 device=device,
                 warmup=warmup,
                 run_name=run_name,
                 serve_role="default" if i == 0 else "candidate",
                 batching=batching,
                 max_slots=max_slots,
+                shard_id=shard_id,
             )
             registry.register(
                 engine, pending_queue, telemetry=pending_tel,
@@ -1301,6 +1309,7 @@ def build_gateway(
     restarts: int = 0,
     batching: str = "micro",
     max_slots: int = 256,
+    shard_id: Optional[str] = None,
 ) -> ServeGateway:
     """``build_registry`` + a gateway owning the result (the one-process
     serving entry point). The gateway gets a ``bundle_factory`` over the
@@ -1316,6 +1325,7 @@ def build_gateway(
         run_name=run_name,
         batching=batching,
         max_slots=max_slots,
+        shard_id=shard_id,
     )
     return ServeGateway(
         registry, admission=admission, host=host, port=port, own_bundles=True,
@@ -1325,11 +1335,13 @@ def build_gateway(
         bundle_factory=make_bundle_factory(
             max_batch=max_batch,
             max_wait_s=max_wait_s,
+            results_db=results_db,
             device=device,
             warmup=warmup,
             run_name=run_name,
             batching=batching,
             max_slots=max_slots,
+            shard_id=shard_id,
         ),
     )
 

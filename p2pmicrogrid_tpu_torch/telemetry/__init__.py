@@ -1,11 +1,10 @@
 """Telemetry of the port: run-scoped metric sinks, spans, device counters.
 
-The JAX package's names for what is ported (``registry.py``, ``spans.py``,
-``device_metrics.py``, ``async_drain.py``, ``profiling.py``). Not ported:
-``SqliteSink`` and ``report.py`` (they come with the results store and the
-CLI, ROADMAP.md, Queue 1, item 12), ``dc_psum``/``dc_mesh_sum`` (the mesh,
-item 7). ``tracing.py`` (the serving fronts' trace context) is imported by
-module.
+The JAX package's names for what is ported (``registry.py`` with
+``SqliteSink``, ``spans.py``, ``device_metrics.py``, ``async_drain.py``,
+``profiling.py``). Not ported: ``dc_psum``/``dc_mesh_sum`` (the mesh,
+ROADMAP.md, Queue 1, item 7). ``tracing.py`` (the serving fronts' trace
+context) and ``report.py`` (``telemetry-report``) are imported by module.
 """
 
 from p2pmicrogrid_tpu_torch.telemetry.async_drain import (
@@ -34,6 +33,7 @@ from p2pmicrogrid_tpu_torch.telemetry.profiling import (
 from p2pmicrogrid_tpu_torch.telemetry.registry import (
     JsonlSink,
     MemorySink,
+    SqliteSink,
     StdoutSink,
     Telemetry,
     config_hash,
@@ -67,6 +67,7 @@ __all__ = [
     "phase_timings",
     "JsonlSink",
     "MemorySink",
+    "SqliteSink",
     "StdoutSink",
     "Telemetry",
     "config_hash",

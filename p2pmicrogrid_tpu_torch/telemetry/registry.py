@@ -10,9 +10,10 @@ training surface reports through.
                    ``StdoutSink`` (single-line JSON on stdout), ``MemorySink``
                    (tests), and ``guarded_stdout_sink`` (fd-level stdout
                    hygiene: stray writes from native libraries go to stderr
-                   so only metric lines reach stdout). ``SqliteSink`` waits
-                   for the port's results store (ROADMAP.md, Queue 1,
-                   item 12).
+                   so only metric lines reach stdout), and ``SqliteSink``
+                   (the results store's telemetry warehouse,
+                   ``data/results.py``; the run row carries this port's
+                   torch manifest).
 
 Run directories live under ``artifacts/runs/<run_id>/`` and contain:
 
@@ -107,6 +108,320 @@ class MemorySink:
 
     def close(self) -> None:
         pass
+
+
+class SqliteSink:
+    """Stream telemetry into the results store's warehouse tables.
+
+    Events become ``telemetry_points`` rows (one per record; ``metric``
+    rows from the bench suites keep their metric name/value as the point's
+    name/value), ``close()``-time aggregates explode into ``counter``/
+    ``gauge``/``histogram`` points, and completed spans land in
+    ``telemetry_spans`` — all keyed by the run's manifest identity row in
+    ``telemetry_runs`` (config_hash/git_rev), so ONE SQL join links a run's
+    telemetry to the eval/bench rows living in the same SQLite file
+    (``data/results.py:TELEMETRY_JOIN_SQL``).
+
+    Inserts are buffered and written in batches (``executemany`` every
+    ``batch`` records and on close); the connection runs in WAL mode and is
+    lock-guarded, so the serve engine's microbatch worker thread can emit
+    concurrently with the main thread.
+
+    ``shard_id`` names the warehouse shard this sink writes: at fleet scale every replica binds its OWN WAL-mode SQLite file
+    instead of funneling through one DB, and the identity rides the run
+    manifest (``manifest_json.shard_id``) so a federated merge
+    (``data/results.py:merge_warehouse_shards``) can attribute every run
+    to the shard that wrote it. ``None`` (the default) keeps the
+    single-funnel behavior unchanged.
+    """
+
+    def __init__(self, path: str, batch: int = 64, shard_id: Optional[str] = None):
+        import threading
+
+        self.path = path
+        self.shard_id = shard_id
+        self.batch = max(1, int(batch))
+        self._con = None
+        self._lock = threading.Lock()
+        self._run_id: Optional[str] = None
+        self._manifest: dict = {}
+        self._seq = 0
+        self._span_seq = 0
+        self._points: list = []
+        self._trace_seq = 0
+        self._trace_rows: list = []
+        self._registered = False
+
+    # -- wiring -------------------------------------------------------------
+
+    def _connect(self):
+        if self._con is None:
+            import sqlite3
+
+            from p2pmicrogrid_tpu_torch.data.results import ensure_telemetry_schema
+
+            # check_same_thread off: emits may arrive from the microbatch
+            # worker thread; every access below holds self._lock.
+            self._con = sqlite3.connect(self.path, check_same_thread=False)
+            self._con.execute("PRAGMA journal_mode=WAL")
+            ensure_telemetry_schema(self._con)
+        return self._con
+
+    def register_run(self, run_id: str, manifest: dict) -> None:
+        """Bind this sink to a run identity (called by ``Telemetry`` on
+        attach; re-registering upserts, so a manifest annotated mid-run —
+        e.g. with the mesh shape — refreshes its row on close)."""
+        self._run_id = run_id
+        self._manifest = dict(manifest or {})
+        if self.shard_id is not None:
+            self._manifest.setdefault("shard_id", self.shard_id)
+        with self._lock:
+            self._write_run_row()
+
+    def _write_run_row(self) -> None:
+        m = self._manifest
+        con = self._connect()
+        with con:
+            con.execute(
+                "INSERT OR REPLACE INTO telemetry_runs VALUES "
+                "(?,?,?,?,?,?,?,?,?,?,?,?)",
+                (
+                    self._run_id or "run",
+                    m.get("created"),
+                    m.get("config_hash"),
+                    m.get("git_rev"),
+                    m.get("setting"),
+                    m.get("backend"),
+                    m.get("device_kind"),
+                    m.get("device_count"),
+                    m.get("process_count"),
+                    _dumps(m["mesh_shape"]) if "mesh_shape" in m else None,
+                    _dumps(m["mesh_axis_names"])
+                    if "mesh_axis_names" in m else None,
+                    _dumps(m),
+                ),
+            )
+        self._registered = True
+
+    # -- event stream -------------------------------------------------------
+
+    @staticmethod
+    def _point_of(record: dict):
+        """(kind, name, value, attrs) split of one emitted record."""
+        rec = dict(record)
+        ts = rec.pop("ts", None)
+        if "metric" in rec and "value" in rec:
+            # Bench/serve metric rows (no 'kind'): queryable by metric name.
+            kind = rec.pop("kind", "metric")
+            name = rec.pop("metric")
+            value = rec.pop("value")
+        else:
+            kind = rec.pop("kind", "event")
+            name = rec.pop("name", None)
+            value = rec.pop("value", None)
+        try:
+            value = None if value is None else float(value)
+        except (TypeError, ValueError):
+            rec["value"] = value
+            value = None
+        return ts, kind, name, value, rec
+
+    def emit(self, record: dict) -> None:
+        if record.get("kind") == "summary":
+            # close() streams the monolithic summary event to every sink,
+            # then hands this sink the SAME aggregates via write_summary's
+            # typed explosion — storing the blob too would duplicate every
+            # aggregate as one unqueryable attrs_json row.
+            return
+        if record.get("kind") == "trace_span":
+            # Distributed-trace spans (telemetry/tracing.py) land in the
+            # dedicated trace_spans table: trace/span/parent ids and the
+            # epoch start become real columns (TRACE_TREE_SQL filters and
+            # time-orders on them), not attrs_json payload.
+            rec = dict(record)
+            rec.pop("ts", None)
+            rec.pop("kind", None)
+            row = (
+                self._run_id or "run", self._trace_seq,
+                str(rec.pop("trace_id", "")), str(rec.pop("span_id", "")),
+                rec.pop("parent_span_id", None), str(rec.pop("name", "")),
+                rec.pop("start_ts", None), rec.pop("duration_s", None),
+                rec.pop("process", None), _dumps(rec) if rec else None,
+            )
+            with self._lock:
+                self._trace_rows.append(row)
+                self._trace_seq += 1
+                if len(self._trace_rows) >= self.batch:
+                    try:
+                        self._flush_locked()
+                    except Exception as err:  # noqa: BLE001 — mirror emit()
+                        self._points = []
+                        self._trace_rows = []
+                        if not getattr(self, "_flush_warned", False):
+                            self._flush_warned = True
+                            print(
+                                f"SqliteSink: dropping telemetry points "
+                                f"({type(err).__name__}: {err})",
+                                file=sys.stderr,
+                            )
+            return
+        ts, kind, name, value, attrs = self._point_of(record)
+        with self._lock:
+            self._points.append(
+                (
+                    self._run_id or "run", self._seq, ts, str(kind), name,
+                    value, _dumps(attrs) if attrs else None,
+                )
+            )
+            self._seq += 1
+            if len(self._points) >= self.batch:
+                # A flush failure (locked/full DB) must not take down the
+                # instrumented run: drop the batch, warn once, keep going —
+                # close() retries whatever accumulates after.
+                try:
+                    self._flush_locked()
+                except Exception as err:  # noqa: BLE001
+                    self._points = []
+                    if not getattr(self, "_flush_warned", False):
+                        self._flush_warned = True
+                        print(
+                            f"SqliteSink: dropping telemetry points "
+                            f"({type(err).__name__}: {err})",
+                            file=sys.stderr,
+                        )
+
+    def _flush_locked(self) -> None:
+        if not self._registered:
+            self._write_run_row()
+        if not self._points and not self._trace_rows:
+            return
+        points = self._points
+        if points:
+            # Ingest-lag gauge: the oldest event in this
+            # batch waited (commit time - event ts) to become queryable —
+            # the staleness bound every warehouse reader (the canary's
+            # per-stage attribution above all) actually sees. Recorded as
+            # one extra point per flush, directly (not via emit: that
+            # would re-enter the buffer this flush is draining). Kind
+            # "sink_gauge", not "gauge": sink-internal health points must
+            # not inflate a run's user-gauge counts/rollups.
+            batch_ts = [p[2] for p in points if p[2] is not None]
+            if batch_ts:
+                now = time.time()
+                lag_ms = max(0.0, (now - min(batch_ts)) * 1e3)
+                points = points + [(
+                    self._run_id or "run", self._seq, round(now, 3),
+                    "sink_gauge", "telemetry.ingest_lag_ms", round(lag_ms, 3),
+                    None,
+                )]
+                self._seq += 1
+        con = self._connect()
+        with con:
+            # Plain INSERT: a (run_id, seq) collision means two runs share an
+            # id — raising (surfaced as the one-time drop warning in emit)
+            # beats OR REPLACE silently interleaving their rows.
+            if points:
+                con.executemany(
+                    "INSERT INTO telemetry_points VALUES (?,?,?,?,?,?,?)",
+                    points,
+                )
+            if self._trace_rows:
+                con.executemany(
+                    "INSERT INTO trace_spans VALUES (?,?,?,?,?,?,?,?,?,?)",
+                    self._trace_rows,
+                )
+        self._points = []
+        self._trace_rows = []
+
+    # -- close-time aggregates (called by Telemetry.close) -------------------
+
+    def write_summary(self, summary: dict) -> None:
+        """Explode the run's final aggregates into queryable points."""
+        ts = round(time.time(), 3)
+        for name, v in summary.get("counters", {}).items():
+            self.emit({"ts": ts, "kind": "counter", "name": name, "value": v})
+        for name, v in summary.get("gauges", {}).items():
+            self.emit({"ts": ts, "kind": "gauge", "name": name, "value": v})
+        for name, stats in summary.get("histograms", {}).items():
+            self.emit(
+                {"ts": ts, "kind": "histogram", "name": name,
+                 "value": stats.get("p50"), **stats}
+            )
+        for name, per_bucket in summary.get("exemplars", {}).items():
+            # One point per (histogram, log2 bucket) exemplar: value is the
+            # bucket's max sample, attrs carry the trace_id it links to —
+            # SLOWEST_TRACES_SQL orders these by value to answer
+            # ``telemetry-query --slowest``.
+            for bucket, ex in per_bucket.items():
+                self.emit(
+                    {"ts": ts, "kind": "hist_exemplar", "name": name,
+                     "value": ex.get("value"), "bucket": bucket,
+                     "trace_id": ex.get("trace_id")}
+                )
+
+    def write_spans(self, recorder) -> None:
+        """Persist every completed span (``spans.SpanRecorder``)."""
+        rows = []
+        perf0 = getattr(recorder, "_perf0", 0.0)
+        for s in recorder.completed:
+            if s.end is None:
+                continue
+            rows.append(
+                (
+                    self._run_id or "run", self._span_seq, s.name,
+                    round(s.start - perf0, 6), round(s.end - s.start, 6),
+                    s.depth, _dumps(s.meta) if s.meta else None,
+                )
+            )
+            self._span_seq += 1
+        if not rows:
+            return
+        with self._lock:
+            if not self._registered:
+                self._write_run_row()
+            try:
+                con = self._connect()
+                with con:
+                    con.executemany(
+                        "INSERT INTO telemetry_spans VALUES (?,?,?,?,?,?,?)",
+                        rows,
+                    )
+            except Exception as err:  # noqa: BLE001 — close() must finish
+                print(
+                    f"SqliteSink: dropping telemetry spans "
+                    f"({type(err).__name__}: {err})",
+                    file=sys.stderr,
+                )
+
+    def flush(self) -> None:
+        """Push buffered points to the warehouse NOW (the canary
+        controller reads per-bundle attribution between live stages —
+        serve/promotion.py — and must not race the 64-record batch
+        buffer). Failures fall back to emit()'s drop-and-warn policy."""
+        with self._lock:
+            try:
+                self._flush_locked()
+            except Exception as err:  # noqa: BLE001 — mirror emit()
+                self._points = []
+                if not getattr(self, "_flush_warned", False):
+                    self._flush_warned = True
+                    print(
+                        f"SqliteSink: dropping telemetry points "
+                        f"({type(err).__name__}: {err})",
+                        file=sys.stderr,
+                    )
+
+    def close(self) -> None:
+        with self._lock:
+            # Re-upsert the run row so late manifest annotations (mesh
+            # shape, extra provenance) land in the warehouse.
+            if self._run_id is not None:
+                self._write_run_row()
+            self._flush_locked()
+            if self._con is not None:
+                self._con.close()
+                self._con = None
+                self._registered = False
 
 
 @contextlib.contextmanager

@@ -33,8 +33,8 @@ Wire encoding (one string, HTTP header ``x-p2p-trace`` and the mux frame's
 proceeds untraced — a bad header must never fail a request.
 
 Spans are plain telemetry events (``kind="trace_span"``) with epoch-anchored
-start timestamps; the JAX package's ``SqliteSink`` routes them into its
-warehouse (the port's results store is ROADMAP.md, Queue 1, item 12).
+start timestamps; ``SqliteSink`` routes them into the results store's
+``trace_spans`` table (``data/results.py``).
 
 Stdlib-only and import-light on purpose: this module sits on every serving
 hot path and must not pull in numpy or torch.

@@ -349,6 +349,7 @@ def train_chunked_with_health(
     greedy_eval: Optional[Callable] = None,
     draws=None,
     device="cuda",
+    results_db: Optional[str] = None,
 ) -> Tuple[object, np.ndarray, np.ndarray, float, HealthMonitor]:
     """``train_scenarios_chunked`` with the health surface on (JAX source
     :357-673).
@@ -371,6 +372,11 @@ def train_chunked_with_health(
     ``device_counters`` with ``phase`` ``train`` or ``eval``), eval points
     and basin alerts are events, blocks and evals are spans, and the first
     block's graph is profiled (``telemetry/profiling.py``).
+
+    ``results_db``: path to a results SQLite store (``data/results.py``): an
+    auto-created telemetry also streams into its warehouse tables through a
+    ``SqliteSink`` (the ``--results-db`` contract of ``train``); a
+    caller-supplied ``telemetry`` keeps its own sinks and ignores it.
 
     ``pipeline`` (default) reads the blocks and the evals back through one
     shared depth-2 drain: the eval is launched on the live state between
@@ -403,10 +409,11 @@ def train_chunked_with_health(
     S = cfg.sim.n_scenarios
     owns_telemetry = False
     if telemetry == "auto":
-        from p2pmicrogrid_tpu_torch.telemetry.registry import Telemetry
+        from p2pmicrogrid_tpu_torch.telemetry.registry import SqliteSink, Telemetry
 
         telemetry = Telemetry.maybe_create(
             "train-chunked", cfg=cfg,
+            extra_sinks=[SqliteSink(results_db)] if results_db else (),
             extra_manifest={
                 "n_episodes": n_episodes, "n_chunks": n_chunks,
                 "aggregate_scenarios": S * n_chunks, "mitigate": mitigate,

@@ -1041,3 +1041,38 @@ def test_regime_chunk_graph_captures_once_across_a_portfolio_swap(cuda_generator
     (e1, e2, pe), (g1, g2, pg) = out[False], out[True]
     assert np.array_equal(g1, e1) and np.array_equal(g2, e2) and not np.array_equal(g1, g2)
     assert all(torch.equal(a, b) for a, b in zip(pg, pe))
+
+
+@pytest.mark.cuda
+def test_command_line_trains_on_the_card(cuda_generator, tmp_path, monkeypatch):
+    """``cli.main`` with the card's default device: a single community at
+    A=2 for 2 episodes (each the 7 training days, 672 slots) launches K5 and
+    K6 once a slot (the single chain's matrix market), no other kernel; the
+    same argv with ``--device cpu`` launches none; both write their
+    checkpoint and results rows."""
+    import contextlib
+    import io
+    import sqlite3
+
+    from p2pmicrogrid_tpu_torch import cli
+
+    monkeypatch.setenv("P2P_TELEMETRY_DIR", str(tmp_path / "runs"))
+    wrappers = [merged_min_sums, mm.divide_rank1_fused, mm.divide_power_fused_with_mean,
+                mm.clear_market_fused, mm.divide_power_fused, mm.prep_mean]
+
+    def run(*extra):
+        before = [w.launches for w in wrappers]
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = cli.main(["train", "--agents", "2", "--episodes", "2", "--model-dir",
+                           str(tmp_path / "m"), "--results-db", str(tmp_path / "r.db"), *extra])
+        assert rc == 0 and "trained 2 episodes" in out.getvalue()
+        return [w.launches - b for w, b in zip(wrappers, before)]
+
+    assert run() == [0, 2 * 7 * 96, 0, 2 * 7 * 96, 0, 0]
+    assert run("--device", "cpu") == [0] * len(wrappers)
+    con = sqlite3.connect(str(tmp_path / "r.db"))
+    try:
+        (n,) = con.execute("SELECT COUNT(*) FROM training_progress").fetchone()
+    finally:
+        con.close()
+    assert n == 1

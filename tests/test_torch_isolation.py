@@ -40,14 +40,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(p2pmicrogrid_tpu_torch.__
 
 
 def test_every_module_imports_without_jax():
-    """In a fresh interpreter where ``import jax`` and ``import
-    p2pmicrogrid_tpu`` fail, every module of the port imports, and no module
-    of the JAX package was loaded."""
+    """In a fresh interpreter where ``import jax``, ``import
+    p2pmicrogrid_tpu``, ``import pandas`` and ``import matplotlib`` fail (the
+    card's machine has neither of the last two), every module of the port
+    imports, and no module of the JAX package was loaded."""
     script = textwrap.dedent(
         """
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
         sys.modules["p2pmicrogrid_tpu"] = None
+        sys.modules["pandas"] = None
+        sys.modules["matplotlib"] = None
         import p2pmicrogrid_tpu_torch as pkg
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
         for name in names:
@@ -82,11 +85,16 @@ def test_every_module_imports_without_jax():
                 "p2pmicrogrid_tpu_torch.regimes.spec",
                 "p2pmicrogrid_tpu_torch.regimes.engine",
                 "p2pmicrogrid_tpu_torch.regimes.train",
-                "p2pmicrogrid_tpu_torch.regimes.evaluate"} <= set(names), names
+                "p2pmicrogrid_tpu_torch.regimes.evaluate",
+                "p2pmicrogrid_tpu_torch.data.results",
+                "p2pmicrogrid_tpu_torch.telemetry.report",
+                "p2pmicrogrid_tpu_torch.cli",
+                "p2pmicrogrid_tpu_torch.__main__"} <= set(names), names
         leaked = sorted(
             n for n, m in sys.modules.items()
             if m is not None and (n == "jax" or n.startswith(("jax.", "jaxlib", "flax", "optax"))
-                                  or n == "p2pmicrogrid_tpu" or n.startswith("p2pmicrogrid_tpu."))
+                                  or n == "p2pmicrogrid_tpu" or n.startswith("p2pmicrogrid_tpu.")
+                                  or n.split(".")[0] in ("pandas", "matplotlib"))
         )
         assert not leaked, leaked
         print(len(names))
@@ -210,3 +218,35 @@ def test_entry_points_default_to_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call(_cfg())
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["train", "--agents", "2", "--episodes", "1"],
+        ["train", "--scenarios", "2", "--shared", "--chunks", "2", "--episodes", "1"],
+        ["train", "--supervise", "--episodes", "1"],
+        ["single", "--episodes", "1"],
+        ["multi", "--communities", "2", "--episodes", "1"],
+        ["eval", "--test"],
+        ["baseline", "--test"],
+        ["sweep", "--episodes", "1"],
+        ["forecast", "--epochs", "1"],
+        ["export-bundle"],
+        ["train-recurrent", "--episodes", "1"],
+        ["serve-gateway", "--port", "0"],
+    ],
+    ids=lambda a: a[0] if a[1:2] != ["--scenarios"] else "train-chunked",
+)
+def test_command_line_exits_non_zero_without_a_card(monkeypatch, tmp_path, argv):
+    """``cli.main`` without ``--device cpu`` on a machine without a card:
+    ``SystemExit`` with ``resolve_device``'s message (a non-zero exit),
+    before anything ran or was written."""
+    from p2pmicrogrid_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit, match="device='cpu'") as err:
+        cli.main(argv + ["--model-dir", str(tmp_path / "m")])
+    assert err.value.code not in (0, None)
+    assert os.listdir(tmp_path) == []

@@ -348,6 +348,32 @@ def test_wire_frames_round_trip_and_mux_acts(server):
     assert gateway.stats["mux_requests"] == 2
 
 
-def test_results_db_refused_naming_item_12(bundles):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_registry([bundles[0]], device="cpu", results_db="results.db")
+def test_results_db_streams_serve_requests(bundles, tmp_path):
+    """With ``results_db`` every answered request lands in the warehouse as
+    one ``serve_request`` point under the serving bundle's config_hash."""
+    import sqlite3
+
+    db = str(tmp_path / "results.db")
+    gateway = build_gateway([bundles[0]], max_batch=4, device="cpu", results_db=db,
+                            admission=PERMISSIVE)
+    with GatewayServer(gateway):
+        obs = calibration_obs(5, A, seed=6)
+        for i in range(5):
+            status, body, _ = _act(gateway.host, gateway.port, f"h{i}", obs[i])
+            assert status == 200, body
+        config_hash = gateway.registry.default_hash
+    con = sqlite3.connect(db)
+    try:
+        (n,) = con.execute(
+            "SELECT COUNT(*) FROM telemetry_points p JOIN telemetry_runs r USING (run_id) "
+            "WHERE p.kind = 'serve_request' AND r.config_hash = ?",
+            (config_hash,),
+        ).fetchone()
+        (role,) = con.execute(
+            "SELECT json_extract(manifest_json, '$.serve_role') FROM telemetry_runs "
+            "WHERE config_hash = ?", (config_hash,),
+        ).fetchone()
+    finally:
+        con.close()
+    assert n == 5
+    assert role == "default"
