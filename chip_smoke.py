@@ -203,12 +203,32 @@ Phases (each failure exits non-zero):
    each one's launches equal to the library path's; ``train --supervise``
    with a one-kill fault plan (the child ``-m p2pmicrogrid_tpu_torch``
    restarted with ``--resume``). (e) ``--device cpu`` launches no kernel.
-13. One JSON line with the DDPG rows' numbers, one with the chunked rows',
+13. The continual flywheel (``data/trace_export.py``, ``train/continual.py``,
+   ``serve/promotion.py``). (a) At A=3, the card against the CPU: the trace
+   rewards (rtol 1e-6), a 5-step off-policy pretrain from one state and the
+   same indices (tabular bit for bit, DQN and shared DDPG at rtol 1e-4,
+   atol 1e-6), and the gate's decision matrix over crafted bundles on the
+   modeled clocks: the same verdicts and reasons (the card's evaluations
+   through K1 at [8,3]). (b) At the northstar width (A=1000, shared DDPG,
+   battery on): a seed-0 actor's bundle served by the gateway on the card
+   to 8 households (256 requests into a results store), the decisions
+   exported as transitions, ``train_continual`` (50 trace steps, then one
+   guarded chunk episode of S=64 through the chunk graph, an eval every
+   episode: K1 at [64,1000] and [8,1000]) into a candidate bundle, the
+   pretrain profiled for its idle share; ``run_promotion_gate`` (held-out
+   evaluations through K1 at [8,1000]) with the default budgets and with
+   the evaluation rules waived (the SLO bench on the card's engine), the
+   bench's p50/p95 alone; ``run_promotion_pipeline`` over stages 5, 25 and
+   100 on a gateway on the card: no request failed, and the bundle serving
+   afterwards answers bit for bit as its own engine. K1's launches counted
+   per flywheel. One ``{"flywheel": {...}}`` line.
+14. One JSON line with the DDPG rows' numbers, one with the chunked rows',
    one with the single rows', one with phase 7's rows, one with phase 8's,
    one with phase 10's (``{"recurrent": ...}``), one with phase 11's
    (``{"regimes": ...}``), phase 12's (``{"cli": ...}``), one with every
    kernel's (K1's phase-11 launches under ``at_128x1000.regime_launches``,
-   each kernel's phase-12 launches under ``cli_launches``), then the last
+   each kernel's phase-12 launches under ``cli_launches`` and phase 13's
+   under ``flywheel_launches``), then the last
    line ``{"ok": true, "device": {...}}``.
 
 With arguments (a comma-separated list of phase numbers, e.g. ``5``) it
@@ -452,10 +472,11 @@ def merged_min_inputs(S, A, gen, case="random"):
 
 # K1's timed shapes: the shared rows' [64,1000] (the record's main shape),
 # northstar's [128,1000], cfg3's [256,50], the DDPG scale row's [2048,50],
-# phase 7's cfg5 training [8,128] and evaluation [104,128], and phase 8's
-# greedy evaluation of 8 held-out northstar scenarios, [8,1000] (bf16).
+# phase 7's cfg5 training [8,128] and evaluation [104,128], phase 8's
+# greedy evaluation of 8 held-out northstar scenarios, [8,1000] (bf16), and
+# phase 13's greedy evaluations of the crafted A=3 bundles, [8,3] (float32).
 K1_TIMED = ((64, 1000), (128, 1000), (256, 50), (2048, 50), (MULTI_C, MULTI_A),
-            (EVAL_DAYS * MULTI_C, MULTI_A), (8, 1000))
+            (EVAL_DAYS * MULTI_C, MULTI_A), (8, 1000), (8, 3))
 
 
 def phase_kernels():
@@ -489,6 +510,9 @@ def phase_kernels():
         # 1000 agents, bf16 pre-rounding (resolve_market_dtype at A >= 256).
         (8, 1000, "bf16"),
         (8, 1000, "random"),
+        # Phase 13's gate evaluations of the crafted A=3 bundles: 8 held-out
+        # scenarios of 3 agents, float32.
+        (8, 3, "random"),
     ]
     max_abs_err = 0.0
     timings = {}
@@ -4894,6 +4918,354 @@ def phase_cli(counters, card):
 
 
 
+# --- phase 13 ---------------------------------------------------------------
+
+# The continual flywheel at the northstar width: a gateway on the card
+# serving an A=1000 shared-DDPG bundle to a few households, its decisions
+# exported as transitions, a candidate fine-tuned from them (off-policy trace
+# steps, then one guarded chunk episode of S=64 through the chunk graph),
+# gated (held-out evaluations through K1 at [8,1000], the SLO bench on the
+# card's engine) and ramped through a live canary.
+FLY = dict(A=1000, S=64, households=8, requests=256, trace_steps=50, stages=(5.0, 25.0, 100.0),
+           requests_per_stage=64, canary_households=64, max_batch=16)
+# The small card-vs-CPU case: A=3, narrow learners, an 8-bin table.
+FLY_SMALL_A = 3
+
+
+def flywheel_small_config(tc, impl):
+    return tc.default_config(
+        sim=tc.SimConfig(n_agents=FLY_SMALL_A),
+        train=tc.TrainConfig(implementation=impl, seed=0),
+        qlearning=tc.QLearningConfig(num_time_states=8, num_temp_states=8, num_balance_states=8,
+                                     num_p2p_states=8),
+        dqn=tc.DQNConfig(hidden=8, buffer_size=16, batch_size=8),
+        ddpg=tc.DDPGConfig(actor_hidden=8, critic_hidden=8, buffer_size=16, batch_size=8,
+                           share_across_agents=True),
+    )
+
+
+def synced(fn):
+    """(fn(), seconds) with the card synchronised before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def flywheel_small_parity(tmp):
+    """The card against the CPU at A=3: the trace rewards (rtol 1e-6), a
+    5-step pretrain from one state and the same injected indices (tabular
+    bit for bit, DQN and shared DDPG at rtol 1e-4, atol 1e-6: the CPU
+    tests' tolerances), and the gate's decision matrix (crafted bundles,
+    the modeled clocks) with the same verdicts and the same reasons, their
+    numbers aside (the card clears through K1 at [8,3], the CPU through
+    the matrix path: rtol 1e-4)."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.convert import state_from_jax, state_to_numpy
+    from p2pmicrogrid_tpu_torch.data import trace_export as te
+    from p2pmicrogrid_tpu_torch.parallel.scenarios import init_shared_pol_state
+    from p2pmicrogrid_tpu_torch.serve import promotion as pr
+    from p2pmicrogrid_tpu_torch.serve.loadgen import synthetic_obs
+    from p2pmicrogrid_tpu_torch.train import continual as co
+
+    A, n = FLY_SMALL_A, 32
+    cfg = flywheel_small_config(tc, "tabular")
+    obs = synthetic_obs(n, A, seed=3)
+    act = np.random.default_rng(3).choice([0.0, 0.5, 1.0], (n, A)).astype(np.float32)
+    for name in ("trace_reward", "decision_cost", "_energy_settlement_eur"):
+        got = getattr(te, name)(cfg, obs, act, device="cuda")
+        ref = getattr(te, name)(cfg, obs, act, device="cpu")
+        if not np.allclose(got, ref, rtol=1e-6, atol=0):
+            fail(f"phase 13: {name} card vs CPU: max abs err {np.abs(got - ref).max()}")
+    rng = np.random.default_rng(0)
+    ds = te.TraceDataset(obs=obs, action=act, reward=rng.normal(size=(n, A)).astype(np.float32),
+                         next_obs=np.roll(obs, -1, axis=0))
+    pretrain = {}
+    for impl in ("tabular", "dqn", "ddpg"):
+        cfg = flywheel_small_config(tc, impl)
+        st = state_to_numpy(init_shared_pol_state(cfg, "cpu", torch.Generator().manual_seed(0)))
+        if impl == "tabular":
+            st = st._replace(q_table=rng.standard_normal(st.q_table.shape).astype(np.float32))
+        sub = {"dqn": cfg.dqn, "ddpg": cfg.ddpg}.get(impl)
+        b = co.trace_batch_size(cfg, n)
+        idx = torch.randint(0, n, (5, b), generator=torch.Generator().manual_seed(1))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            s, losses = co.offpolicy_pretrain(cfg, state_from_jax(st, dev, cfg=sub), ds, None, 5,
+                                              indices=idx, device=dev)
+            out[dev] = (state_to_numpy(s), losses)
+        (g, gl), (r, rl) = out["cuda"], out["cpu"]
+        if impl == "tabular":
+            if not np.array_equal(g.q_table, r.q_table):
+                fail("phase 13: tabular pretrain card vs CPU not bit for bit")
+            err = 0.0
+        else:
+            names = ("online", "target") if impl == "dqn" else ("actor", "critic", "actor_target",
+                                                                 "critic_target")
+            err = 0.0
+            for name in names:
+                for x, y in zip(_leaves(getattr(g, name)), _leaves(getattr(r, name))):
+                    if not np.allclose(x, y, rtol=1e-4, atol=1e-6):
+                        fail(f"phase 13: {impl} pretrain {name} card vs CPU: {np.abs(x - y).max()}")
+                    err = max(err, float(np.abs(x - y).max()))
+            if not np.allclose(gl, rl, rtol=1e-4):
+                fail(f"phase 13: {impl} pretrain losses card {gl} vs CPU {rl}")
+        pretrain[impl] = err
+        log(f"phase 13: pretrain {impl} A={A} card vs CPU: max abs err {err:.3e}")
+    cfg = flywheel_small_config(tc, "tabular")
+    base = cfg.train.starting_episodes
+    bump = lambda k: cfg.replace(train=dataclasses.replace(cfg.train, starting_episodes=base + k))  # noqa: E731
+    dirs = {}
+    for dev in ("cuda", "cpu"):
+        root = os.path.join(tmp, f"crafted-{dev}")
+        dirs[dev] = {
+            "incumbent": pr.make_crafted_bundle(cfg, "incumbent", f"{root}/inc", device=dev),
+            "good": pr.make_crafted_bundle(bump(101), "good", f"{root}/good", device=dev),
+            "cost_regressed": pr.make_crafted_bundle(bump(102), "cost_regressed", f"{root}/bad", device=dev),
+            "tie": pr.make_crafted_bundle(bump(200), "incumbent", f"{root}/tie", device=dev),
+        }
+    fast, slow = (lambda i, j: 0.0005), (lambda i, j: 0.25)
+    mask = lambda reasons: [re.sub(r"-?\d+\.\d+", "#", r) for r in reasons]  # noqa: E731
+    verdicts = []
+    for cand, clock, want in (("good", fast, True), ("good", slow, False), ("cost_regressed", fast, False),
+                              ("tie", fast, False)):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            got[dev] = pr.run_promotion_gate(cfg, dirs[dev][cand], dirs[dev]["incumbent"],
+                                             service_time_fn=clock, bench_requests=64, max_batch=8,
+                                             device=dev)
+        g, r = got["cuda"], got["cpu"]
+        if not (g.passed is r.passed is want) or mask(g.reasons) != mask(r.reasons):
+            fail(f"phase 13: gate {cand} card {g.passed} {g.reasons} vs CPU {r.passed} {r.reasons}")
+        if not np.isclose(g.candidate_cost, r.candidate_cost, rtol=1e-4):
+            fail(f"phase 13: gate {cand} eval cost card {g.candidate_cost} vs CPU {r.candidate_cost}")
+        verdicts.append(dict(candidate=cand, passed=g.passed, reasons=mask(g.reasons),
+                             cost_card=g.candidate_cost, cost_cpu=r.candidate_cost))
+    log(f"phase 13: A={A} gate verdicts card == CPU: {[(v['candidate'], v['passed']) for v in verdicts]}")
+    return dict(pretrain_max_abs_err=pretrain, gate=verdicts)
+
+
+def _leaves(tree):
+    import numpy as np
+
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in _leaves(t)]
+    return [np.asarray(tree)]
+
+
+def flywheel_serve(cfg, bundle, db, obs, households):
+    """The gateway on the card over ``bundle`` with ``db`` as its results
+    store, every observation sent by one of ``households``; returns the
+    seconds and the requests' latencies."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.serve.gateway import AdmissionConfig, GatewayServer, build_gateway
+    from p2pmicrogrid_tpu_torch.serve.promotion import _drive_wire_stage
+
+    gateway = build_gateway([bundle], max_batch=FLY["max_batch"], results_db=db, device="cuda",
+                            admission=AdmissionConfig(max_queue_depth=1 << 16, wait_budget_ms=1e9),
+                            run_name="flywheel")
+    server = GatewayServer(gateway)
+    host, port = server.start()
+    try:
+        traffic, secs = synced(lambda: _drive_wire_stage(host, port, obs, households))
+    finally:
+        server.stop()
+    if not (traffic.statuses == 200).all():
+        fail(f"phase 13: gateway answered {np.unique(traffic.statuses).tolist()}")
+    return secs, traffic.latencies_ms
+
+
+# The pretrain's step counts timed (phase 13's and the command line's
+# default, the JAX package's ``--trace-steps``), each the median of 3 runs.
+PRETRAIN_STEPS = (50, 200)
+PRETRAIN_REPEATS = 3
+
+
+def flywheel_pretrain_profile(cfg, bundle, ds):
+    """The pretrain from the incumbent with the same indices through its
+    CUDA graph and through the eager loop, at 50 and 200 steps: the states
+    and losses equal bit for bit at 200; each count timed three times from a
+    state built beforehand (the dataset's copy to the card and the capture
+    included), the step's marginal milliseconds from the two medians; the
+    graph's 200-step run and the eager 50-step run profiled (device busy,
+    idle share)."""
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch.convert import state_to_numpy
+    from p2pmicrogrid_tpu_torch.serve.export import load_policy_bundle
+    from p2pmicrogrid_tpu_torch.train import continual as co
+
+    manifest, params = load_policy_bundle(bundle)
+    fresh = lambda: co.state_from_bundle(  # noqa: E731
+        cfg, manifest, params, torch.Generator(device="cuda").manual_seed(0))
+    lo, hi = PRETRAIN_STEPS
+    idx = co.trace_indices(ds.n_transitions, hi, co.trace_batch_size(cfg, ds.n_transitions),
+                           torch.Generator(device="cuda").manual_seed(1))
+    out, reading = {}, {}
+    for graph, profiled in ((True, hi), (False, lo)):
+        row = {}
+        for steps in PRETRAIN_STEPS:
+            times = []
+            for _ in range(PRETRAIN_REPEATS):
+                st = fresh()
+                (st, losses), secs = synced(
+                    lambda: co.offpolicy_pretrain(cfg, st, ds, None, steps, indices=idx[:steps], graph=graph))
+                times.append(secs)
+            row[f"seconds_{steps}"] = statistics.median(times)
+        out[graph] = (_leaves(state_to_numpy(st)._asdict()), losses)
+        row["step_ms"] = (row[f"seconds_{hi}"] - row[f"seconds_{lo}"]) / (hi - lo) * 1e3
+        st = fresh()
+        kernels, _ = profile_episode(
+            lambda: co.offpolicy_pretrain(cfg, st, ds, None, profiled, indices=idx[:profiled], graph=graph),
+            profiled, row[f"seconds_{profiled}"])
+        if kernels is not None:
+            row["profiled_steps"] = profiled
+            row["busy_ms"] = sum(ms for _, ms in kernels.values())
+            row["idle_share"] = 1 - row["busy_ms"] / (row[f"seconds_{profiled}"] * 1e3)
+            row["ops_per_step"] = sum(n for n, _ in kernels.values()) / profiled
+        reading["graph" if graph else "eager"] = row
+    (g, gl), (e, el) = out[True], out[False]
+    if not (np.array_equal(gl, el) and all(np.array_equal(x, y) for x, y in zip(g, e))):
+        fail("phase 13: the pretrain's graph replays differ from the eager loop")
+    return reading
+
+
+def phase_flywheel(counters, card):
+    """Phase 13: the continual flywheel on the card. Returns (reading, K1
+    launches of the flywheel)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.data.trace_export import export_serve_traces
+    from p2pmicrogrid_tpu_torch.parallel.scenarios import init_shared_pol_state
+    from p2pmicrogrid_tpu_torch.serve import PolicyEngine
+    from p2pmicrogrid_tpu_torch.serve import promotion as pr
+    from p2pmicrogrid_tpu_torch.serve.export import export_policy_bundle, load_policy_bundle
+    from p2pmicrogrid_tpu_torch.serve.loadgen import serve_bench, synthetic_obs
+    from p2pmicrogrid_tpu_torch.train.continual import train_continual
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_flywheel_")
+    saved = os.environ.get("P2P_TELEMETRY_DIR")
+    os.environ["P2P_TELEMETRY_DIR"] = os.path.join(tmp, "runs")
+    try:
+        small = flywheel_small_parity(tmp)
+        A, S = FLY["A"], FLY["S"]
+        cfg = chunked_config(tc, "ddpg", A, S, buffer_size=NORTHSTAR["buffer_size"],
+                             batch_size=NORTHSTAR["batch_size"])
+        # The incumbent: a seed-0 actor drawn on the CPU, exported on the card.
+        inc = export_policy_bundle(
+            cfg, init_shared_pol_state(cfg, "cpu", torch.Generator().manual_seed(0)),
+            os.path.join(tmp, "incumbent"), source={"kind": "seed-0"}, device="cuda",
+        )
+        db = os.path.join(tmp, "warehouse.db")
+        households = [f"house-{i}" for i in range(FLY["households"])]
+        obs = synthetic_obs(FLY["requests"], A, seed=13)
+        serve_s, lat = flywheel_serve(cfg, inc, db, obs, households)
+        log(f"phase 13: gateway served {FLY['requests']} requests of A={A} from "
+            f"{FLY['households']} households in {serve_s:.2f} s (p50 {np.percentile(lat, 50):.2f} ms, "
+            f"p95 {np.percentile(lat, 95):.2f} ms)")
+        reset(counters)
+        inc_hash = load_policy_bundle(inc)[0]["config_hash"]
+        ds, export_s = synced(lambda: export_serve_traces(db, config_hash=inc_hash, cfg=cfg))
+        if ds.n_transitions != FLY["requests"] - FLY["households"] or not np.isfinite(ds.reward).all():
+            fail(f"phase 13: exported {ds.summary()}")
+        cand = os.path.join(tmp, "candidate")
+        res, continual_s = synced(lambda: train_continual(
+            cfg, inc, ds, cand, os.path.join(tmp, "ckpt"), n_episodes=1, n_chunks=1, eval_every=1,
+            trace_steps=FLY["trace_steps"], s_eval=HEALTH_S_EVAL,
+        ))
+        k1_continual = counters["merged_min_sums"].launches
+        if k1_continual <= 0:
+            fail("phase 13: the guarded fine-tune launched no K1")
+        (m_c, p_c), (m_i, p_i) = load_policy_bundle(cand), load_policy_bundle(inc)
+        if m_c["config_hash"] != res.candidate_hash or res.candidate_hash == inc_hash:
+            fail(f"phase 13: candidate hash {m_c['config_hash']} / {res.candidate_hash} vs {inc_hash}")
+        flat_c, flat_i = _leaves(p_c), _leaves(p_i)
+        if not all(np.isfinite(x).all() for x in flat_c) or all(
+                np.array_equal(x, y) for x, y in zip(flat_c, flat_i)):
+            fail("phase 13: the candidate's actor is not finite or did not move")
+        if res.rollbacks:
+            fail(f"phase 13: the guarded fine-tune rolled back: {res.rollbacks}")
+        profile = flywheel_pretrain_profile(cfg, inc, ds)
+        log(f"phase 13: exported {ds.n_transitions} transitions in {export_s:.3f} s; continual "
+            f"{continual_s:.2f} s {res.phase_seconds}, loss {res.trace_loss_final}; pretrain profile "
+            f"{profile}; K1 launches {k1_continual}")
+
+        reset(counters)
+        gate, gate_s = synced(lambda: pr.run_promotion_gate(cfg, cand, inc, s_eval=HEALTH_S_EVAL,
+                                                            max_batch=FLY["max_batch"]))
+        k1_gate = counters["merged_min_sums"].launches
+        # The SLO bench runs only for a candidate the evaluations passed;
+        # the same gate with the evaluation rules waived always reaches it.
+        slo_only = pr.GateBudgets(cost_margin=-float("inf"), max_reward_drop=float("inf"))
+        slo, slo_s = synced(lambda: pr.run_promotion_gate(
+            cfg, cand, inc, budgets=slo_only, s_eval=HEALTH_S_EVAL, max_batch=FLY["max_batch"],
+            incumbent_eval=(gate.incumbent_cost, gate.incumbent_reward)))
+        if not (np.isfinite(gate.candidate_cost) and np.isfinite(gate.incumbent_cost)) or slo.p95_ms <= 0:
+            fail(f"phase 13: gate {gate.to_fields()} / {slo.to_fields()}")
+        bench = serve_bench(PolicyEngine(bundle_dir=cand, max_batch=FLY["max_batch"]), n_requests=512,
+                            max_batch=FLY["max_batch"])[-1]
+        log(f"phase 13: gate {gate.verdict} in {gate_s:.2f} s (cost {gate.candidate_cost:.4f} vs "
+            f"{gate.incumbent_cost:.4f}; K1 launches {k1_gate}); SLO-only gate {slo.verdict} in "
+            f"{slo_s:.2f} s p95 {slo.p95_ms} ms p99 {slo.p99_ms} ms; serve_bench p50 {bench['p50_ms']} "
+            f"p95 {bench['p95_ms']} p99 {bench['p99_ms']} ms")
+
+        reset(counters)
+        fields, canary_s = synced(lambda: pr.run_promotion_pipeline(
+            cfg, cand, inc, stages=FLY["stages"], results_db=os.path.join(tmp, "canary.db"),
+            seed=0, requests_per_stage=FLY["requests_per_stage"], n_households=FLY["canary_households"],
+            skip_gate=True, max_batch=FLY["max_batch"]))
+        if fields["n_failed"] or fields["availability"] != 1.0 or fields["bit_exact_after"] is not True:
+            fail(f"phase 13: canary {fields}")
+        stages = [
+            dict(percent=s["percent"], ok=s["ok"], n_requests=s["n_requests"],
+                 arms={h[:12]: dict(requests=a["requests"], p95_ms=a["p95_ms"],
+                                    decisions=a["decisions"], decision_cost=a["decision_cost"])
+                       for h, a in s["arms"].items()})
+            for s in fields["canary_stages"]
+        ]
+        log(f"phase 13: canary in {canary_s:.2f} s: promoted {fields['promoted']} rolled back "
+            f"{fields['rolled_back']} availability {fields['availability']} bit-exact after "
+            f"{fields['bit_exact_after']}; stages {json.dumps(stages)}")
+        k1 = k1_continual + k1_gate
+        reading = dict(
+            card=card, small=small, A=A, S=S, serve_s=serve_s, requests=FLY["requests"],
+            serve_p50_ms=float(np.percentile(lat, 50)), serve_p95_ms=float(np.percentile(lat, 95)),
+            export_s=export_s, transitions=ds.n_transitions, continual_s=continual_s,
+            phase_seconds=res.phase_seconds, trace_loss_final=res.trace_loss_final,
+            pretrain_profile=profile, gate_s=gate_s, gate_verdict=gate.verdict,
+            gate_costs=[gate.candidate_cost, gate.incumbent_cost], slo_gate_s=slo_s,
+            slo_p95_ms=slo.p95_ms, slo_p99_ms=slo.p99_ms, bench_p50_ms=bench["p50_ms"],
+            bench_p95_ms=bench["p95_ms"], bench_p99_ms=bench["p99_ms"], canary_s=canary_s,
+            canary_stages=stages, promoted=fields["promoted"], rolled_back=fields["rolled_back"],
+            availability=fields["availability"], bit_exact_after=fields["bit_exact_after"],
+            k1_launches=dict(continual=k1_continual, gate=k1_gate, flywheel=k1),
+        )
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if saved is None:
+            os.environ.pop("P2P_TELEMETRY_DIR", None)
+        else:
+            os.environ["P2P_TELEMETRY_DIR"] = saved
+    return reading, k1
+
+
 def main() -> None:
     import torch
 
@@ -4918,7 +5290,7 @@ def main() -> None:
     # With no arguments every phase runs (the check); a comma-separated list
     # of phase numbers (e.g. "2,5") runs only those, builds first, and prints
     # no result line.
-    all_phases = {"2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12"}
+    all_phases = {"2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13"}
     phases = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else all_phases
     start = time.perf_counter()
     card = phase_device_and_build()
@@ -4997,6 +5369,12 @@ def main() -> None:
             launches[name] += cli_launches[name]
         log(json.dumps({"cli": cli_reading}))
         log(f"phase 12 done ({time.perf_counter() - start:.1f} s)")
+    flywheel_k1 = 0
+    if "13" in phases:
+        flywheel, flywheel_k1 = phase_flywheel(counters, card)
+        launches["merged_min_sums"] += flywheel_k1
+        log(json.dumps({"flywheel": flywheel}))
+        log(f"phase 13 done ({time.perf_counter() - start:.1f} s)")
     if phases != all_phases:
         log(f"partial run of phases {sorted(phases)}: no result ({time.perf_counter() - start:.1f} s)")
         return
@@ -5012,6 +5390,7 @@ def main() -> None:
         name = rec["name"]
         rec["launches"] = launches[name]
         rec["cli_launches"] = cli_launches[name]
+        rec["flywheel_launches"] = flywheel_k1 if name == "merged_min_sums" else 0
         rec["on_main_path"] = name in on_path
         # Device time per call from the main path's profiled tabular episode
         # (no host time in it), where the profiler saw the device; K7 keeps

@@ -30,6 +30,13 @@ Subcommands:
             (serve/gateway.py)
   serve-token
             mint fleet auth secrets and per-household bearer tokens
+  continual fine-tune the incumbent bundle on warehouse serve traces and
+            export a candidate bundle (data/trace_export.py +
+            train/continual.py)
+  promote   gate a candidate against the incumbent and ramp it through a
+            live canary with auto-rollback (serve/promotion.py)
+  regime-bench
+            the regime-portfolio acceptance harness (regimes/bench.py)
   telemetry-report
             render a telemetry run directory into a human-readable summary
   telemetry-query
@@ -45,9 +52,9 @@ ratings draw from seeded numpy as in the JAX package.
 
 Not ported yet, and not registered (ROADMAP.md, Queue 1): ``bench`` (item 3,
 the port's bench), ``serve-bench`` and ``serve-router`` (item 14, the
-serving fleet), ``continual``, ``promote``, ``regime-bench`` and
-``autopilot`` (item 10), ``analyse`` (item 15, with ``--figures-dir`` of
-``eval`` and ``forecast``).
+serving fleet), ``autopilot`` (item 10, after item 14's router and process
+fleet), ``analyse`` (item 15, with ``--figures-dir`` of ``eval`` and
+``forecast``).
 """
 
 from __future__ import annotations
@@ -1877,6 +1884,371 @@ def cmd_serve_token(args) -> int:
     return 0
 
 
+def cmd_continual(args) -> int:
+    """Continual training: warehouse serve traces -> candidate bundle.
+
+    Closes the train half of the flywheel: exports the
+    incumbent bundle's production decisions from the telemetry warehouse
+    (``data/trace_export.py`` — refusing compacted runs loudly), warm-
+    starts a learner from the incumbent's greedy parameters, fine-tunes
+    off-policy on the traces and then through the chunk graph under
+    the divergence guard with rollback (``train/continual.py``), and
+    exports the result as a CANDIDATE bundle with a fresh config_hash.
+    The candidate serves nothing until ``promote`` gates and ramps it.
+
+    stdout carries one ``continual_result`` JSON metric row; telemetry
+    (events + rollback counters) streams into ``--results-db``.
+    """
+    import os
+
+    from p2pmicrogrid_tpu_torch.data.trace_export import export_serve_traces
+    from p2pmicrogrid_tpu_torch.telemetry import SqliteSink, Telemetry, run_manifest
+    from p2pmicrogrid_tpu_torch.telemetry.registry import run_stamp, set_current
+    from p2pmicrogrid_tpu_torch.train.continual import train_continual
+    from p2pmicrogrid_tpu_torch.train.resilience import GuardPolicy
+
+    if not args.results_db:
+        raise SystemExit("continual needs --results-db (the trace source)")
+    if not args.bundle:
+        raise SystemExit("pass --bundle (the incumbent bundle directory)")
+    dev = _device(args.device)
+    cfg = _build_cfg(args)
+    # The operator-driven command speaks the same export/retention
+    # handshake the autopilot does: --windowed exports from the last
+    # released watermark under a lease (compaction cannot race it), and
+    # --settlement attributes reward from billed warehouse rows with the
+    # loud env-model fallback.
+    import contextlib
+    import time as _time2
+
+    reward_fn = None
+    if args.settlement:
+        from p2pmicrogrid_tpu_torch.data.trace_export import settlement_reward_fn
+
+        reward_fn = settlement_reward_fn(args.results_db, cfg, device=dev)
+    since_ts = None
+    scope = contextlib.nullcontext()
+    if args.windowed:
+        import sqlite3 as _sqlite3
+
+        from p2pmicrogrid_tpu_torch.data.results import (
+            ExportLeaseScope,
+            last_export_watermark,
+        )
+
+        con = _sqlite3.connect(args.results_db)
+        try:
+            since_ts = last_export_watermark(con, args.config_hash)
+        finally:
+            con.close()
+        # Shared choreography with the autopilot (ExportLeaseScope): a
+        # failed export cancels the lease on exit instead of gating
+        # retention for the TTL.
+        scope = ExportLeaseScope(
+            args.results_db, holder="continual-cli",
+            window_start_ts=since_ts or 0.0,
+            config_hash=args.config_hash,
+        )
+    with scope as lease_scope:
+        dataset = export_serve_traces(
+            args.results_db,
+            config_hash=args.config_hash,
+            cfg=cfg,
+            reward_fn=reward_fn,
+            min_transitions=args.min_transitions,
+            since_ts=since_ts,
+            device=dev,
+        )
+        if args.windowed:
+            lease_scope.release(dataset.window_end_ts or _time2.time())
+    print(
+        f"continual: exported {dataset.n_transitions} transition(s) from "
+        f"{dataset.n_decisions} decision(s) across "
+        f"{len(dataset.run_ids)} run(s)",
+        file=sys.stderr, flush=True,
+    )
+    tel = Telemetry(
+        run_id=f"continual-{run_stamp()}",
+        sinks=[SqliteSink(args.results_db)],
+        manifest=run_manifest(cfg, extra={"continual": True}),
+    )
+    set_current(tel)
+    out = args.out or os.path.join(
+        "bundles", f"{_persist_setting(args, cfg)}-"
+        f"{cfg.train.implementation}-continual"
+    )
+    ckpt_dir = os.path.join(
+        args.model_dir, "continual", cfg.train.implementation
+    )
+    try:
+        result = train_continual(
+            cfg, args.bundle, dataset, out, ckpt_dir,
+            n_episodes=args.episodes,
+            n_chunks=args.chunks,
+            eval_every=args.health_every,
+            trace_steps=args.trace_steps,
+            trace_batch=args.trace_batch,
+            guard_policy=GuardPolicy(
+                max_rollbacks=args.max_rollbacks, lr_drop=args.lr_drop
+            ),
+            telemetry=tel,
+            dtype=args.dtype,
+            pipeline=args.pipeline,
+            generator=_generator(cfg.train.seed, dev),
+            device=dev,
+        )
+    finally:
+        set_current(None)
+        tel.close()
+    row = {
+        "metric": "continual_result",
+        "value": float(result.trace_steps),
+        "unit": "trace_steps",
+        "vs_baseline": 1.0,
+        **result.summary(),
+    }
+    print(json.dumps(row), flush=True)
+    print(
+        f"continual: candidate -> {out} (config {result.candidate_hash}, "
+        f"incumbent {result.incumbent_hash}, {len(result.rollbacks)} "
+        "rollback(s))",
+        file=sys.stderr, flush=True,
+    )
+    return 0
+
+
+def cmd_promote(args) -> int:
+    """Gated promotion + canary for a candidate bundle (serve/promotion.py).
+
+    Default mode gates ``--candidate`` against ``--incumbent`` offline
+    (held-out eval cost + reward-collapse guard + serve-bench SLO), then
+    — unless ``--gate-only`` — ramps it through a live in-process gateway
+    with the canary controller: percentage splits, per-stage warehouse
+    cost/latency/error attribution, auto-rollback on regression. Every
+    verdict lands as ``promotion`` events in ``--results-db``
+    (``telemetry-query --promotions``).
+
+    ``--inject all`` runs the seeded bad-candidate harness instead
+    (crafted better / cost-regressed / NaN-poisoned / SLO-violating
+    candidates through the full pipeline). stdout carries one JSON
+    metric row per line; the LAST line is the headline.
+    """
+    import tempfile
+
+    from p2pmicrogrid_tpu_torch.serve.promotion import (
+        CanaryBudgets,
+        GateBudgets,
+        promotion_bench,
+        run_promotion_gate,
+        run_promotion_pipeline,
+    )
+    from p2pmicrogrid_tpu_torch.telemetry import (
+        SqliteSink,
+        Telemetry,
+        guarded_stdout_sink,
+        run_manifest,
+    )
+    from p2pmicrogrid_tpu_torch.telemetry.registry import run_stamp
+
+    dev = _device(args.device)
+    cfg = _build_cfg(args)
+    stages = tuple(float(s) for s in args.stages.split(","))
+    gate_budgets = GateBudgets(
+        cost_margin=args.cost_margin,
+        max_reward_drop=args.max_reward_drop,
+        slo_p95_ms=args.slo_p95_ms,
+        slo_p99_ms=args.slo_p99_ms,
+        max_shed_rate=args.max_shed_rate,
+        max_regime_regression=getattr(args, "max_regime_regression", 0.0),
+    )
+    canary_budgets = CanaryBudgets(
+        max_cost_regression=args.max_cost_regression,
+        slo_p95_ms=args.canary_p95_ms,
+        min_requests=args.canary_min_requests,
+    )
+    out_f = open(args.out, "a") if args.out else None
+    tel = Telemetry(
+        run_id=f"promote-{run_stamp()}",
+        sinks=[SqliteSink(args.results_db)] if args.results_db else [],
+        manifest=run_manifest(cfg, extra={"serve_role": "promotion"}),
+    )
+    try:
+        with guarded_stdout_sink() as sink:
+            def emit(row: dict) -> None:
+                sink.emit(row)
+                tel.emit(row)
+                if out_f is not None:
+                    out_f.write(json.dumps(row) + "\n")
+                    out_f.flush()
+
+            if args.inject:
+                if getattr(args, "regimes", None):
+                    # The seeded harness crafts its own candidates per
+                    # case; silently dropping the per-regime rail would
+                    # misreport what was exercised — refuse loudly.
+                    print(
+                        "--inject and --regimes cannot combine (the seeded "
+                        "harness does not run the per-regime gate); drop "
+                        "one",
+                        file=sys.stderr,
+                    )
+                    return 2
+                cases = (
+                    ("good", "cost_regressed", "nan_poisoned",
+                     "slo_violating")
+                    if args.inject == "all" else (args.inject,)
+                )
+                work = args.work_dir or tempfile.mkdtemp(
+                    prefix="p2p-promotion-"
+                )
+                promotion_bench(
+                    cfg, work,
+                    cases=cases,
+                    seed=args.seed,
+                    requests_per_stage=args.requests_per_stage,
+                    n_households=args.households,
+                    stages=stages,
+                    results_db=args.results_db,
+                    telemetry=tel,
+                    emit=emit,
+                    gate_budgets=gate_budgets,
+                    canary_budgets=canary_budgets,
+                    device=dev,
+                )
+                return 0
+            if not args.candidate or not args.incumbent:
+                raise SystemExit(
+                    "pass --candidate and --incumbent bundle dirs "
+                    "(or --inject for the seeded harness)"
+                )
+            if args.gate_only:
+                verdict = run_promotion_gate(
+                    cfg, args.candidate, args.incumbent,
+                    budgets=gate_budgets, telemetry=tel,
+                    bench_seed=args.seed, max_batch=args.max_batch,
+                    regime_specs=(
+                        [r for r in args.regimes.split(",") if r]
+                        if getattr(args, "regimes", None) else None
+                    ),
+                    device=dev,
+                )
+                emit({
+                    "metric": "promotion_gate",
+                    "value": 1.0 if verdict.passed else 0.0,
+                    "unit": "pass",
+                    "vs_baseline": 1.0 if verdict.passed else 0.0,
+                    "gate_verdict": verdict.verdict,
+                    **verdict.to_fields(),
+                })
+                return 0 if verdict.passed else 1
+            fields = run_promotion_pipeline(
+                cfg, args.candidate, args.incumbent,
+                gate_budgets=gate_budgets,
+                canary_budgets=canary_budgets,
+                stages=stages,
+                results_db=args.results_db,
+                telemetry=tel,
+                seed=args.seed,
+                requests_per_stage=args.requests_per_stage,
+                n_households=args.households,
+                skip_gate=args.skip_gate,
+                max_batch=args.max_batch,
+                regime_specs=(
+                    [r for r in args.regimes.split(",") if r]
+                    if getattr(args, "regimes", None) else None
+                ),
+                batching=getattr(args, "batching", "continuous"),
+                device=dev,
+            )
+            emit({
+                "metric": "promotion_case",
+                "value": float(fields.get("availability", 1.0)),
+                "unit": "availability",
+                "vs_baseline": 1.0 if fields.get("promoted") else 0.0,
+                "case": "operator",
+                **fields,
+            })
+            return 0 if fields.get("promoted") else 1
+    finally:
+        tel.close()
+        if out_f is not None:
+            out_f.close()
+
+
+def cmd_regime_bench(args) -> int:
+    """Regime-portfolio acceptance harness (regimes/bench.py).
+
+    Trains a mixed batch of >= 4 regimes through ONE episode function over
+    fixed regime tensors (one chunk graph on the card), prints
+    the per-regime eval table for the train set and a held-out set, runs
+    the gate case (a crafted candidate that improves mean cost but
+    regresses a held-out regime MUST be blocked by the regime-aware
+    gate), and closes with the ``regime_generalization`` headline row —
+    one JSON metric row per stdout line through the guarded sink. With
+    ``--results-db`` the per-regime ``regime_eval`` events also land in
+    the warehouse (``telemetry-query --regimes``).
+    """
+    from p2pmicrogrid_tpu_torch.regimes.bench import bench_config, run_regime_bench
+    from p2pmicrogrid_tpu_torch.telemetry import (
+        SqliteSink,
+        Telemetry,
+        guarded_stdout_sink,
+    )
+    from p2pmicrogrid_tpu_torch.telemetry.registry import run_manifest, run_stamp
+
+    dev = _device(args.device)
+    train_regimes = [r for r in args.train_regimes.split(",") if r]
+    held_out = [r for r in args.held_out_regimes.split(",") if r]
+    # The cfg run_regime_bench trains under (one builder, no drift) — so
+    # the warehouse run carries the config_hash the --regimes view
+    # groups by.
+    cfg = bench_config(
+        args.agents,
+        args.scenarios_per_regime * len(train_regimes),
+        args.implementation,
+        args.seed,
+    )
+    out_f = open(args.out, "a") if args.out else None
+    tel = Telemetry(
+        run_id=f"regime-bench-{run_stamp()}",
+        sinks=[SqliteSink(args.results_db)] if args.results_db else [],
+        manifest=run_manifest(cfg, extra={"serve_role": "regime-bench"}),
+    )
+    try:
+        with guarded_stdout_sink() as sink:
+            def emit(row: dict) -> None:
+                sink.emit(row)
+                tel.emit(row)
+                if out_f is not None:
+                    out_f.write(json.dumps(row) + "\n")
+                    out_f.flush()
+
+            rows = run_regime_bench(
+                train_regimes=train_regimes,
+                held_out_regimes=held_out,
+                n_agents=args.agents,
+                scenarios_per_regime=args.scenarios_per_regime,
+                episodes=args.episodes,
+                s_eval_per_regime=args.eval_scenarios,
+                implementation=args.implementation,
+                seed=args.seed,
+                telemetry=tel if args.results_db else None,
+                gate_case=not args.no_gate_case,
+                emit=emit,
+                device=dev,
+            )
+        headline = rows[-1]
+        ok = bool(headline.get("single_compile")) and (
+            args.no_gate_case
+            or bool(headline.get("gate_blocked_regime_regression"))
+        )
+        return 0 if ok else 1
+    finally:
+        tel.close()
+        if out_f is not None:
+            out_f.close()
+
+
 def cmd_telemetry_report(args) -> int:
     """Render a telemetry run directory (see telemetry/registry.py for the
     layout) into a plain-text summary: manifest provenance, event counts,
@@ -2308,6 +2680,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--model-dir", default="./models")
     p.add_argument("--timing-json", dest="timing_json",
                    help="append per-setting wall-clock times to this JSON file")
+    _add_device(p)
+
+
+def _add_device(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", choices=["cuda", "cpu", "default", "auto"],
                    default="cuda",
                    help="cuda (default; 'default' is the same): run on the "
@@ -2745,6 +3121,209 @@ def main(argv=None) -> int:
                    help="--rotate: how long the rotated-out secret keeps "
                         "verifying (default 3600)")
     p.set_defaults(fn=cmd_serve_token)
+
+    p = sub.add_parser(
+        "continual",
+        help="continual training: replay warehouse serve traces into "
+             "replay buffers, fine-tune the incumbent bundle off-policy "
+             "+ through the guarded chunked pipeline, export a candidate "
+             "bundle (data/trace_export.py + train/continual.py)",
+    )
+    _add_common(p)
+    p.set_defaults(episodes=20)
+    p.add_argument("--bundle",
+                   help="the INCUMBENT bundle directory to fine-tune")
+    p.add_argument("--config-hash", dest="config_hash",
+                   help="export only this config's serve traces "
+                        "(default: every serve-role run in the warehouse)")
+    p.add_argument("--out",
+                   help="candidate bundle output directory (default: "
+                        "bundles/<setting>-<impl>-continual)")
+    p.add_argument("--scenarios", type=int, default=1,
+                   help="scenario batch of the simulator fine-tune phase")
+    p.add_argument("--chunks", type=int, default=1,
+                   help="chunked aggregate scenarios per episode (the "
+                        "chunk graph; train --chunks semantics)")
+    p.add_argument("--health-every", type=int, default=10,
+                   dest="health_every",
+                   help="greedy held-out eval cadence during the simulator "
+                        "phase (feeds the divergence guard; default 10)")
+    p.add_argument("--trace-steps", type=int, default=200,
+                   dest="trace_steps",
+                   help="off-policy update steps on the exported traces "
+                        "before the simulator phase (default 200)")
+    p.add_argument("--trace-batch", type=int, default=None,
+                   dest="trace_batch",
+                   help="transitions per off-policy update (default: the "
+                        "implementation's batch size)")
+    p.add_argument("--min-transitions", type=int, default=1,
+                   dest="min_transitions",
+                   help="refuse to train on fewer exported transitions "
+                        "(loud failure beats silent fine-tuning on noise)")
+    p.add_argument("--windowed", action="store_true",
+                   help="export from the last released export watermark "
+                        "under a warehouse LEASE (the autopilot's "
+                        "export/retention handshake — compaction cannot "
+                        "race the window)")
+    p.add_argument("--settlement", action="store_true",
+                   help="attribute training reward from billed "
+                        "'settlement' warehouse rows (loud fallback to "
+                        "the env tariff model for unbilled transitions)")
+    p.add_argument("--max-rollbacks", type=_nonneg_int, default=3,
+                   dest="max_rollbacks",
+                   help="divergence rollback budget for the simulator "
+                        "phase (default 3; train/resilience.py)")
+    p.add_argument("--lr-drop", type=float, default=0.5, dest="lr_drop",
+                   help="rollback perturbation: effective lrs x this "
+                        "factor per rollback (default 0.5)")
+    p.add_argument("--dtype", choices=["float32", "float16", "int8"],
+                   default="float32",
+                   help="candidate bundle export dtype (int8 applies the "
+                        "quantization error-bound contract at export)")
+    p.add_argument("--pipeline", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="async episode pipeline for the simulator phase")
+    p.set_defaults(fn=cmd_continual)
+
+    p = sub.add_parser(
+        "promote",
+        help="gated promotion + canary auto-rollback: candidate must "
+             "beat the incumbent on held-out eval cost and meet serve "
+             "SLOs before any traffic, then ramps 5%%->25%%->100%% with "
+             "live per-bundle attribution and rollback on regression "
+             "(serve/promotion.py)",
+    )
+    _add_common(p)
+    p.add_argument("--candidate", help="candidate bundle directory")
+    p.add_argument("--incumbent", help="incumbent bundle directory")
+    p.add_argument("--out",
+                   help="append the promotion metric rows to this JSONL "
+                        "capture (schema-checked as "
+                        "artifacts/PROMOTION_*.jsonl)")
+    p.add_argument("--gate-only", action="store_true", dest="gate_only",
+                   help="run the offline gate and exit (rc 0 = pass); "
+                        "no traffic")
+    p.add_argument("--skip-gate", action="store_true", dest="skip_gate",
+                   help="OPERATOR OVERRIDE: go straight to the canary — "
+                        "the ramp and auto-rollback still guard the fleet")
+    p.add_argument("--inject",
+                   choices=["all", "good", "cost_regressed",
+                            "nan_poisoned", "slo_violating"],
+                   help="seeded bad-candidate harness instead of a real "
+                        "candidate: crafted bundles through the full "
+                        "pipeline (the PROMOTION_*.jsonl capture driver)")
+    p.add_argument("--work-dir", dest="work_dir",
+                   help="--inject: where crafted bundles are written "
+                        "(default: a temp dir)")
+    p.add_argument("--stages", default="5,25,100",
+                   help="canary ramp percentages, comma-separated, ending "
+                        "at 100 (default 5,25,100)")
+    p.add_argument("--requests-per-stage", type=int, default=192,
+                   dest="requests_per_stage",
+                   help="live requests driven per canary stage "
+                        "(default 192)")
+    p.add_argument("--households", type=int, default=128,
+                   help="distinct household ids in the canary traffic "
+                        "(split arms are household-deterministic; "
+                        "default 128)")
+    p.add_argument("--max-batch", type=_pow2_int, default=16,
+                   dest="max_batch",
+                   help="engine padding-bucket cap for gate/canary "
+                        "serving (default 16)")
+    p.add_argument("--cost-margin", type=float, default=0.0,
+                   dest="cost_margin",
+                   help="gate: candidate eval cost must beat the "
+                        "incumbent's by at least this (default 0 — any "
+                        "strict improvement)")
+    p.add_argument("--max-reward-drop", type=float, default=0.5,
+                   dest="max_reward_drop",
+                   help="gate: don't-heat basin guard — candidate greedy "
+                        "reward may not fall more than this fraction of "
+                        "|incumbent reward| below it (default 0.5)")
+    p.add_argument("--slo-p95-ms", type=float, default=100.0,
+                   dest="slo_p95_ms",
+                   help="gate serve-bench p95 budget (default 100)")
+    p.add_argument("--slo-p99-ms", type=float, default=250.0,
+                   dest="slo_p99_ms",
+                   help="gate serve-bench p99 budget (default 250)")
+    p.add_argument("--max-shed-rate", type=float, default=0.05,
+                   dest="max_shed_rate",
+                   help="gate shed-rate budget (default 0.05)")
+    p.add_argument("--max-cost-regression", type=float, default=0.05,
+                   dest="max_cost_regression",
+                   help="canary: candidate arm's mean decision cost may "
+                        "exceed the incumbent arm's by at most this "
+                        "scale-free tolerance (default 0.05)")
+    p.add_argument("--canary-p95-ms", type=float, default=500.0,
+                   dest="canary_p95_ms",
+                   help="canary: absolute per-stage candidate p95 budget "
+                        "(default 500 — wire latency, not engine latency)")
+    p.add_argument("--canary-min-requests", type=int, default=8,
+                   dest="canary_min_requests",
+                   help="canary: candidate-arm decisions needed per stage "
+                        "for a cost verdict (default 8)")
+    p.add_argument("--regimes",
+                   help="gate: comma-separated held-out regime names "
+                        "(p2pmicrogrid_tpu_torch/regimes/) — the candidate may "
+                        "not regress ANY of them, even when its mean cost "
+                        "improves (honored by --gate-only and the full "
+                        "pipeline's gate; --skip-gate skips it with the "
+                        "rest of the gate)")
+    p.add_argument("--max-regime-regression", type=float, default=0.0,
+                   dest="max_regime_regression",
+                   help="gate: scale-free per-regime regression tolerance "
+                        "for --regimes (default 0 — any regression blocks)")
+    p.add_argument("--batching", choices=["micro", "continuous"],
+                   default="continuous",
+                   help="canary gateway queue front (default continuous "
+                        "— bit-exact vs micro for the stateless bundles "
+                        "promotion serves; pass micro for the coalescing "
+                        "queue)")
+    p.set_defaults(fn=cmd_promote)
+
+    p = sub.add_parser(
+        "regime-bench",
+        help="regime-portfolio acceptance harness: mixed >=4-regime "
+             "training through one episode function, per-regime eval tables "
+             "(train + held-out sets), the mean-better/regime-worse gate "
+             "case, and the regime_generalization headline row "
+             "(regimes/bench.py; the REGIME_*.jsonl capture driver)",
+    )
+    p.add_argument("--train-regimes", dest="train_regimes",
+                   default="baseline,winter,ev_evening,double_auction",
+                   help="comma-separated regime names trained as one "
+                        "mixed batch (default: "
+                        "baseline,winter,ev_evening,double_auction)")
+    p.add_argument("--held-out-regimes", dest="held_out_regimes",
+                   default="dr_spike,islanding_noon,cold_snap,"
+                           "uniform_price",
+                   help="comma-separated held-out regime names for the "
+                        "generalization eval and the gate case")
+    p.add_argument("--agents", type=int, default=3)
+    p.add_argument("--scenarios-per-regime", type=int, default=2,
+                   dest="scenarios_per_regime",
+                   help="training scenarios per train regime in the "
+                        "mixed batch (default 2)")
+    p.add_argument("--episodes", type=int, default=3)
+    p.add_argument("--eval-scenarios", type=int, default=4,
+                   dest="eval_scenarios",
+                   help="held-out eval scenarios per regime (default 4)")
+    p.add_argument("--implementation",
+                   choices=["tabular", "dqn", "ddpg"], default="tabular")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--results-db",
+                   help="also stream regime_eval events + metric rows "
+                        "into this SQLite warehouse "
+                        "(telemetry-query --regimes)")
+    p.add_argument("--out",
+                   help="append the metric rows to this JSONL capture "
+                        "(schema-checked as artifacts/REGIME_*.jsonl)")
+    p.add_argument("--no-gate-case", action="store_true",
+                   dest="no_gate_case",
+                   help="skip the crafted mean-better/regime-worse gate "
+                        "case (eval tables + headline only)")
+    _add_device(p)
+    p.set_defaults(fn=cmd_regime_bench)
 
     p = sub.add_parser(
         "telemetry-query",

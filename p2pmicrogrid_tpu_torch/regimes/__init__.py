@@ -5,8 +5,9 @@ weather/season transforms, EV charging as a second schedulable load,
 demand-response / islanding event windows and the market mechanism
 (``ops/auction.py``); a portfolio of specs becomes ``RegimeParams`` [S]
 tensors, so one episode function (and one CUDA graph of the chunk episode)
-trains and evaluates a mixed-regime batch. ``regimes/bench.py`` is not
-ported yet (ROADMAP.md, Queue 1, item 10).
+trains and evaluates a mixed-regime batch; ``regimes/bench.py`` is the
+acceptance harness (portfolio training, per-regime eval tables, the
+regime-aware promotion gate case).
 """
 
 from p2pmicrogrid_tpu_torch.regimes.engine import (

@@ -20,8 +20,10 @@ observation:
 * ``wire``       the persistent multiplexed transport.
 * ``auth``       HMAC-signed per-household bearer tokens and TLS helpers.
 
-Not ported yet (ROADMAP.md, Queue 1, item 14): the fleet: the load
-generator, the router, fault injection, process fleets and the proxy.
+``loadgen`` (open-loop arrivals, the SLO bench) and ``promotion`` (the
+gate and the canary) are imported from their modules. Not ported yet
+(ROADMAP.md, Queue 1, item 14): the fleet: the router, fault injection,
+process fleets and the proxy.
 """
 
 from p2pmicrogrid_tpu_torch.serve.auth import (

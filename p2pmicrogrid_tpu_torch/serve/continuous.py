@@ -52,9 +52,12 @@ serialize through consecutive steps), and under slot exhaustion a recurrent
 household's request is DEFERRED (FIFO position kept) rather than served
 from a zero carry; past ``slot_wait_timeout_s`` it fails loudly naming the
 fix. Stateless households overflow to the scratch row (their actions
-depend only on the observation; only session metadata is lost). The JAX
-package's ``serve_bench_continuous_compare`` needs the load generator,
-which comes with the fleet (ROADMAP.md, Queue 1, item 14).
+depend only on the observation; only session metadata is lost).
+
+``serve_bench_continuous_compare`` fires one bursty open-loop schedule
+(``serve/loadgen.py``) over the mux wire through a microbatch gateway and a
+continuous gateway on the same device, and holds both arms' answers to a
+direct engine bit for bit.
 """
 
 from __future__ import annotations
@@ -660,3 +663,209 @@ class ContinuousBatcher:
                 dispatch_epoch, service_s * padded / bucket,
                 bucket=bucket, padded_rows=padded, estimated=True,
             )
+
+
+# -- the acceptance measurement -----------------------------------------------
+#
+# The SAME bursty open-loop schedule fired over the persistent mux wire
+# through a microbatch gateway and a continuous-batching gateway in ONE
+# process, same bundle, same observations — per-arm wire percentiles, a
+# bit-exactness verdict across the arms AND against a direct engine, and
+# the continuous arm's occupancy/slot-wait distributions.
+
+
+def serve_bench_continuous_compare(
+    bundle_dir: str,
+    rate_hz: float = 256.0,
+    n_requests: int = 1024,
+    n_households: int = 32,
+    seed: int = 0,
+    slo_ms: float = 100.0,
+    burst_factor: float = 8.0,
+    burst_dwell_s: float = 0.25,
+    max_batch: int = 64,
+    max_wait_s: float = 0.002,
+    max_slots: int = 256,
+    device="cuda",
+    results_db: Optional[str] = None,
+    timeout_s: float = 30.0,
+    emit=None,
+) -> List[dict]:
+    """Continuous vs microbatch at the mux wire, one process, one bundle.
+
+    Emits (and returns) metric rows; the LAST row is the ``serve_continuous``
+    headline carrying both arms' percentiles, ``vs_microbatch`` (microbatch
+    p99 / continuous p99 — > 1 means continuous wins), the
+    ``bit_exact_stateless`` verdict, the continuous arm's
+    occupancy/slot-wait stats and the generating ``burst_config``.
+    Stateless bundles only: the microbatch arm cannot serve a recurrent
+    bundle at all, so there is nothing to compare (refused loudly)."""
+    from p2pmicrogrid_tpu_torch.serve.engine import PolicyEngine
+    from p2pmicrogrid_tpu_torch.serve.gateway import (
+        AdmissionConfig,
+        GatewayServer,
+        build_gateway,
+    )
+    from p2pmicrogrid_tpu_torch.serve.loadgen import (
+        make_arrivals,
+        run_network_loadgen,
+        synthetic_obs,
+    )
+
+    from p2pmicrogrid_tpu_torch.device import resolve_device
+
+    device = resolve_device(device)
+    reference = PolicyEngine(
+        bundle_dir=bundle_dir, max_batch=max_batch, device=device
+    )
+    if reference.is_recurrent:
+        raise ValueError(
+            "--continuous-compare needs a stateless bundle: the microbatch "
+            "arm refuses recurrent bundles, so there is no baseline to "
+            "beat — bench a recurrent bundle through serve-bench --fleet "
+            "--batching continuous instead"
+        )
+    arrivals, burst_config = make_arrivals(
+        rate_hz, n_requests, seed=seed,
+        burst_factor=burst_factor, burst_dwell_s=burst_dwell_s,
+    )
+    obs = synthetic_obs(n_requests, reference.n_agents, seed=seed)
+    households = [f"house-{i:04d}" for i in range(n_households)]
+    # Admission wide open: the comparison measures queueing discipline, not
+    # shedding — a shed request would vanish from exactly the tail this
+    # capture exists to show.
+    admission = AdmissionConfig(max_queue_depth=1 << 16, wait_budget_ms=1e9)
+
+    results, arm_tel = {}, {}
+    for batching in ("micro", "continuous"):
+        gateway = build_gateway(
+            [bundle_dir],
+            max_batch=max_batch,
+            max_wait_s=max_wait_s,
+            results_db=results_db,
+            device=device,
+            admission=admission,
+            run_name=f"serve-cb-{batching}",
+            mux_port=0,
+            batching=batching,
+            max_slots=max_slots,
+        )
+        server = GatewayServer(gateway)
+        try:
+            host, _port = server.start()
+            results[batching] = run_network_loadgen(
+                host, gateway.mux_port, obs, arrivals, households,
+                timeout_s=timeout_s, transport="mux",
+                record_actions=True,
+            )
+            default = gateway.registry.get(gateway.registry.default_hash)
+            arm_tel[batching] = (
+                default.telemetry.summary() if default.telemetry else {}
+            )
+        finally:
+            server.stop()
+
+    micro, cont = results["micro"], results["continuous"]
+    # Bit-exactness across the arms AND against the direct engine, on every
+    # request both arms answered.
+    ok = [
+        i for i in range(n_requests)
+        if micro.statuses[i] == 200 and cont.statuses[i] == 200
+        and micro.actions[i] is not None and cont.actions[i] is not None
+    ]
+    if not ok:
+        # A verdict over zero compared requests would be indistinguishable
+        # from a real bit-exactness failure in the schema-checked capture —
+        # refuse to produce a meaningless acceptance row.
+        raise RuntimeError(
+            "continuous compare: no request succeeded on BOTH arms "
+            f"(micro ok={micro.n_ok}, continuous ok={cont.n_ok} of "
+            f"{n_requests}) — nothing compared; raise timeout_s or loosen "
+            "the schedule before trusting any capture from this host"
+        )
+    got_m = np.asarray(  # host-sync: wire responses, host data
+        [micro.actions[i] for i in ok], np.float32
+    )
+    got_c = np.asarray(  # host-sync: wire responses, host data
+        [cont.actions[i] for i in ok], np.float32
+    )
+    want = reference.act(obs[ok])
+    mismatches = int(
+        ((got_m != want) | (got_c != want)).any(axis=-1).sum()
+    )
+    bit_exact = mismatches == 0
+
+    p50_c, p95_c, p99_c = (cont.latency_ms(q) for q in (50, 95, 99))
+    p50_m, p95_m, p99_m = (micro.latency_ms(q) for q in (50, 95, 99))
+    vs_microbatch = round(p99_m / p99_c, 3) if p99_c > 0 else 0.0
+    hists = arm_tel.get("continuous", {}).get("histograms", {})
+    occupancy = hists.get("serve.batch_occupancy", {})
+    slot_wait = hists.get("serve.slot_wait_ms", {})
+
+    rows = [
+        {
+            "metric": f"serve_continuous_latency_ms_p{q}",
+            "value": round(v, 3),
+            "unit": "ms",
+            "vs_baseline": round(slo_ms / v, 2) if v > 0 else 0.0,
+        }
+        for q, v in (("50", p50_c), ("95", p95_c), ("99", p99_c))
+    ]
+    rows.append(
+        {
+            "metric": "serve_microbatch_latency_ms_p99",
+            "value": round(p99_m, 3),
+            "unit": "ms",
+            "vs_baseline": round(slo_ms / p99_m, 2) if p99_m > 0 else 0.0,
+        }
+    )
+    rows.append(
+        {
+            "metric": "serve_continuous",
+            "value": vs_microbatch,
+            "unit": "x_p99_speedup",
+            # >= 1.0 means slot-level continuous batching beats the
+            # full-batch microbatch queue on p99 under this schedule.
+            "vs_baseline": vs_microbatch,
+            "p50_ms": round(p50_c, 3),
+            "p95_ms": round(p95_c, 3),
+            "p99_ms": round(p99_c, 3),
+            "micro_p50_ms": round(p50_m, 3),
+            "micro_p95_ms": round(p95_m, 3),
+            "micro_p99_ms": round(p99_m, 3),
+            "vs_microbatch": vs_microbatch,
+            "bit_exact_stateless": bit_exact,
+            "bit_exact_mismatches": mismatches,
+            "n_compared": len(ok),
+            "occupancy_mean": round(float(occupancy.get("mean", 0.0)), 4),
+            "occupancy_p50": round(float(occupancy.get("p50", 0.0)), 4),
+            "occupancy_p95": round(float(occupancy.get("p95", 0.0)), 4),
+            "slot_wait_p50_ms": round(float(slot_wait.get("p50", 0.0)), 3),
+            "slot_wait_p95_ms": round(float(slot_wait.get("p95", 0.0)), 3),
+            "engine_steps": int(
+                arm_tel.get("continuous", {}).get("counters", {}).get(
+                    "serve.steps", 0
+                )
+            ),
+            "throughput_rps": round(cont.throughput_rps, 1),
+            "micro_throughput_rps": round(micro.throughput_rps, 1),
+            "n_requests": n_requests,
+            "n_ok": cont.n_ok,
+            "micro_n_ok": micro.n_ok,
+            "n_households": n_households,
+            "offered_rate_rps": rate_hz,
+            "slo_ms": slo_ms,
+            "transport": "mux",
+            "max_batch": max_batch,
+            "max_wait_ms": round(max_wait_s * 1e3, 3),
+            "max_sessions": max_slots,
+            "burst_config": burst_config,
+            "implementation": reference.manifest.get("implementation"),
+            "n_agents": reference.n_agents,
+            "config_hash": reference.manifest.get("config_hash"),
+        }
+    )
+    if emit is not None:
+        for row in rows:
+            emit(row)
+    return rows

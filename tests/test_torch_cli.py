@@ -38,11 +38,9 @@ from p2pmicrogrid_tpu_torch import cli as tcli
 PORTED = {
     "train", "single", "multi", "eval", "baseline", "sweep", "forecast", "export-bundle",
     "train-recurrent", "serve-gateway", "serve-token", "telemetry-report", "telemetry-query",
+    "continual", "promote", "regime-bench",
 }
-NOT_PORTED = {
-    "bench", "serve-bench", "serve-router", "continual", "promote", "regime-bench",
-    "autopilot", "analyse",
-}
+NOT_PORTED = {"bench", "serve-bench", "serve-router", "autopilot", "analyse"}
 PORT_ONLY_OPTIONS = {"--device"}
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(p2pmicrogrid_tpu_torch.__file__)))
 
@@ -100,7 +98,7 @@ def _options(sub):
 def test_the_thirteen_ported_subcommands():
     jax_parser, port_parser = _parsers()
     port_subs, jax_subs = set(_subparsers(port_parser)), set(_subparsers(jax_parser))
-    assert port_subs == PORTED and len(port_subs) == 13
+    assert port_subs == PORTED and len(port_subs) == 16
     assert jax_subs - port_subs == NOT_PORTED
 
 

@@ -1076,3 +1076,95 @@ def test_command_line_trains_on_the_card(cuda_generator, tmp_path, monkeypatch):
     finally:
         con.close()
     assert n == 1
+
+
+def _flywheel_cfg(impl):
+    from p2pmicrogrid_tpu_torch import config as tc
+
+    return tc.default_config(
+        sim=tc.SimConfig(n_agents=3),
+        train=tc.TrainConfig(implementation=impl, seed=0),
+        qlearning=tc.QLearningConfig(num_time_states=8, num_temp_states=8, num_balance_states=8,
+                                     num_p2p_states=8),
+        dqn=tc.DQNConfig(hidden=8, buffer_size=16, batch_size=8),
+        ddpg=tc.DDPGConfig(actor_hidden=8, critic_hidden=8, buffer_size=16, batch_size=8,
+                           share_across_agents=True, actor_delay_updates=2),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["tabular", "dqn", "ddpg"])
+def test_pretrain_graph_equals_eager_and_cpu(cuda_generator, impl):
+    """The off-policy pretrain with one step captured and replayed equals
+    the eager loop on the card bit for bit (DDPG's actor-delayed steps run
+    eagerly before the capture), and the CPU's at the CPU tests'
+    tolerances (tabular bit for bit)."""
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.convert import state_from_jax, state_to_numpy
+    from p2pmicrogrid_tpu_torch.data.trace_export import TraceDataset
+    from p2pmicrogrid_tpu_torch.parallel.scenarios import init_shared_pol_state
+    from p2pmicrogrid_tpu_torch.serve.loadgen import synthetic_obs
+    from p2pmicrogrid_tpu_torch.train import continual as co
+
+    cfg, n, steps = _flywheel_cfg(impl), 24, 6
+    rng = np.random.default_rng(0)
+    obs = synthetic_obs(n, 3, seed=1)
+    ds = TraceDataset(obs=obs, action=rng.choice([0.0, 0.5, 1.0], (n, 3)).astype(np.float32),
+                      reward=rng.normal(size=(n, 3)).astype(np.float32), next_obs=np.roll(obs, -1, 0))
+    st = state_to_numpy(init_shared_pol_state(cfg, "cpu", torch.Generator().manual_seed(0)))
+    sub = {"dqn": cfg.dqn, "ddpg": cfg.ddpg}.get(impl)
+    idx = torch.randint(0, n, (steps, co.trace_batch_size(cfg, n)), generator=torch.Generator().manual_seed(2))
+    runs = {}
+    for name, dev, graph in (("graph", "cuda", True), ("eager", "cuda", False), ("cpu", "cpu", False)):
+        s, losses = co.offpolicy_pretrain(cfg, state_from_jax(st, dev, cfg=sub), ds, None, steps,
+                                          indices=idx, graph=graph, device=dev)
+        runs[name] = (state_to_numpy(s), losses)
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, tuple):
+            return [x for t in tree for x in leaves(t)]
+        return [np.asarray(tree)]
+
+    g, e, c = (leaves(runs[k][0]) for k in ("graph", "eager", "cpu"))
+    assert all(np.array_equal(x, y) for x, y in zip(g, e))
+    np.testing.assert_array_equal(runs["graph"][1], runs["eager"][1])
+    for x, y in zip(g, c):
+        if impl == "tabular":
+            np.testing.assert_array_equal(x, y)
+        elif x.dtype.kind == "f":
+            np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(runs["graph"][1], runs["cpu"][1], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_trace_rewards_and_gate_on_the_card_match_cpu(cuda_generator, tmp_path):
+    """The trace rewards on the card within rtol=1e-6 of the CPU's, and
+    the gate over crafted A=3 bundles (evaluations through K1 on the card,
+    the matrix path on the CPU) gives the same verdicts."""
+    import dataclasses
+
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.data import trace_export as te
+    from p2pmicrogrid_tpu_torch.serve import promotion as pr
+    from p2pmicrogrid_tpu_torch.serve.loadgen import synthetic_obs
+
+    cfg = _flywheel_cfg("tabular")
+    obs = synthetic_obs(32, 3, seed=3)
+    act = np.random.default_rng(3).choice([0.0, 0.5, 1.0], (32, 3)).astype(np.float32)
+    for name in ("trace_reward", "decision_cost"):
+        np.testing.assert_allclose(getattr(te, name)(cfg, obs, act, device="cuda"),
+                                   getattr(te, name)(cfg, obs, act, device="cpu"), rtol=1e-6)
+    good_cfg = cfg.replace(train=dataclasses.replace(cfg.train, starting_episodes=101))
+    verdicts = {}
+    for dev in ("cuda", "cpu"):
+        inc = pr.make_crafted_bundle(cfg, "incumbent", str(tmp_path / dev / "inc"), device=dev)
+        good = pr.make_crafted_bundle(good_cfg, "good", str(tmp_path / dev / "good"), device=dev)
+        v = pr.run_promotion_gate(cfg, good, inc, service_time_fn=lambda i, j: 5e-4,
+                                  bench_requests=64, max_batch=8, device=dev)
+        verdicts[dev] = (v.passed, v.candidate_cost)
+    assert verdicts["cuda"][0] is verdicts["cpu"][0] is True
+    np.testing.assert_allclose(verdicts["cuda"][1], verdicts["cpu"][1], rtol=1e-4)

@@ -35,6 +35,12 @@ from p2pmicrogrid_tpu_torch.train import loop as tloop
 from p2pmicrogrid_tpu_torch.train import make_policy
 from p2pmicrogrid_tpu_torch.train import recurrent as trec
 from p2pmicrogrid_tpu_torch.train.policies import init_policy_state
+from p2pmicrogrid_tpu_torch.data import trace_export as ttrace
+from p2pmicrogrid_tpu_torch.regimes import bench as tregbench
+from p2pmicrogrid_tpu_torch.serve import continuous as tcontinuous
+from p2pmicrogrid_tpu_torch.serve import promotion as tpromo
+from p2pmicrogrid_tpu_torch.serve.registry import BundleRegistry
+from p2pmicrogrid_tpu_torch.train import continual as tcont
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(p2pmicrogrid_tpu_torch.__file__)))
 
@@ -89,7 +95,12 @@ def test_every_module_imports_without_jax():
                 "p2pmicrogrid_tpu_torch.data.results",
                 "p2pmicrogrid_tpu_torch.telemetry.report",
                 "p2pmicrogrid_tpu_torch.cli",
-                "p2pmicrogrid_tpu_torch.__main__"} <= set(names), names
+                "p2pmicrogrid_tpu_torch.__main__",
+                "p2pmicrogrid_tpu_torch.serve.loadgen",
+                "p2pmicrogrid_tpu_torch.serve.promotion",
+                "p2pmicrogrid_tpu_torch.data.trace_export",
+                "p2pmicrogrid_tpu_torch.train.continual",
+                "p2pmicrogrid_tpu_torch.regimes.bench"} <= set(names), names
         leaked = sorted(
             n for n, m in sys.modules.items()
             if m is not None and (n == "jax" or n.startswith(("jax.", "jaxlib", "flax", "optax"))
@@ -107,6 +118,11 @@ def test_every_module_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 15  # every module was walked
+
+
+def _dataset():
+    z = np.zeros((2, 4, 4), np.float32)
+    return ttrace.TraceDataset(obs=z, action=z[..., 0], reward=z[..., 0], next_obs=z)
 
 
 def _cfg(impl="tabular"):
@@ -199,6 +215,26 @@ def _cfg(impl="tabular"):
         lambda cfg: treg.evaluate_regimes(
             cfg, make_policy(cfg), None, tcom.make_ratings(cfg, np.random.default_rng(0)), ["baseline"],
         ),
+        lambda cfg: treg.evaluate_bundle_regimes(cfg, "unused", ["baseline"]),
+        lambda cfg: tregbench.make_regime_crafted_bundle(cfg, "thermostat", "unused"),
+        lambda cfg: tregbench.run_regime_bench(),
+        lambda cfg: ttrace.trace_reward(cfg, np.zeros((1, 4, 4)), np.zeros((1, 4))),
+        lambda cfg: ttrace.decision_cost(cfg, np.zeros((1, 4, 4)), np.zeros((1, 4))),
+        lambda cfg: ttrace.export_serve_traces("unused", cfg=cfg),
+        lambda cfg: ttrace.bill_decisions("unused", cfg),
+        lambda cfg: ttrace.settlement_reward_fn("unused", cfg),
+        lambda cfg: ttrace.to_replay_state(_dataset()),
+        lambda cfg: tcont.state_from_bundle(cfg, {"implementation": "tabular", "n_agents": 4}, {}),
+        lambda cfg: tcont.make_trace_update_fn(cfg, _dataset()),
+        lambda cfg: tcont.offpolicy_pretrain(cfg, None, _dataset(), None, 1),
+        lambda cfg: tcont.train_continual(cfg, "unused", _dataset(), "unused", "unused"),
+        lambda cfg: tpromo.evaluate_bundle_cost(cfg, "unused"),
+        lambda cfg: tpromo.run_promotion_gate(cfg, "unused", "unused"),
+        lambda cfg: tpromo.CanaryController(BundleRegistry(), "a", "b"),
+        lambda cfg: tpromo.make_crafted_bundle(cfg, "incumbent", "unused"),
+        lambda cfg: tpromo.run_promotion_pipeline(cfg, "unused", "unused"),
+        lambda cfg: tpromo.promotion_bench(cfg, "unused"),
+        lambda cfg: tcontinuous.serve_bench_continuous_compare("unused"),
     ],
     ids=["init_shared_state", "init_policy_state", "tabular_init", "init_physical",
          "ratings_to", "stack_scenario_arrays", "init_shared_state_dqn", "dqn_init",
@@ -212,7 +248,13 @@ def _cfg(impl="tabular"):
          "build_gateway", "recurrent_ddpg_init", "recurrent_actor_init_hidden",
          "train_recurrent_community", "forecast_init", "train_forecaster", "stack_regime_params",
          "assignment_one_hot", "build_portfolio", "make_regime_episode_fn",
-         "train_regime_portfolio", "make_regime_eval", "evaluate_regimes"],
+         "train_regime_portfolio", "make_regime_eval", "evaluate_regimes",
+         "evaluate_bundle_regimes", "make_regime_crafted_bundle", "run_regime_bench",
+         "trace_reward", "decision_cost", "export_serve_traces", "bill_decisions",
+         "settlement_reward_fn", "to_replay_state", "state_from_bundle", "make_trace_update_fn",
+         "offpolicy_pretrain", "train_continual", "evaluate_bundle_cost", "run_promotion_gate",
+         "CanaryController", "make_crafted_bundle", "run_promotion_pipeline", "promotion_bench",
+         "serve_bench_continuous_compare"],
 )
 def test_entry_points_default_to_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -235,6 +277,8 @@ def test_entry_points_default_to_cuda(monkeypatch, call):
         ["export-bundle"],
         ["train-recurrent", "--episodes", "1"],
         ["serve-gateway", "--port", "0"],
+        ["continual", "--results-db", "unused.db", "--bundle", "unused"],
+        ["promote", "--candidate", "unused", "--incumbent", "unused"],
     ],
     ids=lambda a: a[0] if a[1:2] != ["--scenarios"] else "train-chunked",
 )

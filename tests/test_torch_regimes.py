@@ -10,7 +10,10 @@ episode, shared and independent, against the JAX package's
 Q-tables ``rtol=1e-3, atol=1e-4``: tests/test_torch_episode.py's); the
 neutral regime equal to the plain shared episode bit for bit; counters
 against rewards (``rtol=1e-4``); the chunked trainer with a portfolio swap;
-the portfolio trainer's and the evaluation's telemetry; and every refusal.
+the portfolio trainer's and the evaluation's telemetry; every refusal; and
+``evaluate_bundle_regimes`` (tabular and DQN bundles the JAX package
+exported, two regimes) against the JAX function fed its held-out draws, one
+learner state shared by two bundles.
 Episodes run slots 36-43 (``WINDOW``), where the regimes' windows are set
 to act.
 """
@@ -508,7 +511,78 @@ def test_refusals(world):
         treg.make_regime_episode_fn(cfg, policy, ratings, pf.params, arrays_s=arrays)
     with pytest.raises(ValueError, match="one_hot"):
         treg.make_regime_episode_fn(cfg, policy, ratings, rp, arrays_s=arrays, collect_regime_metrics=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        treg.evaluate_bundle_regimes(cfg, "bundle", ["baseline"])
     with pytest.raises(ValueError, match="settlement"):
         treg.train._RegimeSlots(rp, A, None).slot(cfg, policy, None, None, None, None, None, True, fused=True)
+
+
+# -- bundle evaluation ---------------------------------------------------------
+
+
+BUNDLE_REGIMES = ["baseline", "islanding_noon"]
+
+
+@pytest.mark.parametrize("impl", ["tabular", "dqn"])
+def test_evaluate_bundle_regimes_matches_jax(impl, tmp_path):
+    """Per-regime costs of two bundles the JAX package exported, against
+    its ``evaluate_bundle_regimes``: the held-out traces' draws
+    (``PRNGKey(REGIME_EVAL_SEED)``) and the initial temperatures'
+    (``PRNGKey(1)``) injected; costs at ``rtol=2e-4``
+    (tests/test_golden.py). The second bundle is copied into the first's
+    learner state in place and one evaluation serves both."""
+    from test_torch_device_gen import jax_trace_arrays, trace_draws
+    from test_torch_single_episode import jax_init_normals
+
+    from p2pmicrogrid_tpu.regimes.evaluate import evaluate_bundle_regimes as j_eval_bundle
+    from p2pmicrogrid_tpu.serve.export import export_policy_bundle as jax_export
+
+    s = 2
+    cfg_j, cfg_t = _cfg(jcfg, impl), _cfg(tcfg, impl)
+    bundles = []
+    for i in range(2):
+        pol = jsc.init_shared_pol_state(cfg_j, jax.random.PRNGKey(i))
+        if impl == "tabular":
+            pol = _random_table(cfg_j, 7 + i)
+        bundles.append(jax_export(cfg_j, pol, str(tmp_path / f"b{i}")))
+    n = len(BUNDLE_REGIMES) * s
+    draws = trace_draws(jax.jit(lambda k: jax_trace_arrays(k, n))(jax.random.PRNGKey(treg.REGIME_EVAL_SEED)))
+    k_phys, _ = jax.random.split(jax.random.PRNGKey(1))
+    normals = torch.stack([jax_init_normals(k, A) for k in jax.random.split(k_phys, n)])
+    ratings = make_ratings(cfg_t, np.random.default_rng(cfg_t.train.seed))
+    eval_fn = treg.make_regime_eval(cfg_t, t_make_policy(cfg_t), ratings,
+                                    treg.build_portfolio(BUNDLE_REGIMES, 2, device="cpu"),
+                                    s_per_regime=s, draws=draws, device="cpu")
+    from p2pmicrogrid_tpu_torch.serve.export import load_policy_bundle
+    from p2pmicrogrid_tpu_torch.train.continual import state_from_bundle
+
+    manifest, params = load_policy_bundle(bundles[0])
+    state = state_from_bundle(cfg_t, manifest, params, torch.Generator().manual_seed(0), device="cpu")
+    held = [t.data_ptr() for t in _state_tensors(state, impl)]
+    for bundle in bundles:
+        ref = j_eval_bundle(cfg_j, bundle, BUNDLE_REGIMES, s_per_regime=s)
+        got = treg.evaluate_bundle_regimes(cfg_t, bundle, BUNDLE_REGIMES, s_per_regime=s, eval_fn=eval_fn,
+                                           pol_state=state, normals=normals, held_out=True, device="cpu")
+        assert sorted(k for k in got if k != "rows") == sorted(BUNDLE_REGIMES)
+        for name in BUNDLE_REGIMES:
+            np.testing.assert_allclose(got[name], ref[name], rtol=2e-4, err_msg=name)
+        for g, r in zip(got["rows"], ref["rows"]):
+            assert g["regime"] == r["regime"] and g["held_out"] and g["n_scenarios"] == s
+            np.testing.assert_allclose(g["reward"], r["reward"], rtol=2e-4)
+    # The shared state holds the second bundle, in the same tensors.
+    assert [t.data_ptr() for t in _state_tensors(state, impl)] == held
+    assert _holds_last_bundle(state, bundles, cfg_t)
+
+
+def _holds_last_bundle(state, bundles, cfg_t):
+    """The shared state carries the last bundle's parameters."""
+    from p2pmicrogrid_tpu_torch.serve.export import load_policy_bundle
+
+    _, params = load_policy_bundle(bundles[-1])
+    if "q_table" in params:
+        return np.array_equal(state.q_table.numpy(), params["q_table"])
+    return np.array_equal(state.online.Dense_0.kernel.detach().numpy(), params["Dense_0"]["kernel"])
+
+
+def _state_tensors(state, impl):
+    if impl == "tabular":
+        return [state.q_table]
+    return list(state.online.parameters()) + list(state.target.parameters())
