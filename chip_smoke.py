@@ -14,7 +14,8 @@ Phases (each failure exits non-zero):
    kernel and the plain version timed with CUDA events, and the device time
    from the profiler. K1 (merged min, timed at [64,1000], [128,1000] (the
    northstar chunk), [256,50] and [2048,50], the DDPG scale row's shape,
-   and [8,1000] bf16, phase 8's greedy evaluation; its launch logged), then
+   [8,1000] bf16, phase 8's greedy evaluation, and [4,1000] bf16, phase
+   14's autopilot gate; its launch logged), then
    K5, K4, K6
    (the matrix path; K5's and K4's dispatch at every case and K5's, K4's and
    K6's grid and shared memory a block logged; K5's matrix held to its
@@ -98,7 +99,7 @@ Phases (each failure exits non-zero):
 8. Observable, crash-safe training. (e) The seed-0 draws on this
    machine's CPU hash to the digests the CPU tests pin
    (``draw_digests.py``). (a) ``train.health.train_chunked_with_health`` at
-   the northstar row (its depth cut to 16 chunks an episode) with
+   the northstar row (its depth cut to 8 chunks an episode) with
    telemetry into a temporary run directory, an eval
    of 8 held-out scenarios after every episode (K1 at [8,1000]) and
    ``mitigate="lr-boost"``: a warm episode and two timed ones, then one
@@ -107,7 +108,7 @@ Phases (each failure exits non-zero):
    the eval's seconds, the boosted capture's seconds and pool, peak memory,
    each episode's device counters, the replay fill and the host's blocked
    share; the run directory's manifest, metrics and Chrome trace parsed, the
-   profile gauges present, K1's launches (96 x 16 an episode, 96 an eval,
+   profile gauges present, K1's launches (96 x 8 an episode, 96 an eval,
    96 a capture's warm-up; one eval's counted alone) and no other kernel;
    then the first run again with telemetry off (no counters, no records),
    its env-steps/s beside. (b) The device counters of
@@ -172,9 +173,9 @@ Phases (each failure exits non-zero):
    all-baseline portfolio against the plain shared episode, tabular,
    A=1000, S=64, bit for bit. (b) The northstar config (shared DDPG, A=1000,
    128 scenarios a chunk) over ``baseline, winter, ev_evening,
-   double_auction`` through ``train_scenarios_chunked(runner=)`` for 8
+   double_auction`` through ``train_scenarios_chunked(runner=)`` for 4
    chunks, a swap to ``dr_spike, islanding_noon, cold_snap, uniform_price``
-   and 8 more: one graph captured, K1's launches counted against (1 + 2K) x
+   and 4 more: one graph captured, K1's launches counted against (1 + 2K) x
    96, one chunk's replay after the swap equal to the eager episode bit for
    bit, env-steps/s and the idle share beside a bare northstar runner timed
    in the same call. (c) Counters against rewards (rtol 1e-4), zero grid
@@ -222,13 +223,49 @@ Phases (each failure exits non-zero):
    100 on a gateway on the card: no request failed, and the bundle serving
    afterwards answers bit for bit as its own engine. K1's launches counted
    per flywheel. One ``{"flywheel": {...}}`` line.
-14. One JSON line with the DDPG rows' numbers, one with the chunked rows',
+14. The serving fleet and the autopilot (``serve/router.py``, ``faults.py``,
+   ``procfleet.py``, ``proxy.py``, ``autopilot.py``); K1-K7's counts set to
+   0 before (a) and read after (e): serving launches none. (a) A
+   ``LocalFleet`` of three replicas on the card, each with phase 9's
+   per-agent DQN (A=1000, hidden 64) and the northstar's shared DDPG actor
+   (CPU seed 0): each replica's start seconds, captures and graph pool, the
+   peak device memory. (b) ``serve_bench_fleet`` under ``kill_restart_plan``
+   (replica-1 killed at 0.3 and restarted at 0.6 of the run), 512 requests
+   at 256/s from 16 households: availability 1.0, no request failed or
+   shed, the DQN answers bit for bit as its engine's act, the restarted
+   replica's captures unchanged. (c) A two-phase swap DQN -> DDPG under
+   traffic with no request failed (DQN answers bit for bit, DDPG's
+   mismatches against one batched act counted, at most 1e-5 apart); the
+   post-cycle invariant's two forms on the DDPG default; a bundle
+   registered at run time under traffic (each replica's capture seconds,
+   each replica's p99 before and during the captures), then swapped to,
+   answers one at a time bit for bit as its engine's act alone. (d) A
+   ``ProcessFleet`` of three ``serve-gateway --device cuda`` children with
+   TLS and token auth: their startup seconds, the same plan (a SIGKILL and
+   the supervisor's relaunch on the original ports) under the fleet bench
+   (availability 1.0, bit-exact), and replica-1's answers one at a time
+   after the relaunch equal to those before the kill bit for bit. (e)
+   ``serve-router`` as a subprocess in front of it: 64 requests through TLS
+   and household tokens (bit for bit), ``/admin/swap`` and ``/readyz``.
+   (f) ``autopilot_bench`` at A=1000 (battery on; tabular, the harness's
+   crafted candidates), on a thread of its own from the end of phase 12's
+   north-star commands (from the start of phase 14 without phase 12), its
+   fleet and its autopilot child processes beside the phases in between,
+   joined after (e): three replicas, cycles ``0:good, 1:cost_regressed,
+   2:nan_poisoned``, one replica killed, the autopilot SIGKILLed in
+   ``retraining`` of cycle 1 and relaunched: the good candidate promoted,
+   both bad ones blocked, availability 1.0, every cycle's post-cycle
+   invariant and the journal's final state; K1's launches (the gate's
+   evaluations at [4,1000]) summed from the cycles' rows. One ``{"fleet":
+   {...}}`` line.
+15. One JSON line with the DDPG rows' numbers, one with the chunked rows',
    one with the single rows', one with phase 7's rows, one with phase 8's,
    one with phase 10's (``{"recurrent": ...}``), one with phase 11's
    (``{"regimes": ...}``), phase 12's (``{"cli": ...}``), one with every
    kernel's (K1's phase-11 launches under ``at_128x1000.regime_launches``,
-   each kernel's phase-12 launches under ``cli_launches`` and phase 13's
-   under ``flywheel_launches``), then the last
+   each kernel's phase-12 launches under ``cli_launches``, phase 13's
+   under ``flywheel_launches`` and phase 14's under
+   ``autopilot_launches``), then the last
    line ``{"ok": true, "device": {...}}``.
 
 With arguments (a comma-separated list of phase numbers, e.g. ``5``) it
@@ -476,7 +513,7 @@ def merged_min_inputs(S, A, gen, case="random"):
 # greedy evaluation of 8 held-out northstar scenarios, [8,1000] (bf16), and
 # phase 13's greedy evaluations of the crafted A=3 bundles, [8,3] (float32).
 K1_TIMED = ((64, 1000), (128, 1000), (256, 50), (2048, 50), (MULTI_C, MULTI_A),
-            (EVAL_DAYS * MULTI_C, MULTI_A), (8, 1000), (8, 3))
+            (EVAL_DAYS * MULTI_C, MULTI_A), (8, 1000), (8, 3), (4, 1000))
 
 
 def phase_kernels():
@@ -513,6 +550,10 @@ def phase_kernels():
         # Phase 13's gate evaluations of the crafted A=3 bundles: 8 held-out
         # scenarios of 3 agents, float32.
         (8, 3, "random"),
+        # Phase 14's autopilot gate: its evaluations' 4 held-out scenarios
+        # (Autopilot.s_eval) at the northstar width, bf16 pre-rounding.
+        (4, 1000, "bf16"),
+        (4, 1000, "random"),
     ]
     max_abs_err = 0.0
     timings = {}
@@ -2733,9 +2774,10 @@ def phase_independent(counters, card):
 HEALTH_S_EVAL = 8
 RESUME_K, RESUME_EPISODES = 8, 3
 # The guarded run's depth, cut from the northstar's 80 chunks an episode to
-# 16 to keep the whole script inside its time limit (phase 5 times the
-# 80-chunk episode; the width stays 1000 agents x 128 scenarios a chunk).
-GUARDED_K = 16
+# 16 and, since phase 14, to 8 to keep the whole script inside its time
+# limit (phase 5 times the 80-chunk episode; the width stays 1000 agents x
+# 128 scenarios a chunk).
+GUARDED_K = 8
 
 
 def northstar_config():
@@ -3043,6 +3085,7 @@ def phase_kill_resume(tmp):
     episode 1's save); relaunched with ``--resume`` it finishes, and its
     final state's digest equals an uninterrupted child's. Returns the row."""
     import io
+    import threading
 
     from p2pmicrogrid_tpu_torch.train import faults as tf
     from p2pmicrogrid_tpu_torch.train import resilience as rs
@@ -3055,13 +3098,27 @@ def phase_kill_resume(tmp):
             "--episodes", str(RESUME_EPISODES), "--chunks", str(RESUME_K),
             "--agents", str(NORTHSTAR["A"]), "--scenarios", str(NORTHSTAR["S"])]
     env = {"PYTHONPATH": HERE + os.pathsep + os.environ.get("PYTHONPATH", "")}
-    results = {}
-    for label, extra in (("killed", ["--fault-plan", plan_path]), ("uninterrupted", [])):
+    results, runs = {}, {}
+
+    def supervised(label, extra):
         out = io.StringIO()
         start = time.perf_counter()
         res = rs.supervise(argv + ["--ckpt-dir", os.path.join(tmp, label)] + extra,
                            max_restarts=2, backoff_s=0.0, env=env, passthrough=out)
-        secs = time.perf_counter() - start
+        runs[label] = (res, time.perf_counter() - start, out)
+
+    # The two runs are independent children: side by side (since phase 14
+    # needed the time), each on its own checkpoint directory.
+    threads = [threading.Thread(target=supervised, args=(label, extra)) for label, extra in
+               (("killed", ["--fault-plan", plan_path]), ("uninterrupted", []))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for label in ("killed", "uninterrupted"):
+        if label not in runs:
+            fail(f"kill/resume {label}: the supervisor raised")
+        res, secs, out = runs[label]
         lines = [json.loads(l) for l in out.getvalue().splitlines() if l.startswith("{")]
         startups = [l["child_startup"] for l in lines if "child_startup" in l]
         done = [l["child_done"] for l in lines if "child_done" in l]
@@ -4041,10 +4098,11 @@ def phase_recurrent(counters):
 
 # The scenario regime engine at the northstar config (shared DDPG, battery
 # on, A=1000, 128 scenarios a chunk, K1 bf16 at [128,1000]): 32 scenarios of
-# each regime, 8 chunks an episode, then a swap to a held-out portfolio.
+# each regime, 4 chunks an episode (8 until phase 14 needed the time), then a
+# swap to a held-out portfolio.
 REGIME_TRAIN = ("baseline", "winter", "ev_evening", "double_auction")
 REGIME_HELD_OUT = ("dr_spike", "islanding_noon", "cold_snap", "uniform_price")
-REGIME_K, REGIME_EVAL_S = 8, 4
+REGIME_K, REGIME_EVAL_S = 4, 4
 REGIME_PLAIN_A, REGIME_PLAIN_S = 1000, 64
 
 
@@ -4107,7 +4165,7 @@ def regime_chunk_runner(cfg, policy, ratings, portfolio, graph):
 
 def regime_northstar(counters, tc, card):
     """(b) The northstar config over the training portfolio through
-    ``train_scenarios_chunked(runner=)``: an episode of 8 chunks (the
+    ``train_scenarios_chunked(runner=)``: an episode of ``REGIME_K`` chunks (the
     capture), a swap to the held-out portfolio, an episode more (timed);
     one capture in all; K1 once a slot of every chunk run; one chunk's
     replay after the swap against the eager episode with the new regimes,
@@ -4427,8 +4485,9 @@ class SqliteClock:
 
 def cli_northstar(counters, tmp):
     """(a) The north star through ``cli.main`` and through
-    ``train_chunked_with_health`` with the same config, seed and device, in
-    turns (library, command, command, library): K1's launches against
+    ``train_chunked_with_health`` with the same config, seed and device
+    (the library, then the command; two more runs in turns until phase 14
+    needed the time): K1's launches against
     (E*K + captures + E + 1) * 96 in every run, rewards, losses, health
     points and the final parameters equal bit for bit, wall and training
     seconds of each."""
@@ -4501,7 +4560,7 @@ def cli_northstar(counters, tmp):
                     rewards=rew, losses=loss, monitor=monitor, digest=digest)
 
     runs = []
-    for i, kind in enumerate(("library", "command", "command", "library")):
+    for i, kind in enumerate(("library", "command")):
         gc_collect()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -4879,8 +4938,9 @@ def cli_supervised(tmp):
                 attempt_s=[a["duration_s"] for a in attempts], seconds=secs)
 
 
-def phase_cli(counters, card):
-    """Phase 12: the command line on the card."""
+def phase_cli(counters, card, after_northstar=None):
+    """Phase 12: the command line on the card; ``after_northstar`` is
+    called once the north-star commands are done."""
     import shutil
     import tempfile
 
@@ -4891,6 +4951,8 @@ def phase_cli(counters, card):
     totals = {name: 0 for name in counters}
     try:
         northstar, ns_launches, flags, db = cli_northstar(counters, tmp)
+        if after_northstar is not None:
+            after_northstar()
         evaluation = cli_eval_and_query(counters, flags, db)
         gateway = cli_gateway(counters, flags, db, tmp)
         small = cli_small_commands(counters, tmp)
@@ -5266,6 +5328,554 @@ def phase_flywheel(counters, card):
     return reading, k1
 
 
+# --- phase 14 ---------------------------------------------------------------
+
+# The serving fleet and the autopilot: phase 9's per-agent DQN (hidden 64)
+# and the northstar's shared DDPG actor (CPU seed 0) at A=1000 in every
+# replica, three replicas; the fleet bench at the JAX command line's default
+# rate (256/s, 512 requests, 16 households) under kill_restart_plan; the
+# autopilot bench over the northstar community's width (A=1000, battery on)
+# with the crafted tabular candidates its harness injects.
+FLEET = dict(replicas=3, max_batch=64, requests=512, rate=256.0, households=16,
+             swap_requests=256, swap_rate=128.0, reg_rate=64.0, reg_before=96, reg_during=384,
+             proc_requests=256, proc_rate=128.0, proc_probe=8, proxy_requests=64)
+# Its traffic is cut from the harness's 96 requests a cycle and 64 a canary
+# stage to 48 and 48 (the export and the billing parse 4,000 floats of JSON
+# a decision on the host).
+AUTOPILOT = dict(A=1000, replicas=3, cycles=3, inject="0:good,1:cost_regressed,2:nan_poisoned",
+                 sigkill_phase="retraining", sigkill_cycle=1, requests_per_cycle=48,
+                 canary_requests=48)
+
+
+def act_one_at_a_time(router, obs, households):
+    """Each observation alone through the router (one request in flight,
+    so each is served at padding bucket 1): the RouterResults."""
+    import asyncio
+
+    async def run():
+        try:
+            return [await router.act(h, o) for h, o in zip(households, obs)]
+        finally:
+            await router.close_pools()
+
+    return asyncio.run(run())
+
+
+def fleet_latency(result, mask=None):
+    """p50/p99 ms and requests/s of a FleetLoadgenResult (its served
+    requests, or those of ``mask``)."""
+    import numpy as np
+
+    ok = result.statuses == 200
+    if mask is not None:
+        ok &= mask
+    lat = result.latencies_s[ok] * 1e3
+    return dict(n=int(ok.sum()), p50_ms=float(np.percentile(lat, 50)) if lat.size else None,
+                p99_ms=float(np.percentile(lat, 99)) if lat.size else None)
+
+
+def ddpg_mismatch(engine, obs, got):
+    """(rows differing from ``engine.act`` on the same observations in one
+    batch, largest absolute difference)."""
+    import numpy as np
+
+    want = engine.act(obs)
+    got = np.asarray(got, dtype=np.float32)
+    return int((got != want).any(axis=-1).sum()), float(np.abs(got - want).max()) if got.size else 0.0
+
+
+def stream_coupling(small, big, A, calls=50):
+    """p50 ms of ``small.act`` on one observation with the card idle, and
+    while another replica's engine acts on 64 observations in a loop on
+    another thread. Both replay on the card's one stream and share the
+    host's interpreter lock, so the small act's result copy also waits for
+    the other engine's queued work."""
+    import threading
+
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.serve.loadgen import synthetic_obs
+
+    one, many = synthetic_obs(1, A, seed=61), synthetic_obs(64, A, seed=62)
+
+    def p50():
+        out = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            small.act(one)
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.percentile(out, 50))
+
+    idle = p50()
+    stop, loops = threading.Event(), [0]
+
+    def run():
+        while not stop.is_set():
+            big.act(many)
+            loops[0] += 1
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    try:
+        busy = p50()
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    return dict(idle_p50_ms=idle, busy_p50_ms=busy, other_acts=loops[0])
+
+
+def fleet_engines(fleet):
+    """{replica: {hash: engine}} of an in-process fleet."""
+    out = {}
+    for rep in fleet.replicas:
+        reg = fleet.entry(rep.replica_id)["registry"]
+        out[rep.replica_id] = {h: reg.get(h).engine for h in reg.hashes}
+    return out
+
+
+def fleet_local(counters, paths, hashes, tmp):
+    """(a)-(c): the in-process fleet on the card. Returns its reading."""
+    import asyncio
+    import threading
+
+    import numpy as np
+    import torch
+
+    from p2pmicrogrid_tpu_torch.serve import (
+        AdmissionConfig, FleetRouter, LocalFleet, kill_restart_plan, run_fleet_loadgen,
+        serve_bench_fleet,
+    )
+    from p2pmicrogrid_tpu_torch.serve.loadgen import RetryPolicy, poisson_arrivals, synthetic_obs
+
+    A = SERVE_WIDE_A
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    duration = FLEET["requests"] / FLEET["rate"]
+    plan = kill_restart_plan("replica-1", 0.3 * duration, 0.6 * duration, seed=0)
+    fleet = LocalFleet([paths["dqn"], paths["ddpg"]], n_replicas=FLEET["replicas"],
+                       max_batch=FLEET["max_batch"], admission=AdmissionConfig(**SERVE_ADMISSION),
+                       fault_plan=plan, run_name="chip-fleet")
+    start = time.perf_counter()
+    fleet.start()
+    try:
+        start_s = time.perf_counter() - start
+        engines = fleet_engines(fleet)
+        replicas = []
+        for rid, by_hash in engines.items():
+            replicas.append(dict(
+                replica=rid, start_s=fleet.entry(rid)["start_s"],
+                captures={h[:12]: e.stats["aot_compiles"] for h, e in by_hash.items()},
+                capture_s=sum(sum(e.capture_s.values()) for e in by_hash.values()),
+                graph_pool_bytes=sum(e.graph_pool_bytes for e in by_hash.values()),
+            ))
+        peak = torch.cuda.max_memory_allocated()
+        out["start"] = dict(seconds=start_s, replicas=replicas, peak_bytes=peak)
+        log(f"phase 14 (a): LocalFleet of {FLEET['replicas']} replicas x (DQN, DDPG) at A={A} on "
+            f"the card in {start_s:.2f} s, peak {peak / 2**30:.2f} GiB: {json.dumps(replicas)}")
+        for rep in replicas:
+            if any(n <= 0 for n in rep["captures"].values()):
+                fail(f"phase 14 (a): {rep['replica']} captured no graph: {rep}")
+        out["stream_coupling"] = stream_coupling(
+            engines["replica-0"][hashes["dqn"]], engines["replica-1"][hashes["ddpg"]], A)
+        log(f"phase 14 (a): replica-0's DQN act on one observation, idle and beside replica-1's "
+            f"DDPG acts on 64: {json.dumps(out['stream_coupling'])}")
+
+        # (b) The fleet bench under the kill/restart plan.
+        router = FleetRouter(fleet.replicas, retry=RetryPolicy(max_attempts=5, deadline_s=30.0),
+                             fail_threshold=2, ok_threshold=1)
+        victim = fleet.entry("replica-1")["registry"]
+        before = {h: victim.get(h).engine.stats["aot_compiles"] for h in victim.hashes}
+        reference = fleet.reference_engine()
+        rows = serve_bench_fleet(
+            router, n_agents=A, fleet=fleet, fault_plan=plan, reference_engine=reference,
+            rate_hz=FLEET["rate"], n_requests=FLEET["requests"], n_households=FLEET["households"],
+            seed=0, probe_interval_s=0.05,
+        )
+        head = rows[-1]
+        after = {h: victim.get(h).engine.stats["aot_compiles"] for h in victim.hashes}
+        bench = {k: head[k] for k in ("p50_ms", "p95_ms", "p99_ms", "throughput_rps", "availability",
+                                      "failover_count", "retry_rate", "n_requests", "n_ok", "n_shed",
+                                      "n_failed", "bit_exact", "bit_exact_mismatches", "ejections",
+                                      "readmissions", "repins", "chaos")}
+        bench["retries"] = round(head["retry_rate"] * head["n_requests"])
+        bench["restart_captures"] = {h[:12]: after[h] - before[h] for h in after}
+        out["bench"] = bench
+        log(f"phase 14 (b): serve_bench_fleet {json.dumps(bench)}")
+        if head["availability"] != 1.0 or head["n_failed"] or head["n_shed"]:
+            fail(f"phase 14 (b): availability {head['availability']}, failed {head['n_failed']}, "
+                 f"shed {head['n_shed']}")
+        if head["bit_exact"] is not True:
+            fail(f"phase 14 (b): the DQN bundle's answers are not bit-exact: {head['bit_exact_mismatches']}")
+        if head["chaos"]["kills"] != ["replica-1"] or head["chaos"]["restarts"] != ["replica-1"]:
+            fail(f"phase 14 (b): the plan did not run: {head['chaos']}")
+        if after != before:
+            fail(f"phase 14 (b): the restarted replica recaptured: {before} -> {after}")
+
+        # (c) Two fleet swaps under traffic. First DQN -> DDPG mid-traffic.
+        ddpg_engine = engines["replica-0"][hashes["ddpg"]]
+        obs = synthetic_obs(FLEET["swap_requests"], A, seed=21)
+        households = [f"house-{i:04d}" for i in range(FLEET["households"])]
+        box = []
+        traffic = threading.Thread(target=lambda: box.append(run_fleet_loadgen(
+            router, obs, poisson_arrivals(FLEET["swap_rate"], len(obs), seed=21), households)))
+        traffic.start()
+        time.sleep(0.5 * len(obs) / FLEET["swap_rate"])
+        swap, swap_s = synced(lambda: asyncio.run(router.swap_fleet(hashes["ddpg"])))
+        traffic.join(timeout=300)
+        res = box[0]
+        served = np.array([h for h in res.config_hashes], dtype=object)
+        dqn_idx = [i for i in range(res.n_requests) if served[i] == hashes["dqn"]]
+        ddpg_idx = [i for i in range(res.n_requests) if served[i] == hashes["ddpg"]]
+        dqn_exact = bool(np.array_equal(np.asarray([res.actions[i] for i in dqn_idx], np.float32),
+                                        reference.act(obs[dqn_idx])))
+        ddpg_mis, ddpg_err = ddpg_mismatch(ddpg_engine, obs[ddpg_idx], [res.actions[i] for i in ddpg_idx])
+        swap1 = dict(swap_s=swap_s, n_ok=res.n_ok, n_requests=res.n_requests, dqn_answers=len(dqn_idx),
+                     ddpg_answers=len(ddpg_idx), dqn_bit_exact=dqn_exact, ddpg_mismatches=ddpg_mis,
+                     ddpg_max_abs_diff=ddpg_err, **fleet_latency(res))
+        out["swap_dqn_to_ddpg"] = swap1
+        log(f"phase 14 (c): two-phase swap DQN -> DDPG mid-traffic: {json.dumps(swap1)}")
+        if res.n_ok != res.n_requests or not dqn_idx or not ddpg_idx or not dqn_exact or ddpg_err > 1e-5:
+            fail(f"phase 14 (c): swap under traffic {swap1}")
+        if swap["config_hash"] != hashes["ddpg"]:
+            fail(f"phase 14 (c): swap answered {swap}")
+
+        # The post-cycle invariant's two forms on the DDPG default: four
+        # requests at once against one batched act (the JAX package's), and
+        # one at a time against the act of each alone (the port's).
+        inv_obs = synthetic_obs(4, A, seed=555)
+        batched = ddpg_engine.act(inv_obs)
+        alone = np.concatenate([ddpg_engine.act(inv_obs[i:i + 1]) for i in range(4)])
+        at_once = run_fleet_loadgen(router, inv_obs, np.zeros(4), ["verify-house"])
+        one = act_one_at_a_time(router, inv_obs, ["verify-house"] * 4)
+        got_once = np.asarray(at_once.actions, np.float32)
+        got_one = np.asarray([r.actions for r in one], np.float32)
+        invariant = dict(
+            engine_bucket1_vs_bucket4_rows=int((alone != batched).any(axis=-1).sum()),
+            engine_bucket1_vs_bucket4_max_abs=float(np.abs(alone - batched).max()),
+            jax_form_equal=bool((got_once == batched).all()),
+            jax_form_rows_differing=int((got_once != batched).any(axis=-1).sum()),
+            port_form_equal=bool((got_one == alone).all()),
+        )
+        out["invariant_ddpg"] = invariant
+        log(f"phase 14 (c): the post-cycle invariant on the DDPG default: {json.dumps(invariant)}")
+        if not invariant["port_form_equal"]:
+            fail(f"phase 14 (c): one-at-a-time answers differ from the engine's act alone: {invariant}")
+
+        # Then a swap to a bundle registered at run time: every replica
+        # captures its graphs while traffic flows.
+        before_obs = synthetic_obs(FLEET["reg_before"], A, seed=31)
+        res_before = run_fleet_loadgen(router, before_obs, poisson_arrivals(
+            FLEET["reg_rate"], len(before_obs), seed=31), households)
+        during_obs = synthetic_obs(FLEET["reg_during"], A, seed=32)
+        box, reg_box = [], []
+        traffic = threading.Thread(target=lambda: box.append(run_fleet_loadgen(
+            router, during_obs, poisson_arrivals(FLEET["reg_rate"], len(during_obs), seed=32), households)))
+        t_traffic = time.perf_counter()
+        traffic.start()
+        time.sleep(0.5)
+        t_reg = time.perf_counter()
+        reg_hash = asyncio.run(router.register_fleet(paths["ddpg_seed1"]))
+        reg_s = time.perf_counter() - t_reg
+        traffic.join(timeout=300)
+        res_during = box[0]
+        sent = t_traffic + np.asarray(poisson_arrivals(FLEET["reg_rate"], len(during_obs), seed=32))
+        in_window = (sent >= t_reg) & (sent <= t_reg + reg_s)
+        per_replica = {}
+        for rid in engines:
+            mask_b = np.array([r == rid for r in res_before.replica_ids])
+            mask_d = np.array([r == rid for r in res_during.replica_ids]) & in_window
+            per_replica[rid] = dict(before=fleet_latency(res_before, mask_b),
+                                    during_capture=fleet_latency(res_during, mask_d))
+        new_engines = {rid: fleet.entry(rid)["registry"].get(reg_hash).engine for rid in engines}
+        capture_s = {rid: sum(e.capture_s.values()) for rid, e in new_engines.items()}
+        swap2, swap2_s = synced(lambda: asyncio.run(router.swap_fleet(reg_hash)))
+        check_obs = synthetic_obs(8, A, seed=33)
+        check = act_one_at_a_time(router, check_obs, [f"house-{i:04d}" for i in range(8)])
+        seed1 = new_engines["replica-0"]
+        got = np.asarray([r.actions for r in check], np.float32)
+        want = np.concatenate([seed1.act(check_obs[i:i + 1]) for i in range(8)])
+        reg = dict(register_s=reg_s, capture_s=capture_s,
+                   captures={rid: e.stats["aot_compiles"] for rid, e in new_engines.items()},
+                   during_n_ok=res_during.n_ok, during_n_requests=res_during.n_requests,
+                   per_replica=per_replica, swap_s=swap2_s,
+                   after_swap_hashes=sorted({r.config_hash for r in check}),
+                   after_swap_bit_exact=bool((got == want).all()))
+        out["register_and_swap"] = reg
+        log(f"phase 14 (c): runtime register of a third bundle under traffic: {json.dumps(reg)}")
+        if res_during.n_ok != res_during.n_requests or res_before.n_ok != res_before.n_requests:
+            fail(f"phase 14 (c): requests failed across the runtime register: {reg}")
+        if reg["after_swap_hashes"] != [reg_hash] or not reg["after_swap_bit_exact"] or swap2["config_hash"] != reg_hash:
+            fail(f"phase 14 (c): after the swap to the registered bundle: {reg}")
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    finally:
+        fleet.stop_all()
+    return out
+
+
+def fleet_process(paths, hashes, tmp):
+    """(d) The process fleet on the card with TLS and token auth, and (e)
+    the ``serve-router`` proxy in front of it. Returns the reading."""
+    import asyncio
+    import signal
+    import threading
+
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.serve import (
+        ConsistentHashRing, FleetRouter, PolicyEngine, ProcessFleet, TokenAuthenticator,
+        client_ssl_context, ensure_test_certs, generate_secret, kill_restart_plan, serve_bench_fleet,
+    )
+    from p2pmicrogrid_tpu_torch.serve.loadgen import RetryPolicy, _http_request_json, synthetic_obs
+
+    A = SERVE_WIDE_A
+    cert, key = ensure_test_certs(os.path.join(tmp, "tls"))
+    secret_file = os.path.join(tmp, "fleet.secret")
+    auth = TokenAuthenticator(generate_secret(secret_file))
+    client = client_ssl_context(cert)
+    out = {}
+    fleet = ProcessFleet(
+        [paths["dqn"], paths["ddpg"]], n_replicas=FLEET["replicas"], max_batch=FLEET["max_batch"],
+        max_queue_depth=SERVE_ADMISSION["max_queue_depth"], wait_budget_ms=SERVE_ADMISSION["wait_budget_ms"],
+        tls_cert=cert, tls_key=key, auth_secret_file=secret_file, serve_device="cuda",
+        env={"PYTHONPATH": HERE + os.pathsep + os.environ.get("PYTHONPATH", "")},
+    )
+    start = time.perf_counter()
+    fleet.start()
+    proxy = None
+    try:
+        out["start_s"] = time.perf_counter() - start
+        router = FleetRouter(fleet.replicas, retry=RetryPolicy(max_attempts=5, deadline_s=60.0),
+                             fail_threshold=2, ok_threshold=1, ssl_context=client, token=auth.mint("*"))
+        ring = ConsistentHashRing()
+        for rep in fleet.replicas:
+            ring.add(rep.replica_id)
+        probe_homes = [h for h in (f"probe-{i:04d}" for i in range(1000))
+                       if ring.lookup(h) == "replica-1"][:FLEET["proc_probe"]]
+        probe_obs = synthetic_obs(len(probe_homes), A, seed=41)
+        first = act_one_at_a_time(router, probe_obs, probe_homes)
+        if any(r.status != 200 or r.replica_id != "replica-1" for r in first):
+            fail(f"phase 14 (d): probes before the kill: {[(r.status, r.replica_id) for r in first]}")
+        pid_before = fleet.pid("replica-1")
+        duration = FLEET["proc_requests"] / FLEET["proc_rate"]
+        plan = kill_restart_plan("replica-1", 0.3 * duration, 0.6 * duration, seed=0)
+        reference = PolicyEngine(bundle_dir=paths["dqn"], max_batch=FLEET["max_batch"])
+        rows = serve_bench_fleet(
+            router, n_agents=A, fleet=fleet, fault_plan=plan, reference_engine=reference,
+            rate_hz=FLEET["proc_rate"], n_requests=FLEET["proc_requests"],
+            n_households=FLEET["households"], seed=1, probe_interval_s=0.05,
+            chaos_join_grace_s=180.0, recover_wait_s=180.0,
+        )
+        head = rows[-1]
+        second = act_one_at_a_time(router, probe_obs, probe_homes)
+        same = all(a.status == b.status == 200 and a.actions == b.actions and b.replica_id == "replica-1"
+                   for a, b in zip(first, second))
+        out["bench"] = {k: head[k] for k in ("p50_ms", "p99_ms", "throughput_rps", "availability",
+                                             "failover_count", "retry_rate", "n_failed", "bit_exact",
+                                             "chaos", "processes", "reconnects", "tls")}
+        out["startups"] = list(fleet.startups)
+        out["relaunch_bit_exact"] = same
+        out["pids"] = [pid_before, fleet.pid("replica-1")]
+        log(f"phase 14 (d): ProcessFleet of {FLEET['replicas']} children on the card with TLS and "
+            f"token auth, started in {out['start_s']:.2f} s; startups {json.dumps(out['startups'])}; "
+            f"bench {json.dumps(out['bench'])}; {len(probe_homes)} replica-1 answers one at a time "
+            f"equal after the relaunch: {same}")
+        if head["availability"] != 1.0 or head["n_failed"] or head["bit_exact"] is not True:
+            fail(f"phase 14 (d): process bench {out['bench']}")
+        if not same or out["pids"][0] == out["pids"][1] or head["processes"]["replica-1"]["restarts"] < 1:
+            fail(f"phase 14 (d): the relaunch: {out['pids']} {head['processes']} bit-exact {same}")
+        if len([s for s in fleet.startups if s["replica_id"] == "replica-1"]) < 2:
+            fail(f"phase 14 (d): no relaunch recorded: {fleet.startups}")
+
+        # (e) The serve-router proxy in front of the fleet.
+        argv = [sys.executable, "-m", "p2pmicrogrid_tpu_torch", "serve-router", "--port", "0",
+                "--tls-cert", cert, "--tls-key", key, "--backend-cafile", cert,
+                "--auth-secret-file", secret_file, "--serve-seconds", "600",
+                "--stats-out", os.path.join(tmp, "router-stats.json")]
+        for rep in fleet.replicas:
+            argv += ["--replica", f"{rep.host}:{rep.port}/{rep.mux_port}"]
+        t0 = time.perf_counter()
+        proxy = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                 env=dict(os.environ, PYTHONPATH=HERE))
+        line = []
+        reader = threading.Thread(target=lambda: line.append(proxy.stdout.readline()), daemon=True)
+        reader.start()
+        reader.join(timeout=120)
+        if not line or not line[0].startswith("{"):
+            fail(f"phase 14 (e): serve-router printed no listening line: {proxy.poll()}")
+        listening = json.loads(line[0])
+        ready_s = time.perf_counter() - t0
+        host, port = listening["host"], listening["port"]
+        obs = synthetic_obs(FLEET["proxy_requests"], A, seed=51)
+        homes = [f"house-{i % FLEET['households']:04d}" for i in range(len(obs))]
+
+        async def through_proxy():
+            return await asyncio.gather(*(
+                _http_request_json(host, port, "POST", "/v1/act",
+                                   {"household": h, "obs": o.tolist()}, 60.0, ssl=client,
+                                   token=auth.mint(h))
+                for h, o in zip(homes, obs)))
+
+        t1 = time.perf_counter()
+        answers = asyncio.run(through_proxy())
+        proxy_s = time.perf_counter() - t1
+        statuses = [s for s, _, _ in answers]
+        got = np.asarray([d["actions"] for _, d, _ in answers], np.float32)
+        exact = bool(np.array_equal(got, reference.act(obs)))
+        swap = asyncio.run(_http_request_json(host, port, "POST", "/admin/swap",
+                                              {"config_hash": hashes["ddpg"]}, 120.0, ssl=client,
+                                              token=auth.mint("*")))
+        ready = asyncio.run(_http_request_json(host, port, "GET", "/readyz", None, 30.0, ssl=client))
+        proxy.send_signal(signal.SIGINT)
+        rc = proxy.wait(timeout=60)
+        out["proxy"] = dict(ready_s=ready_s, requests=len(obs), seconds=proxy_s,
+                            statuses=sorted(set(statuses)), bit_exact=exact, swap_status=swap[0],
+                            readyz=ready[1], rc=rc)
+        log(f"phase 14 (e): serve-router in front of the process fleet: {json.dumps(out['proxy'])}")
+        if statuses != [200] * len(obs) or not exact or swap[0] != 200 or ready[0] != 200 \
+                or ready[1].get("config_hash") != hashes["ddpg"] or rc != 0:
+            fail(f"phase 14 (e): the proxy: {out['proxy']}")
+    finally:
+        if proxy is not None and proxy.poll() is None:
+            proxy.kill()
+            proxy.wait(timeout=30)
+        fleet.stop_all()
+    return out
+
+
+class Background:
+    """``fn`` on a thread of its own: ``start`` once, ``join`` returns what it
+    returned or raises, in the calling thread, what it raised (a ``fail``
+    on the thread exits the script at the join)."""
+
+    def __init__(self, fn):
+        import threading
+
+        self._fn, self._box = fn, {}
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        try:
+            self._box["result"] = self._fn()
+        except BaseException as exc:  # noqa: BLE001 — re-raised by join
+            self._box["error"] = exc
+
+    def start(self):
+        if self._thread.ident is None:
+            self._thread.start()
+
+    def join(self):
+        self.start()
+        self._thread.join()
+        if "error" in self._box:
+            raise self._box["error"]
+        return self._box["result"]
+
+
+def fleet_autopilot():
+    """(f) ``autopilot_bench`` on the card over the northstar community's
+    width. Its fleet and its autopilot are child processes, so it runs on a
+    thread of its own beside the phases from the end of phase 12's
+    north-star commands on (``Background``); the K1 launches are the ones
+    its cycles' rows report from the autopilot's process. Returns (reading,
+    K1 launches)."""
+    import shutil
+    import tempfile
+
+    from p2pmicrogrid_tpu_torch import cli
+    from p2pmicrogrid_tpu_torch.serve.autopilot import autopilot_bench, read_journal
+
+    flags = ["--agents", str(AUTOPILOT["A"]), "--implementation", "tabular", "--episodes", "1",
+             "--rounds", "1", "--battery"]
+    parser = capture_parser(cli.main)
+    cfg = cli._build_cfg(parser.parse_args(["autopilot", "--seed", "0"] + flags))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autopilot_")
+    work = os.path.join(tmp, "autopilot")
+    start = time.perf_counter()
+    try:
+        rows = autopilot_bench(
+            cfg, work, n_replicas=AUTOPILOT["replicas"], n_cycles=AUTOPILOT["cycles"],
+            inject=AUTOPILOT["inject"], seed=0, chaos=True, sigkill_phase=AUTOPILOT["sigkill_phase"],
+            sigkill_cycle=AUTOPILOT["sigkill_cycle"], extra_cfg_args=flags, device="cuda",
+            requests_per_cycle=AUTOPILOT["requests_per_cycle"],
+            canary_requests=AUTOPILOT["canary_requests"],
+        )
+        seconds = time.perf_counter() - start
+        final = read_journal(os.path.join(work, "autopilot"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    head, cycles = rows[-1], rows[:-1]
+    k1 = sum(r.get("kernel_launches", {}).get("merged_min_sums", 0) for r in cycles)
+    others = {n: sum(r.get("kernel_launches", {}).get(n, 0) for r in cycles)
+              for n in cycles[0].get("kernel_launches", {}) if n != "merged_min_sums"}
+    reading = dict(
+        seconds=seconds, A=AUTOPILOT["A"], cycles=[
+            {k: r.get(k) for k in ("cycle", "inject", "promoted", "blocked_at_gate", "rolled_back",
+                                   "gate_verdict", "serving_verified", "availability", "seconds",
+                                   "trace_transitions", "kernel_launches")} for r in cycles],
+        headline={k: head[k] for k in ("cycles", "promotions", "blocked", "rollbacks", "crash_aborts",
+                                       "bad_promotions", "availability", "n_requests", "all_safe",
+                                       "serving_verified", "autopilot_sigkills", "autopilot_recovered",
+                                       "chaos")},
+        journal=dict(phase=final.phase, cycle=final.cycle), k1_launches=k1,
+    )
+    log(f"phase 14 (f): autopilot_bench at A={AUTOPILOT['A']} in {seconds:.1f} s: {json.dumps(reading)}")
+    by_inject = {r["inject"]: r for r in cycles}
+    if not (by_inject.get("good", {}).get("promoted") and by_inject.get("cost_regressed", {}).get("blocked_at_gate")
+            and by_inject.get("nan_poisoned", {}).get("blocked_at_gate")):
+        fail(f"phase 14 (f): cycles {reading['cycles']}")
+    if not (head["all_safe"] and head["promotions"] == 1 and head["bad_promotions"] == 0
+            and head["availability"] == 1.0 and head["serving_verified"] and head["autopilot_recovered"]
+            and head["chaos"]["kills"]):
+        fail(f"phase 14 (f): headline {reading['headline']}")
+    if not all(r.get("serving_verified") is True for r in cycles) or final.phase != "idle" \
+            or final.cycle != AUTOPILOT["cycles"]:
+        fail(f"phase 14 (f): invariant or journal: {reading}")
+    if k1 <= 0 or any(others.values()):
+        fail(f"phase 14 (f): launches K1 {k1}, others {others}")
+    return reading, k1
+
+
+def phase_fleet(counters, card, autopilot):
+    """Phase 14: the serving fleet on the card, (a)-(e), then the autopilot
+    bench's result, (f), from its thread. Returns (reading, K1 launches of
+    the autopilot)."""
+    import shutil
+    import tempfile
+
+    from p2pmicrogrid_tpu_torch import config as tc
+    from p2pmicrogrid_tpu_torch.serve import export_policy_bundle, load_policy_bundle
+
+    start = time.perf_counter()
+    autopilot.start()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    saved = os.environ.get("P2P_TELEMETRY_DIR")
+    os.environ["P2P_TELEMETRY_DIR"] = os.path.join(tmp, "runs")
+    try:
+        states = {label: (cfg, state) for label, cfg, state in serve_states(tc)}
+        paths, hashes = {}, {}
+        for label, key in (("dqn", "dqn"), ("ddpg_seed0", "ddpg"), ("ddpg_seed1", "ddpg_seed1")):
+            cfg, state = states[label]
+            paths[key] = export_policy_bundle(cfg, state, os.path.join(tmp, key), device="cuda")
+            hashes[key] = load_policy_bundle(paths[key])[0]["config_hash"]
+        reset(counters)
+        reading = dict(card=card, A=SERVE_WIDE_A, local=fleet_local(counters, paths, hashes, tmp))
+        reading["process"] = fleet_process(paths, hashes, tmp)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        if any(launches.values()):
+            fail(f"phase 14: the fleet launched hand-written kernels: {launches}")
+        reading["serving_launches"] = launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if saved is None:
+            os.environ.pop("P2P_TELEMETRY_DIR", None)
+        else:
+            os.environ["P2P_TELEMETRY_DIR"] = saved
+    reading["autopilot"], k1 = autopilot.join()
+    reading["seconds"] = time.perf_counter() - start
+    return reading, k1
+
+
 def main() -> None:
     import torch
 
@@ -5290,7 +5900,7 @@ def main() -> None:
     # With no arguments every phase runs (the check); a comma-separated list
     # of phase numbers (e.g. "2,5") runs only those, builds first, and prints
     # no result line.
-    all_phases = {"2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13"}
+    all_phases = {"2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14"}
     phases = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else all_phases
     start = time.perf_counter()
     card = phase_device_and_build()
@@ -5362,9 +5972,23 @@ def main() -> None:
         regimes, regime_k1 = phase_regimes(counters, card)
         launches["merged_min_sums"] += regime_k1
         log(f"phase 11 done ({time.perf_counter() - start:.1f} s)")
+    # Phase 14's autopilot bench runs its fleet and its autopilot as child
+    # processes: it starts on a thread of its own once phase 12's north-star
+    # commands are done (or with phase 14), and phase 14 joins it.
+    autopilot = None
+    if "14" in phases:
+        os.environ["PYTHONPATH"] = HERE + (
+            os.pathsep + os.environ["PYTHONPATH"] if os.environ.get("PYTHONPATH") else "")
+        autopilot = Background(fleet_autopilot)
+
+    def start_autopilot():
+        gc_collect()
+        autopilot.start()
+
     cli_launches = {name: 0 for name in counters}
     if "12" in phases:
-        cli_reading, cli_launches = phase_cli(counters, card)
+        cli_reading, cli_launches = phase_cli(
+            counters, card, after_northstar=start_autopilot if autopilot is not None else None)
         for name in launches:
             launches[name] += cli_launches[name]
         log(json.dumps({"cli": cli_reading}))
@@ -5375,6 +5999,14 @@ def main() -> None:
         launches["merged_min_sums"] += flywheel_k1
         log(json.dumps({"flywheel": flywheel}))
         log(f"phase 13 done ({time.perf_counter() - start:.1f} s)")
+    autopilot_k1 = 0
+    if "14" in phases:
+        phase14_start = time.perf_counter()
+        fleet, autopilot_k1 = phase_fleet(counters, card, autopilot)
+        launches["merged_min_sums"] += autopilot_k1
+        log(json.dumps({"fleet": fleet}))
+        log(f"phase 14 done in {time.perf_counter() - phase14_start:.1f} s "
+            f"({time.perf_counter() - start:.1f} s)")
     if phases != all_phases:
         log(f"partial run of phases {sorted(phases)}: no result ({time.perf_counter() - start:.1f} s)")
         return
@@ -5391,6 +6023,7 @@ def main() -> None:
         rec["launches"] = launches[name]
         rec["cli_launches"] = cli_launches[name]
         rec["flywheel_launches"] = flywheel_k1 if name == "merged_min_sums" else 0
+        rec["autopilot_launches"] = autopilot_k1 if name == "merged_min_sums" else 0
         rec["on_main_path"] = name in on_path
         # Device time per call from the main path's profiled tabular episode
         # (no host time in it), where the profiler saw the device; K7 keeps

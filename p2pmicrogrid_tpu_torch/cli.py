@@ -25,6 +25,11 @@ Subcommands:
             policy bundle for serving (serve/export.py)
   train-recurrent
             train the recurrent day-granular LSTM DDPG actor
+  serve-bench
+            open-loop serving benchmark: the engine, one gateway over the
+            network, the continuous-vs-microbatch and wire comparisons, or
+            a fleet of replicas behind the router (in process or as
+            subprocesses, with chaos, TLS, auth and tracing)
   serve-gateway
             run the HTTP serving gateway over one or more policy bundles
             (serve/gateway.py)
@@ -37,6 +42,12 @@ Subcommands:
             live canary with auto-rollback (serve/promotion.py)
   regime-bench
             the regime-portfolio acceptance harness (regimes/bench.py)
+  autopilot unattended retrain -> gate -> canary cycles over a live fleet,
+            with a crash-safe cycle journal (serve/autopilot.py); --bench
+            runs the acceptance harness
+  serve-router
+            run the fleet router as a standalone proxy process
+            (serve/proxy.py)
   telemetry-report
             render a telemetry run directory into a human-readable summary
   telemetry-query
@@ -51,10 +62,9 @@ measured on the card (ROADMAP.md, Queue 1, item 8). Random keys are
 ratings draw from seeded numpy as in the JAX package.
 
 Not ported yet, and not registered (ROADMAP.md, Queue 1): ``bench`` (item 3,
-the port's bench), ``serve-bench`` and ``serve-router`` (item 14, the
-serving fleet), ``autopilot`` (item 10, after item 14's router and process
-fleet), ``analyse`` (item 15, with ``--figures-dir`` of ``eval`` and
-``forecast``).
+the port's bench) and ``analyse`` (item 15, with ``--figures-dir`` of
+``eval`` and ``forecast``). ``serve-bench --fleet --population`` (the scale
+tier) waits for ``scale/`` (item 15) and exits non-zero.
 """
 
 from __future__ import annotations
@@ -77,9 +87,9 @@ FIGURES_NOT_PORTED = (
     "--figures-dir needs the analysis layer and matplotlib, which the port "
     "does not have yet (ROADMAP.md, Queue 1, item 15)"
 )
-CHAOS_PLAN_NOT_PORTED = (
-    "--chaos-plan needs serve/faults.py, which the port does not have yet "
-    "(ROADMAP.md, Queue 1, item 14)"
+POPULATION_NOT_PORTED = (
+    "serve-bench --fleet --population (the scale tier) needs scale/, which "
+    "the port does not have yet (ROADMAP.md, Queue 1, item 15)"
 )
 
 
@@ -1695,6 +1705,686 @@ def _serve_device(args) -> str:
     return _device(args.device if args.serve_device == "auto" else args.serve_device)
 
 
+def _serve_trace_rows(results_db: str, slo_ms: float) -> list:
+    """Post-run warehouse analysis for ``serve-bench --fleet --trace``:
+    stitch the slowest exemplar traces back into cross-process trees,
+    pick the headline trace (preferring a COMPLETE >=3-process tree with
+    a failover hop — the chaos story), and decompose critical paths.
+
+    Returns the rows to append to the capture: one ``trace_tree`` row
+    with the stitched spans, then the ``serve_bench_trace`` headline
+    (metric/value/unit/vs_baseline) whose ``critical_path`` segments sum
+    to the root span's measured wall time by construction."""
+    import json as _json
+
+    from p2pmicrogrid_tpu_torch.data.results import ResultsStore
+    from p2pmicrogrid_tpu_torch.telemetry.report import (
+        aggregate_critical_paths,
+        trace_critical_path,
+    )
+
+    rows: list = []
+    with ResultsStore(results_db) as store:
+        seen: set = set()
+        candidates = []
+        for ex in store.query_slowest_traces(64):
+            tid = ex.get("trace_id")
+            if tid and tid not in seen:
+                seen.add(tid)
+                candidates.append(ex)
+        best = None
+        for ex in candidates:
+            tree = store.query_trace_tree(ex["trace_id"])
+            cp = trace_critical_path(tree)
+            if cp is None:
+                continue
+            ids = {s["span_id"] for s in tree}
+            complete = all(
+                s.get("parent_span_id") is None
+                or s["parent_span_id"] in ids
+                for s in tree
+            )
+            failover = any(
+                s.get("name") == "router.attempt"
+                and (s.get("attrs") or {}).get("failover")
+                for s in tree
+            )
+            cand = {
+                "exemplar": ex, "tree": tree, "cp": cp,
+                "tree_complete": complete, "failover": failover,
+            }
+            if best is None:
+                best = cand
+            if cp["n_processes"] >= 3 and failover and complete:
+                best = cand
+                break
+        # Aggregate percentile decomposition over EVERY trace in the
+        # warehouse — one query, grouped in memory.
+        trees: dict = {}
+        for (tid, sid, pid, name, ts, dur, proc, attrs) in store.con.execute(
+            "SELECT trace_id, span_id, parent_span_id, name, ts, "
+            "duration_s, process, attrs_json FROM trace_spans "
+            "ORDER BY trace_id, ts"
+        ):
+            trees.setdefault(tid, []).append({
+                "trace_id": tid, "span_id": sid, "parent_span_id": pid,
+                "name": name, "ts": ts, "duration_s": dur,
+                "process": proc,
+                "attrs": _json.loads(attrs) if attrs else {},
+            })
+        agg = aggregate_critical_paths(list(trees.values()))
+    if best is None:
+        rows.append({
+            "metric": "serve_bench_trace", "value": 0.0, "unit": "ms",
+            "vs_baseline": 0.0, "error": "no traced spans in warehouse",
+        })
+        return rows
+    cp = best["cp"]
+    rows.append({
+        "kind": "trace_tree",
+        "trace_id": cp["trace_id"],
+        "n_spans": cp["n_spans"],
+        "n_processes": cp["n_processes"],
+        "tree_complete": best["tree_complete"],
+        "failover": best["failover"],
+        "spans": [
+            {
+                "span_id": s["span_id"],
+                "parent_span_id": s.get("parent_span_id"),
+                "name": s["name"],
+                "process": s.get("process"),
+                "ts": s.get("ts"),
+                "duration_ms": round((s.get("duration_s") or 0.0) * 1e3, 3),
+            }
+            for s in best["tree"]
+        ],
+    })
+    measured_ms = float(best["exemplar"].get("latency_ms") or 0.0)
+    rows.append({
+        "metric": "serve_bench_trace",
+        "value": cp["total_ms"],
+        "unit": "ms",
+        "vs_baseline": round(slo_ms / cp["total_ms"], 2)
+        if cp["total_ms"] > 0 else 0.0,
+        "trace_id": cp["trace_id"],
+        "critical_path": {
+            k: cp[k]
+            for k in ("wire_ms", "queue_wait_ms", "padding_ms",
+                      "execute_ms", "retry_ms", "total_ms")
+        },
+        "measured_ms": round(measured_ms, 3),
+        "n_processes": cp["n_processes"],
+        "n_spans": cp["n_spans"],
+        "tree_complete": best["tree_complete"],
+        "failover": best["failover"],
+        "critical_path_percentiles": agg,
+        "results_db_traces": len(trees),
+    })
+    return rows
+
+
+def cmd_serve_bench(args) -> int:
+    """Open-loop serving benchmark against a policy bundle.
+
+    stdout carries strictly one JSON metric row per line (the same
+    fd-guarded telemetry sink as ``bench``); the LAST line is the headline
+    row with every stat. Without ``--bundle``, a fresh-init bundle for the
+    configured setting is exported to a temp dir first — the zero-to-SLO
+    smoke path on hosts with no trained checkpoint.
+
+    With ``--results-db``, the run also streams into the SQLite telemetry
+    warehouse: per-request ``serve_request`` trace records (enqueue->
+    dispatch wait, bucket, padding, batch service span), the per-bucket
+    compile profiles and the metric rows — keyed by the bundle's
+    config_hash, so serve SLOs are one SQL join away from the training
+    telemetry and eval rows of the same config (``telemetry-query``).
+
+    The engines serve from ``--serve-device`` (``auto`` follows
+    ``--device``: the card by default). ``--fleet --population`` (the JAX
+    package's scale tier) waits for ``scale/`` (ROADMAP.md, Queue 1, item
+    15) and exits non-zero.
+    """
+    from p2pmicrogrid_tpu_torch.serve import PolicyEngine, export_policy_bundle
+    from p2pmicrogrid_tpu_torch.serve.loadgen import serve_bench
+    from p2pmicrogrid_tpu_torch.telemetry import (
+        SqliteSink,
+        Telemetry,
+        guarded_stdout_sink,
+        run_manifest,
+        set_current,
+    )
+    from p2pmicrogrid_tpu_torch.telemetry.registry import run_stamp
+
+    if getattr(args, "population", None):
+        if getattr(args, "fleet", False):
+            raise SystemExit(POPULATION_NOT_PORTED)
+        print(
+            "--population needs --fleet (the scale tier benches the "
+            "fleet serving path)",
+            file=sys.stderr,
+        )
+        return 2
+    dev = _serve_device(args)
+    cfg = _build_cfg(args)
+    with guarded_stdout_sink() as sink:
+        # EVERYTHING that may write to fd 1 runs inside the guard —
+        # including the fresh-init export — so native noise cannot precede
+        # the metric rows.
+        bundle = args.bundle
+        if bundle is None:
+            import tempfile
+
+            from p2pmicrogrid_tpu_torch.train import init_policy_state
+
+            tmp = tempfile.mkdtemp(prefix="p2p-bundle-")
+            ps = init_policy_state(cfg, dev, _generator(cfg.train.seed, dev))
+            bundle = export_policy_bundle(cfg, ps, tmp, device=dev)
+            print(
+                f"serve-bench: no --bundle given; exported a fresh-init "
+                f"{cfg.train.implementation} bundle to {bundle}",
+                file=sys.stderr,
+                flush=True,
+            )
+        # --burst-factor: None = mode default (plain Poisson everywhere;
+        # the continuous-compare exists to exercise the bursty pathology,
+        # so IT defaults to 8). An explicit value — including 1.0, plain
+        # Poisson — is always honored.
+        burst_factor = args.burst_factor if args.burst_factor is not None \
+            else 1.0
+        if getattr(args, "continuous_compare", False):
+            # One-process continuous-vs-microbatch comparison at the mux
+            # wire (serve/continuous.py): same bundle, same (bursty)
+            # schedule, two gateways.
+            from p2pmicrogrid_tpu_torch.serve.continuous import (
+                serve_bench_continuous_compare,
+            )
+
+            serve_bench_continuous_compare(
+                bundle,
+                rate_hz=args.rate,
+                n_requests=args.requests,
+                n_households=args.households,
+                seed=args.bench_seed,
+                slo_ms=args.slo_ms,
+                burst_factor=(
+                    args.burst_factor if args.burst_factor is not None
+                    else 8.0
+                ),
+                burst_dwell_s=args.burst_dwell_s,
+                max_batch=args.max_batch,
+                max_wait_s=args.max_wait_ms / 1e3,
+                max_slots=getattr(args, "max_sessions", 256),
+                device=dev,
+                results_db=args.results_db,
+                emit=sink.emit,
+            )
+            return 0
+        if getattr(args, "fleet", False):
+            # Fleet mode: N gateway replicas behind the consistent-hash
+            # router, the open-loop schedule fired THROUGH the router
+            # (retry/failover semantics included), optionally with a
+            # deterministic kill/restart fault plan mid-run. --process
+            # swaps the in-process LocalFleet for real subprocess
+            # replicas (serve/procfleet.py) — kills become SIGKILLs, the
+            # supervisor relaunches, and --tls/--auth terminate trust at
+            # every replica.
+            import os as _os
+            import tempfile as _tempfile
+
+            from p2pmicrogrid_tpu_torch.serve import (
+                AdmissionConfig,
+                FaultEvent,
+                FaultPlan,
+                FleetRouter,
+                LocalFleet,
+                ProcessFleet,
+                kill_restart_plan,
+                serve_bench_fleet,
+            )
+            from p2pmicrogrid_tpu_torch.serve.loadgen import (
+                RetryPolicy,
+                serve_bench_wire_compare,
+            )
+
+            tracing_on = getattr(args, "trace", False)
+            trace_db_tmp = None
+            if tracing_on and not args.results_db:
+                # The stitched tree lives in the warehouse — without a
+                # user-supplied DB the capture still needs one to stitch
+                # from; a temp file, deleted after the analysis.
+                fd, trace_db_tmp = _tempfile.mkstemp(
+                    prefix="p2p-trace-", suffix=".db"
+                )
+                _os.close(fd)
+                args.results_db = trace_db_tmp
+            plan = None
+            trace_stall = False
+            if getattr(args, "chaos_plan", None):
+                with open(args.chaos_plan) as f:
+                    plan = FaultPlan.from_json(f.read())
+            elif getattr(args, "chaos", False):
+                duration = args.requests / args.rate
+                kill_at = (
+                    args.kill_at if args.kill_at is not None
+                    else 0.3 * duration
+                )
+                restart_at = (
+                    args.restart_at if args.restart_at is not None
+                    else 0.6 * duration
+                )
+                victim = f"replica-{min(1, args.replicas - 1)}"
+                extra = ()
+                if tracing_on:
+                    # A SIGKILL alone loses the victim's un-flushed spans
+                    # for requests in flight AT the kill. A stall window
+                    # BEFORE the kill (stall > the tightened per-attempt
+                    # router timeout below) forces clean failover hops
+                    # whose victim-side spans DO flush before the kill —
+                    # the >=3-process trees the TRACE capture commits.
+                    trace_stall = True
+                    extra = (FaultEvent(
+                        kind="stall", replica=victim,
+                        at_s=min(0.5, 0.1 * duration),
+                        until_s=min(1.0, 0.2 * duration),
+                        rate=1.0, stall_s=0.8, scope="act",
+                    ),)
+                plan = kill_restart_plan(
+                    victim, kill_at, restart_at, seed=args.chaos_seed,
+                    extra_events=extra,
+                )
+            process_mode = getattr(args, "process", False)
+            transport = getattr(args, "fleet_transport", "auto")
+            use_tls = getattr(args, "tls", False)
+            use_auth = getattr(args, "auth", False)
+            cert = key = server_ctx = client_ctx = None
+            authenticator = router_token = secret_file = None
+            if use_tls:
+                from p2pmicrogrid_tpu_torch.serve import (
+                    client_ssl_context,
+                    ensure_test_certs,
+                    server_ssl_context,
+                )
+
+                cert, key = ensure_test_certs()
+                server_ctx = server_ssl_context(cert, key)
+                client_ctx = client_ssl_context(cert)
+                print(f"serve-bench: TLS on (test cert {cert})",
+                      file=sys.stderr, flush=True)
+            if use_auth:
+                from p2pmicrogrid_tpu_torch.serve import (
+                    TokenAuthenticator,
+                    generate_secret,
+                )
+
+                fd, secret_file = _tempfile.mkstemp(prefix="p2p-secret-")
+                _os.close(fd)
+                authenticator = TokenAuthenticator(
+                    generate_secret(secret_file)
+                )
+                router_token = authenticator.mint("*")
+                print("serve-bench: per-household token auth on",
+                      file=sys.stderr, flush=True)
+            plan_file = None
+            has_request_faults = plan is not None and any(
+                e.kind not in ("kill", "restart") for e in plan.events
+            )
+            if getattr(args, "wire_compare", False):
+                # Refuse impossible combinations BEFORE paying fleet
+                # startup (in process mode: several subprocess spawns).
+                if transport == "http":
+                    raise SystemExit(
+                        "--wire-compare needs the mux wire "
+                        "(drop --transport http)"
+                    )
+                if has_request_faults:
+                    # A request-fault injector anchors at the first
+                    # request it sees (process children) or first-wins
+                    # activate (in-process) — the compare pre-pass would
+                    # start replica-0's fault clock, shift its coin
+                    # indices and absorb its injected faults, corrupting
+                    # both measurements AND seed replay.
+                    raise SystemExit(
+                        "--wire-compare cannot run in the same "
+                        "invocation as a request-fault chaos plan "
+                        "(the pre-pass would anchor and consume "
+                        "replica-0's fault windows); capture them in "
+                        "two runs"
+                    )
+            if process_mode:
+                if has_request_faults:
+                    # Request-kind faults execute INSIDE each child's
+                    # injector; lifecycle events stay parent-driven.
+                    fd, plan_file = _tempfile.mkstemp(
+                        prefix="p2p-plan-", suffix=".json"
+                    )
+                    with _os.fdopen(fd, "w") as f:
+                        f.write(plan.to_json())
+                fleet = ProcessFleet(
+                    [bundle],
+                    n_replicas=args.replicas,
+                    max_batch=args.max_batch,
+                    max_wait_s=args.max_wait_ms / 1e3,
+                    max_queue_depth=args.max_queue_depth,
+                    wait_budget_ms=args.wait_budget_ms,
+                    mux=(transport != "http"),
+                    tls_cert=cert,
+                    tls_key=key,
+                    auth_secret_file=secret_file,
+                    fault_plan_file=plan_file,
+                    results_db=args.results_db,
+                    serve_device=dev,
+                    batching=getattr(args, "batching", "micro"),
+                    max_slots=getattr(args, "max_sessions", 256),
+                    shard_warehouse=getattr(args, "shard_warehouse", False),
+                )
+                fleet.start()
+                # The bit-exactness comparator lives in THIS process: the
+                # same bundle the children serve, loaded directly.
+                reference = PolicyEngine(
+                    bundle_dir=bundle, max_batch=args.max_batch,
+                    device=dev,
+                )
+            else:
+                fleet = LocalFleet(
+                    [bundle],
+                    n_replicas=args.replicas,
+                    max_batch=args.max_batch,
+                    max_wait_s=args.max_wait_ms / 1e3,
+                    admission=AdmissionConfig(
+                        max_queue_depth=args.max_queue_depth,
+                        wait_budget_ms=args.wait_budget_ms,
+                    ),
+                    results_db=args.results_db,
+                    device=dev,
+                    fault_plan=plan,
+                    run_name="serve-bench-fleet",
+                    mux=(transport != "http"),
+                    tls=server_ctx,
+                    authenticator=authenticator,
+                    batching=getattr(args, "batching", "micro"),
+                    max_slots=getattr(args, "max_sessions", 256),
+                    shard_warehouse=getattr(args, "shard_warehouse", False),
+                )
+                fleet.start()
+                reference = fleet.reference_engine()
+            # The router gets its own warehouse-keyed telemetry: ejection/
+            # failover/retry counters and the aggregated fleet_stats event
+            # land next to the per-replica bundle traces, joined on the
+            # served bundle's config_hash.
+            router_tel = Telemetry(
+                run_id=f"fleet-router-{run_stamp()}",
+                sinks=(
+                    [SqliteSink(args.results_db)] if args.results_db else []
+                ),
+                manifest=run_manifest(
+                    extra={
+                        "config_hash": reference.manifest.get("config_hash"),
+                        "setting": reference.manifest.get("setting"),
+                        "serve_role": "router",
+                        "fleet_size": args.replicas,
+                    }
+                ),
+            )
+            router = FleetRouter(
+                fleet.replicas,
+                retry=RetryPolicy(
+                    max_attempts=args.retry_attempts,
+                    deadline_s=args.retry_deadline_s,
+                ),
+                fail_threshold=2,
+                ok_threshold=1,
+                telemetry=router_tel,
+                ssl_context=client_ctx,
+                token=router_token,
+                transport=transport,
+                # Tighter than the stall window's 0.8s hold: a stalled
+                # attempt must TIME OUT client-side and fail over (the
+                # traced hop), not drain the stall and answer late.
+                **({"request_timeout_s": 0.4} if trace_stall else {}),
+            )
+            unauth_router = None
+            if use_auth:
+                # The auth acceptance probe: a second router over the SAME
+                # fleet holding NO credential — its requests must 401
+                # without a single retry or budget token spent.
+                unauth_router = FleetRouter(
+                    fleet.replicas,
+                    retry=RetryPolicy(
+                        max_attempts=args.retry_attempts,
+                        deadline_s=args.retry_deadline_s,
+                    ),
+                    ssl_context=client_ctx,
+                    transport=transport,
+                )
+            print(
+                f"serve-bench: {'process' if process_mode else 'in-process'}"
+                f" fleet of {args.replicas} replicas on "
+                + ", ".join(f"{r.replica_id}:{r.port}" for r in fleet.replicas)
+                + (
+                    f"; chaos plan: {len(plan.events)} event(s), "
+                    f"seed {plan.seed}" if plan is not None else ""
+                ),
+                file=sys.stderr,
+                flush=True,
+            )
+            try:
+                gateway_baseline = None
+                if getattr(args, "wire_compare", False):
+                    rep0 = fleet.replicas[0]
+                    token_fn = (
+                        (lambda h: authenticator.mint(h))
+                        if authenticator is not None else None
+                    )
+                    serve_bench_wire_compare(
+                        rep0.host, rep0.port, rep0.mux_port,
+                        reference.n_agents,
+                        rate_hz=args.rate,
+                        n_requests=min(args.requests, 512),
+                        n_households=args.households,
+                        seed=args.bench_seed,
+                        ssl=client_ctx,
+                        token_fn=token_fn,
+                        emit=lambda row: (sink.emit(row),
+                                          router_tel.emit(row)),
+                    )
+                    # Gateway stats are cumulative: snapshot the pre-pass
+                    # totals so the chaos headline reports only ITS run.
+                    gateway_baseline = router.fleet_stats()[
+                        "gateway_totals"
+                    ]
+                serve_bench_fleet(
+                    router,
+                    n_agents=reference.n_agents,
+                    fleet=fleet,
+                    fault_plan=plan,
+                    # A recurrent bundle's answers depend on engine-side
+                    # hidden state: a stateless direct-act replay is not a
+                    # valid comparator, so the bit-exact verdict is
+                    # omitted (hidden-state continuity is regression-
+                    # tested in tests/test_continuous.py instead).
+                    reference_engine=(
+                        None if reference.is_recurrent else reference
+                    ),
+                    rate_hz=args.rate,
+                    n_requests=args.requests,
+                    n_households=args.households,
+                    seed=args.bench_seed,
+                    slo_ms=args.slo_ms,
+                    burst_factor=burst_factor,
+                    burst_dwell_s=args.burst_dwell_s,
+                    probe_interval_s=0.05,
+                    emit=lambda row: (sink.emit(row), router_tel.emit(row)),
+                    unauth_router=unauth_router,
+                    # Process relaunches pay a child's full startup; wait
+                    # for the supervisor's relaunch so the headline's
+                    # fleet stats SHOW the restarted replica.
+                    chaos_join_grace_s=180.0 if process_mode else 10.0,
+                    recover_wait_s=180.0 if (
+                        process_mode and plan is not None
+                    ) else 0.0,
+                    gateway_baseline=gateway_baseline,
+                    trace_seed=args.bench_seed if tracing_on else None,
+                    extra_headline={
+                        "config_hash": reference.manifest.get("config_hash"),
+                        "implementation": reference.manifest.get(
+                            "implementation"
+                        ),
+                        "n_agents": reference.n_agents,
+                        "max_batch": args.max_batch,
+                        "max_wait_ms": round(args.max_wait_ms, 3),
+                        "process_mode": process_mode,
+                        "batching": getattr(args, "batching", "micro"),
+                    },
+                )
+            finally:
+                fleet.stop_all()
+                router_tel.close()
+                # The bench minted these credentials/plans for ITS fleet
+                # only — a live signing secret must not outlive the
+                # processes it authorized.
+                for path in (secret_file, plan_file):
+                    if path is not None:
+                        try:
+                            _os.unlink(path)
+                        except OSError:
+                            pass
+            if tracing_on:
+                # Everything is flushed (fleet stopped, router telemetry
+                # closed): stitch the trees, decompose the p99, and append
+                # the trace_tree row + serve_bench_trace headline LAST.
+                try:
+                    for row in _serve_trace_rows(
+                        args.results_db, slo_ms=args.slo_ms
+                    ):
+                        sink.emit(row)
+                finally:
+                    if trace_db_tmp is not None:
+                        try:
+                            _os.unlink(trace_db_tmp)
+                        except OSError:
+                            pass
+            return 0
+        if getattr(args, "network", False):
+            # Wire-level mode: the same open-loop schedule, fired over real
+            # sockets at an in-process gateway (its per-bundle telemetry —
+            # per-request serve_request traces keyed by the bundle's
+            # config_hash — streams into --results-db via build_gateway).
+            from p2pmicrogrid_tpu_torch.serve import (
+                AdmissionConfig,
+                GatewayServer,
+                build_gateway,
+            )
+            from p2pmicrogrid_tpu_torch.serve.loadgen import (
+                RetryPolicy,
+                serve_bench_network,
+            )
+
+            gateway = build_gateway(
+                [bundle],
+                max_batch=args.max_batch,
+                max_wait_s=args.max_wait_ms / 1e3,
+                results_db=args.results_db,
+                device=dev,
+                admission=AdmissionConfig(
+                    max_queue_depth=args.max_queue_depth,
+                    wait_budget_ms=args.wait_budget_ms,
+                ),
+                run_name="serve-bench-net",
+                batching=getattr(args, "batching", "micro"),
+                max_slots=getattr(args, "max_sessions", 256),
+            )
+            server = GatewayServer(gateway)
+            try:
+                host, port = server.start()
+                default = gateway.registry.get(gateway.registry.default_hash)
+                print(
+                    f"serve-bench: gateway on {host}:{port} serving bundle "
+                    f"{default.config_hash}",
+                    file=sys.stderr,
+                    flush=True,
+                )
+
+                def emit(row):
+                    sink.emit(row)
+                    if default.telemetry is not None:
+                        default.telemetry.emit(row)
+
+                serve_bench_network(
+                    host, port,
+                    n_agents=default.engine.n_agents,
+                    rate_hz=args.rate,
+                    n_requests=args.requests,
+                    n_households=args.households,
+                    seed=args.bench_seed,
+                    slo_ms=args.slo_ms,
+                    burst_factor=burst_factor,
+                    burst_dwell_s=args.burst_dwell_s,
+                    retry=(
+                        RetryPolicy(
+                            max_attempts=args.retry_attempts,
+                            deadline_s=args.retry_deadline_s,
+                        )
+                        if getattr(args, "retry", False) else None
+                    ),
+                    emit=emit,
+                    extra_headline={
+                        "config_hash": default.config_hash,
+                        "implementation": default.implementation,
+                        "n_agents": default.engine.n_agents,
+                        "max_batch": args.max_batch,
+                        "max_wait_ms": round(args.max_wait_ms, 3),
+                        "batching": getattr(args, "batching", "micro"),
+                    },
+                )
+            finally:
+                server.stop()  # drains in-flight, closes queues + telemetry
+            return 0
+        # The stdout sink carries ONLY metric rows (one JSON row a line);
+        # event-stream records (per-request traces, compile profiles) go to
+        # the telemetry's own sinks — the SQLite warehouse when requested.
+        tel_sinks = []
+        if args.results_db:
+            tel_sinks.append(SqliteSink(args.results_db))
+        tel = Telemetry(
+            run_id=f"serve-bench-{run_stamp()}",
+            sinks=tel_sinks,
+            manifest=run_manifest(cfg),
+        )
+        set_current(tel)
+        try:
+            engine = PolicyEngine(
+                bundle_dir=bundle, max_batch=args.max_batch, telemetry=tel,
+                device=dev,
+            )
+            print(
+                f"serve-bench: engine on {engine.device}",
+                file=sys.stderr,
+                flush=True,
+            )
+            # Serve rows join on the BUNDLE's training config identity: the
+            # engine serves the exported checkpoint's config, which may
+            # differ from the CLI flags' freshly built cfg.
+            bundle_hash = engine.manifest.get("config_hash")
+            if bundle_hash:
+                tel.annotate_manifest(config_hash=bundle_hash)
+            serve_bench(
+                engine,
+                rate_hz=args.rate,
+                n_requests=args.requests,
+                max_batch=args.max_batch,
+                max_wait_s=args.max_wait_ms / 1e3,
+                seed=args.bench_seed,
+                slo_ms=args.slo_ms,
+                burst_factor=burst_factor,
+                burst_dwell_s=args.burst_dwell_s,
+                emit=lambda row: (sink.emit(row), tel.emit(row)),
+            )
+        finally:
+            set_current(None)
+            tel.close()
+    return 0
+
+
 def cmd_serve_gateway(args) -> int:
     """Run the HTTP serving gateway over one or more policy bundles.
 
@@ -1718,15 +2408,13 @@ def cmd_serve_gateway(args) -> int:
     wire, ``--tls-cert``/``--tls-key`` terminate TLS on both listeners,
     ``--auth-secret-file`` enforces per-household bearer tokens
     (``serve-token``), ``--replica-id``/``--restarts`` identify the replica
-    to fleet stats; ``--chaos-plan`` waits for ``serve/faults.py``
-    (ROADMAP.md, Queue 1, item 14).
+    to fleet stats; ``--chaos-plan`` builds this replica's request-fault
+    injector from a fault-plan JSON (serve/faults.py).
     """
     import asyncio
 
     from p2pmicrogrid_tpu_torch.serve import AdmissionConfig, build_gateway
 
-    if getattr(args, "chaos_plan", None):
-        raise SystemExit(CHAOS_PLAN_NOT_PORTED)
     dev = _serve_device(args)
     bundles = list(args.bundle or [])
     if not bundles:
@@ -1764,6 +2452,15 @@ def cmd_serve_gateway(args) -> int:
         authenticator = TokenAuthenticator.from_secret_file(
             args.auth_secret_file
         )
+    fault_injector = None
+    if getattr(args, "chaos_plan", None):
+        from p2pmicrogrid_tpu_torch.serve import FaultInjector, FaultPlan
+
+        with open(args.chaos_plan) as f:
+            plan = FaultPlan.from_json(f.read())
+        fault_injector = FaultInjector(
+            plan, getattr(args, "replica_id", None) or "replica-0"
+        )
     gateway = build_gateway(
         bundles,
         max_batch=args.max_batch,
@@ -1785,6 +2482,7 @@ def cmd_serve_gateway(args) -> int:
         authenticator=authenticator,
         replica_id=getattr(args, "replica_id", None),
         restarts=getattr(args, "restarts", 0),
+        fault_injector=fault_injector,
     )
     if dev == "cpu":
         device_name = "cpu"
@@ -1881,6 +2579,141 @@ def cmd_serve_token(args) -> int:
             "pass --household ID (or --wildcard for the operator token)"
         )
     print(serve_auth.mint_token(secret, household, ttl_s=args.ttl_s))
+    return 0
+
+
+def cmd_serve_router(args) -> int:
+    """Run the fleet router as a standalone proxy process (serve/proxy.py).
+
+    ``--replica host:port[/muxport]`` (repeat per replica) names the
+    gateway fleet; the proxy terminates TLS + per-household auth at its
+    own socket and forwards over the persistent multiplexed wire with the
+    router's retry/failover/health discipline. Prints one
+    ``router_listening`` JSON line, serves until Ctrl-C (or
+    ``--serve-seconds``), optionally writing the final fleet-stats
+    snapshot to ``--stats-out``.
+    """
+    import asyncio
+
+    from p2pmicrogrid_tpu_torch.serve import FleetRouter, Replica, RouterProxy
+    from p2pmicrogrid_tpu_torch.serve.loadgen import RetryPolicy
+
+    replicas = []
+    for i, spec in enumerate(args.replica or []):
+        addr, _, mux = spec.partition("/")
+        host, _, port = addr.rpartition(":")
+        if not host or not port.isdigit() or (mux and not mux.isdigit()):
+            raise SystemExit(
+                f"--replica must be host:port[/muxport], got {spec!r}"
+            )
+        replicas.append(Replica(
+            replica_id=f"replica-{i}", host=host, port=int(port),
+            mux_port=int(mux) if mux else None,
+        ))
+    if not replicas:
+        raise SystemExit("pass at least one --replica host:port[/muxport]")
+
+    if bool(args.tls_cert) != bool(args.tls_key):
+        raise SystemExit("pass --tls-cert AND --tls-key together")
+    backend_ssl = None
+    if args.backend_cafile:
+        from p2pmicrogrid_tpu_torch.serve import client_ssl_context
+
+        backend_ssl = client_ssl_context(args.backend_cafile)
+    tls = None
+    if args.tls_cert:
+        from p2pmicrogrid_tpu_torch.serve import server_ssl_context
+
+        tls = server_ssl_context(args.tls_cert, args.tls_key)
+    authenticator = router_token = None
+    if args.auth_secret_file:
+        from p2pmicrogrid_tpu_torch.serve import TokenAuthenticator
+
+        # Rotation-aware (serve-token --rotate): verifies the dual-secret
+        # chain, mints with the primary.
+        authenticator = TokenAuthenticator.from_secret_file(
+            args.auth_secret_file
+        )
+        # The router's own credential toward the replicas: the operator
+        # wildcard (it probes /stats and pushes /admin/swap).
+        router_token = authenticator.mint("*")
+
+    router_tel = None
+    if getattr(args, "results_db", None):
+        # The standalone proxy binds its OWN warehouse shard (ROADMAP
+        # item 4): at fleet scale the router's per-request counters and
+        # fleet_stats events must not contend on a replica's WAL file.
+        from p2pmicrogrid_tpu_torch.telemetry import (
+            SqliteSink,
+            Telemetry,
+            run_manifest,
+        )
+        from p2pmicrogrid_tpu_torch.telemetry.registry import run_stamp
+
+        shard_id = getattr(args, "shard_id", None) or "router"
+        router_tel = Telemetry(
+            run_id=f"serve-router-{run_stamp()}",
+            sinks=[SqliteSink(args.results_db, shard_id=shard_id)],
+            manifest=run_manifest(extra={"serve_role": "router"}),
+        )
+
+    router = FleetRouter(
+        replicas,
+        retry=RetryPolicy(
+            max_attempts=args.retry_attempts,
+            deadline_s=args.retry_deadline_s,
+        ),
+        ssl_context=backend_ssl,
+        token=router_token,
+        telemetry=router_tel,
+    )
+    proxy = RouterProxy(
+        router, host=args.host, port=args.port,
+        mux_port=getattr(args, "mux_port", None),
+        tls=tls, authenticator=authenticator,
+    )
+
+    async def run() -> None:
+        import os as _os
+
+        host, port = await proxy.start()
+        router.start_probing(args.probe_interval_s)
+        print(
+            json.dumps({
+                "kind": "router_listening",
+                "host": host,
+                "port": port,
+                "mux_port": proxy.mux_port,
+                "tls": tls is not None,
+                "auth": authenticator is not None,
+                "pid": _os.getpid(),
+                "replicas": [
+                    {"replica_id": r.replica_id, "host": r.host,
+                     "port": r.port, "mux_port": r.mux_port}
+                    for r in replicas
+                ],
+            }),
+            flush=True,
+        )
+        try:
+            if args.serve_seconds > 0:
+                await asyncio.sleep(args.serve_seconds)
+            else:
+                await asyncio.Event().wait()
+        finally:
+            router.stop_probing()
+            await proxy.stop()
+
+    try:
+        asyncio.run(run())
+    except KeyboardInterrupt:
+        pass
+    if args.stats_out:
+        with open(args.stats_out, "w") as f:
+            json.dump(router.fleet_stats(), f, indent=2)
+        print(f"serve-router: stats -> {args.stats_out}", file=sys.stderr)
+    if router_tel is not None:
+        router_tel.close()
     return 0
 
 
@@ -2245,6 +3078,207 @@ def cmd_regime_bench(args) -> int:
         return 0 if ok else 1
     finally:
         tel.close()
+        if out_f is not None:
+            out_f.close()
+
+
+def cmd_autopilot(args) -> int:
+    """The operator-less continual-deployment supervisor (serve/autopilot.py).
+
+    Daemon mode (``--replica`` ...): run retrain->gate->canary cycles on a
+    cadence against a live fleet through the router, journaling every
+    phase crash-safely under ``--state-dir`` — SIGKILL it at any instant
+    and the same command line recovers (resume or abort-to-incumbent).
+    ``--bench`` runs the acceptance harness instead: a real
+    3-replica ``ProcessFleet``, chaos replica kill, injected bad
+    candidates and a mid-cycle SIGKILL of the autopilot itself.
+
+    The gate's and the serving check's engines run on ``--serve-device``
+    (``auto``, the default, follows ``--device``: the card), which must
+    be the fleet's serve device for the bit-exact serving check; the
+    ``--bench`` fleet's children serve there too.
+    """
+    import os
+    import tempfile
+
+    from p2pmicrogrid_tpu_torch.serve.autopilot import (
+        Autopilot,
+        autopilot_bench,
+        parse_inject_plan,
+    )
+    from p2pmicrogrid_tpu_torch.telemetry import guarded_stdout_sink
+
+    dev = _serve_device(args)
+    cfg = _build_cfg(args)
+    out_f = open(args.out, "a") if args.out else None
+    try:
+        with guarded_stdout_sink() as sink:
+            def emit(row: dict) -> None:
+                sink.emit(row)
+                if out_f is not None:
+                    out_f.write(json.dumps(row) + "\n")
+                    out_f.flush()
+
+            if args.bench:
+                work = args.work_dir or tempfile.mkdtemp(
+                    prefix="p2p-autopilot-"
+                )
+                # The child autopilot must build the SAME experiment
+                # config this process did — forward the cfg flags.
+                extra = [
+                    "--agents", str(args.agents),
+                    "--implementation", args.implementation,
+                    "--episodes", str(args.episodes),
+                    "--rounds", str(args.rounds),
+                ]
+                if args.homogeneous:
+                    extra.append("--homogeneous")
+                if args.no_trading:
+                    extra.append("--no-trading")
+                rows = autopilot_bench(
+                    cfg, work,
+                    n_replicas=args.replicas,
+                    n_cycles=args.cycles,
+                    inject=args.inject or
+                    "0:good,1:cost_regressed,2:nan_poisoned",
+                    seed=args.seed,
+                    chaos=args.chaos,
+                    sigkill_phase=args.sigkill_phase or None,
+                    sigkill_cycle=args.sigkill_cycle,
+                    requests_per_cycle=args.requests_per_cycle,
+                    canary_requests=args.canary_requests,
+                    n_households=args.households,
+                    stages=args.stages,
+                    emit=emit,
+                    extra_cfg_args=extra,
+                    device=dev,
+                )
+                headline = rows[-1]
+                return 0 if headline.get("all_safe") else 1
+
+            # Daemon mode: a live fleet on the other side of --replica.
+            from p2pmicrogrid_tpu_torch.serve import FleetRouter, Replica
+            from p2pmicrogrid_tpu_torch.serve.loadgen import RetryPolicy
+            from p2pmicrogrid_tpu_torch.serve.promotion import (
+                CanaryBudgets,
+                GateBudgets,
+            )
+            from p2pmicrogrid_tpu_torch.telemetry import (
+                SqliteSink,
+                Telemetry,
+                run_manifest,
+            )
+            from p2pmicrogrid_tpu_torch.telemetry.registry import run_stamp
+
+            if not args.results_db:
+                raise SystemExit(
+                    "autopilot needs --results-db (traces + attribution)"
+                )
+            if not args.state_dir:
+                raise SystemExit("autopilot needs --state-dir (the journal)")
+            replicas = []
+            for i, spec in enumerate(args.replica or []):
+                # host:port[/muxport] (serve-router style) or
+                # host:port[:muxport].
+                parts = spec.replace("/", ":").split(":")
+                if len(parts) < 2 or not parts[1].isdigit():
+                    raise SystemExit(
+                        f"--replica must be host:port[/muxport], got {spec!r}"
+                    )
+                replicas.append(Replica(
+                    replica_id=f"replica-{i}", host=parts[0],
+                    port=int(parts[1]),
+                    mux_port=(
+                        int(parts[2])
+                        if len(parts) > 2 and parts[2].isdigit() else None
+                    ),
+                ))
+            if not replicas:
+                raise SystemExit(
+                    "pass at least one --replica host:port[/muxport] "
+                    "(or --bench)"
+                )
+            router_token = None
+            if args.auth_secret_file:
+                from p2pmicrogrid_tpu_torch.serve import TokenAuthenticator
+
+                router_token = TokenAuthenticator.from_secret_file(
+                    args.auth_secret_file
+                ).mint("*")
+            router = FleetRouter(
+                replicas,
+                retry=RetryPolicy(
+                    max_attempts=args.retry_attempts,
+                    deadline_s=args.retry_deadline_s,
+                ),
+                token=router_token,
+            )
+            hold_s = {}
+            hold_env = os.environ.get("P2P_AUTOPILOT_HOLD")
+            if hold_env:
+                # The crash harness's deterministic kill window: sleep
+                # this long right after journaling the named phase.
+                hold_s = {
+                    str(k): float(v)
+                    for k, v in json.loads(hold_env).items()
+                }
+            tel = Telemetry(
+                run_id=f"autopilot-{run_stamp()}",
+                sinks=[SqliteSink(args.results_db)],
+                manifest=run_manifest(
+                    cfg, extra={"autopilot_role": "supervisor"}
+                ),
+            )
+            router.telemetry = tel
+            stages = tuple(float(s) for s in args.stages.split(","))
+            pilot = Autopilot(
+                cfg,
+                router,
+                incumbent_dir=args.incumbent,
+                state_dir=args.state_dir,
+                results_db=args.results_db,
+                telemetry=tel,
+                gate_budgets=GateBudgets(
+                    cost_margin=args.cost_margin,
+                    max_reward_drop=args.max_reward_drop,
+                    slo_p95_ms=args.slo_p95_ms,
+                    slo_p99_ms=args.slo_p99_ms,
+                ),
+                canary_budgets=CanaryBudgets(
+                    max_cost_regression=args.max_cost_regression,
+                    slo_p95_ms=args.canary_p95_ms,
+                    min_requests=args.canary_min_requests,
+                ),
+                stages=stages,
+                requests_per_cycle=args.requests_per_cycle,
+                canary_requests=args.canary_requests,
+                n_households=args.households,
+                rate_hz=args.rate_hz,
+                seed=args.seed,
+                trace_steps=args.trace_steps,
+                sim_episodes=args.sim_episodes,
+                settlement=args.settlement,
+                min_transitions=args.min_transitions,
+                max_batch=args.max_batch,
+                emit=emit,
+                hold_s=hold_s,
+                verify_serving=args.verify_serving,
+                serve_device=dev,
+            )
+            router.start_probing(args.probe_interval_s)
+            try:
+                state = pilot.run(
+                    args.cycles,
+                    cadence_s=args.cadence_s,
+                    inject_plan=parse_inject_plan(args.inject),
+                )
+            finally:
+                router.stop_probing()
+                tel.close()
+            summary = pilot.summary_row()
+            emit(summary)
+            return 0 if state.bad_promotions == 0 else 1
+    finally:
         if out_f is not None:
             out_f.close()
 
@@ -2998,6 +4032,194 @@ def main(argv=None) -> int:
                    episodes=8)
 
     p = sub.add_parser(
+        "serve-bench",
+        help="open-loop Poisson load against the batched inference engine; "
+             "prints p50/p95/p99 latency, throughput and padding-waste as "
+             "one JSON object per line",
+    )
+    _add_common(p)
+    p.add_argument("--bundle",
+                   help="policy bundle directory (export-bundle output); "
+                        "omitted: export a fresh-init bundle for the "
+                        "configured setting to a temp dir and bench that")
+    p.add_argument("--rate", type=float, default=256.0,
+                   help="offered request rate, requests/sec (default 256)")
+    p.add_argument("--requests", type=int, default=2048,
+                   help="total requests to generate (default 2048)")
+    p.add_argument("--max-batch", type=_pow2_int, default=64, dest="max_batch",
+                   help="microbatch coalescing cap; must be a power of two "
+                        "(default 64)")
+    p.add_argument("--max-wait-ms", type=float, default=2.0,
+                   dest="max_wait_ms",
+                   help="max time the oldest queued request waits for "
+                        "coalescing, ms (default 2)")
+    p.add_argument("--slo-ms", type=float, default=100.0, dest="slo_ms",
+                   help="latency SLO budget the vs_baseline headroom is "
+                        "reported against, ms (default 100)")
+    p.add_argument("--bench-seed", type=int, default=0, dest="bench_seed",
+                   help="seed for the Poisson arrivals and synthetic "
+                        "observations (default 0; --seed stays the model "
+                        "config seed)")
+    p.add_argument("--serve-device", choices=["auto", "default", "cpu"],
+                   default="auto", dest="serve_device",
+                   help="engine placement: 'cpu', 'default' (the card), or "
+                        "auto (default): --device, until a crossover "
+                        "measured on the card places engines (ROADMAP.md, "
+                        "Queue 1, item 6)")
+    p.add_argument("--network", action="store_true",
+                   help="wire-level mode: start an in-process serve gateway "
+                        "on an ephemeral port and fire the same open-loop "
+                        "schedule over real sockets; the headline row "
+                        "carries wire p50/p95/p99 and the admission-control "
+                        "shed rate")
+    p.add_argument("--households", type=int, default=16,
+                   help="--network: distinct simulated household ids cycling "
+                        "over the request stream (default 16)")
+    p.add_argument("--max-queue-depth", type=int, default=256,
+                   dest="max_queue_depth",
+                   help="--network: admission-control queue-depth budget "
+                        "(429 at/above it; default 256)")
+    p.add_argument("--wait-budget-ms", type=float, default=50.0,
+                   dest="wait_budget_ms",
+                   help="--network: admission-control p95 coalescing-wait "
+                        "budget in ms (default 50)")
+    p.add_argument("--retry", action="store_true",
+                   help="--network: retry shed (429) and transient-failure "
+                        "responses client-side, honoring Retry-After with "
+                        "capped jittered backoff; off by default (429 "
+                        "stays terminal)")
+    p.add_argument("--fleet", action="store_true",
+                   help="fleet mode: run N in-process gateway replicas "
+                        "behind the consistent-hash router and fire the "
+                        "open-loop schedule THROUGH the router (retry, "
+                        "failover, re-pinning); headline row carries "
+                        "availability/failover/retry SLOs")
+    p.add_argument("--replicas", type=int, default=3,
+                   help="--fleet: gateway replica count (default 3)")
+    p.add_argument("--population", type=int, default=None,
+                   help="million-household scale tier: synthetic "
+                        "population size for the virtual-clock scale "
+                        "bench, which needs scale/ (ROADMAP.md, Queue 1, "
+                        "item 15): exits non-zero")
+    p.add_argument("--scaling-replicas", dest="scaling_replicas",
+                   default="3,10,30",
+                   help="--population: comma-separated replica counts for "
+                        "the scaling sweep; the LARGEST is the headline "
+                        "(default 3,10,30)")
+    p.add_argument("--population-zipf-s", type=float, default=0.6,
+                   dest="population_zipf_s",
+                   help="--population: popularity skew exponent "
+                        "(default 0.6; 0 = uniform)")
+    p.add_argument("--population-churn", type=float, default=0.02,
+                   dest="population_churn",
+                   help="--population: fraction of requests from cold "
+                        "uniform households (default 0.02)")
+    p.add_argument("--vnodes", type=int, default=4096,
+                   help="--population: consistent-hash virtual nodes per "
+                        "replica for the scale sweep (default 4096 — "
+                        "spread tightens as 1/sqrt(vnodes))")
+    p.add_argument("--duration-s", type=float, default=15.0,
+                   dest="duration_s",
+                   help="--population: virtual-clock schedule length in "
+                        "seconds; requests = rate x duration (default 15)")
+    p.add_argument("--shard-warehouse", action="store_true",
+                   dest="shard_warehouse",
+                   help="--fleet: one WAL-mode SQLite warehouse shard per "
+                        "replica next to --results-db (replica telemetry "
+                        "fans out instead of funneling into one writer); "
+                        "federate with telemetry-query --shard")
+    p.add_argument("--chaos", action="store_true",
+                   help="--fleet: apply the default deterministic fault "
+                        "plan — kill one replica at 30%% of the run, "
+                        "restart it at 60%% — while the bench runs")
+    p.add_argument("--chaos-seed", type=int, default=0, dest="chaos_seed",
+                   help="--chaos: fault-plan seed (same seed = same "
+                        "injected faults; default 0)")
+    p.add_argument("--chaos-plan", dest="chaos_plan",
+                   help="--fleet: JSON fault-plan file (serve/faults.py "
+                        "FaultPlan.to_json) overriding the default "
+                        "kill/restart plan")
+    p.add_argument("--kill-at", type=float, default=None, dest="kill_at",
+                   help="--chaos: kill instant in seconds from loadgen "
+                        "start (default: 30%% of the expected run)")
+    p.add_argument("--restart-at", type=float, default=None,
+                   dest="restart_at",
+                   help="--chaos: restart instant in seconds (default: "
+                        "60%% of the expected run)")
+    p.add_argument("--retry-attempts", type=int, default=5,
+                   dest="retry_attempts",
+                   help="client retry policy: max attempts per request "
+                        "(--fleet router / --network --retry; default 5)")
+    p.add_argument("--retry-deadline-s", type=float, default=15.0,
+                   dest="retry_deadline_s",
+                   help="client retry policy: per-request deadline in "
+                        "seconds (default 15)")
+    p.add_argument("--process", action="store_true",
+                   help="--fleet: spawn each replica as a REAL subprocess "
+                        "(serve-gateway children) under a relaunch "
+                        "supervisor; chaos kills become SIGKILLs")
+    p.add_argument("--tls", action="store_true",
+                   help="--fleet: terminate TLS at every replica (test "
+                        "certs generated under artifacts/tls/, which "
+                        "git ignores)")
+    p.add_argument("--auth", action="store_true",
+                   help="--fleet: enforce per-household bearer tokens "
+                        "(fresh fleet secret; the router holds the "
+                        "operator wildcard) and run the 401 auth probe "
+                        "after the schedule")
+    p.add_argument("--transport", choices=["auto", "http", "mux"],
+                   default="auto", dest="fleet_transport",
+                   help="--fleet: client wire — auto (default) prefers "
+                        "each replica's persistent multiplexed listener; "
+                        "http forces the per-request-connection client")
+    p.add_argument("--wire-compare", action="store_true",
+                   dest="wire_compare",
+                   help="--fleet: emit a wire_comparison row first — the "
+                        "same open-loop schedule through per-request HTTP "
+                        "vs the persistent mux wire against replica-0")
+    p.add_argument("--batching", choices=["micro", "continuous"],
+                   default="micro",
+                   help="--network/--fleet: queue front per bundle "
+                        "('continuous' = slot-level join/leave sessions; "
+                        "required for recurrent bundles)")
+    p.add_argument("--max-sessions", type=int, default=256,
+                   dest="max_sessions",
+                   help="--batching continuous: resident session slots "
+                        "per bundle (default 256)")
+    p.add_argument("--burst-factor", type=float, default=None,
+                   dest="burst_factor",
+                   help="bursty arrivals: Markov-modulated on/off Poisson "
+                        "with the on-state rate this many times the "
+                        "off-state rate, mean rate preserved (1 = plain "
+                        "Poisson; default 1, except --continuous-compare "
+                        "which defaults to 8 — pass an explicit value to "
+                        "override either)")
+    p.add_argument("--burst-dwell-s", type=float, default=0.25,
+                   dest="burst_dwell_s",
+                   help="bursty arrivals: mean dwell in each on/off state, "
+                        "seconds (default 0.25)")
+    p.add_argument("--continuous-compare", action="store_true",
+                   dest="continuous_compare",
+                   help="one-process continuous-vs-microbatch comparison: "
+                        "the SAME (bursty) open-loop schedule over the "
+                        "persistent mux wire through a microbatch gateway "
+                        "and a continuous-batching gateway; emits per-arm "
+                        "percentile rows and the serve_continuous "
+                        "headline")
+    p.add_argument("--trace", action="store_true",
+                   help="--fleet: distributed tracing — every request "
+                        "carries a deterministic trace context (seeded by "
+                        "--bench-seed) across HTTP/mux into every replica; "
+                        "spans land in the --results-db warehouse (a temp "
+                        "DB if none given) and the run appends a stitched "
+                        "trace-tree row plus the serve_bench_trace "
+                        "headline with the p99 critical path "
+                        "With --chaos, a stall "
+                        "window on the victim plus a tight per-attempt "
+                        "router timeout forces observable failover hops")
+    p.set_defaults(fn=cmd_serve_bench)
+
+    p = sub.add_parser(
         "serve-gateway",
         help="run the HTTP serving gateway: POST /v1/act over the "
              "microbatch queue, /healthz /readyz /stats, hot-swap + A/B "
@@ -3076,9 +4298,10 @@ def main(argv=None) -> int:
                    help="relaunch count (the process-fleet supervisor "
                         "passes it so fleet stats attribute churn)")
     p.add_argument("--chaos-plan", dest="chaos_plan",
-                   help="fault-plan JSON for this replica's request-fault "
-                        "injector: needs serve/faults.py (ROADMAP.md, Queue "
-                        "1, item 14), exits non-zero")
+                   help="fault-plan JSON (serve/faults.py FaultPlan) for "
+                        "this replica's request-fault injector; the "
+                        "process-fleet harness passes it so child "
+                        "replicas replay the same faults")
     p.add_argument("--batching", choices=["micro", "continuous"],
                    default="micro",
                    help="queue front per bundle: 'micro' (full-batch "
@@ -3324,6 +4547,184 @@ def main(argv=None) -> int:
                         "case (eval tables + headline only)")
     _add_device(p)
     p.set_defaults(fn=cmd_regime_bench)
+
+    p = sub.add_parser(
+        "autopilot",
+        help="operator-less continual deployment: retrain->gate->canary "
+             "cycles on a cadence over a live fleet, crash-safe cycle "
+             "journal, zero-bad-promotion rails (serve/autopilot.py); "
+             "--bench runs the ProcessFleet + chaos + SIGKILL capture "
+             "harness",
+    )
+    _add_common(p)
+    p.add_argument("--replica", action="append",
+                   help="replica address host:port[/muxport]; repeat per "
+                        "replica (daemon mode)")
+    p.add_argument("--incumbent",
+                   help="incumbent bundle directory (seeds a FRESH "
+                        "journal; an existing journal's incumbent wins)")
+    p.add_argument("--state-dir", dest="state_dir",
+                   help="cycle journal + per-cycle candidates live here "
+                        "(the crash-recovery state)")
+    p.add_argument("--cycles", type=int, default=3,
+                   help="total cycles to complete (journal-counted across "
+                        "restarts; default 3)")
+    p.add_argument("--cadence-s", type=float, default=0.0, dest="cadence_s",
+                   help="sleep between cycles, seconds (default 0 — "
+                        "back-to-back; production runs hours)")
+    p.add_argument("--inject",
+                   help="cycle:kind[,cycle:kind...] injection plan (kinds: "
+                        "good | cost_regressed | nan_poisoned | continual); "
+                        "un-named cycles retrain for real")
+    p.add_argument("--out",
+                   help="append metric rows to this JSONL file")
+    p.add_argument("--bench", action="store_true",
+                   help="run the acceptance harness (ProcessFleet "
+                        "+ chaos + autopilot SIGKILL) instead of daemon "
+                        "mode")
+    p.add_argument("--work-dir", dest="work_dir",
+                   help="--bench: working directory (default: temp dir)")
+    p.add_argument("--replicas", type=int, default=3,
+                   help="--bench: fleet size (default 3)")
+    p.add_argument("--chaos", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="--bench: SIGKILL a replica mid-run (supervisor "
+                        "relaunches it)")
+    p.add_argument("--sigkill-phase", default="retraining",
+                   dest="sigkill_phase",
+                   help="--bench: SIGKILL the autopilot in this phase "
+                        "(empty = no autopilot kill; default retraining)")
+    p.add_argument("--sigkill-cycle", type=int, default=1,
+                   dest="sigkill_cycle",
+                   help="--bench: ...of this cycle (default 1)")
+    p.add_argument("--requests-per-cycle", type=int, default=96,
+                   dest="requests_per_cycle",
+                   help="baseline traffic per cycle (the decisions the "
+                        "next retrain exports; default 96)")
+    p.add_argument("--canary-requests", type=int, default=64,
+                   dest="canary_requests",
+                   help="live requests per canary stage (default 64)")
+    p.add_argument("--households", type=int, default=16,
+                   help="distinct household ids in the traffic (default 16)")
+    p.add_argument("--rate-hz", type=float, default=64.0, dest="rate_hz",
+                   help="open-loop traffic rate (default 64)")
+    p.add_argument("--stages", default="25,100",
+                   help="canary ramp percentages ending at 100 "
+                        "(default 25,100)")
+    p.add_argument("--trace-steps", type=int, default=50,
+                   dest="trace_steps",
+                   help="off-policy pretrain steps on the exported traces "
+                        "(default 50)")
+    p.add_argument("--sim-episodes", type=int, default=0,
+                   dest="sim_episodes",
+                   help="chunked simulator fine-tune episodes per cycle "
+                        "(default 0 — pure trace fine-tune)")
+    p.add_argument("--settlement", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="bill decisions + attribute training reward from "
+                        "settlement rows (loud fallback to the env model "
+                        "when rows are missing)")
+    p.add_argument("--min-transitions", type=int, default=8,
+                   dest="min_transitions",
+                   help="refuse a cycle with fewer exported transitions "
+                        "(default 8)")
+    p.add_argument("--max-batch", type=_pow2_int, default=16,
+                   dest="max_batch",
+                   help="engine padding-bucket cap (default 16)")
+    p.add_argument("--serve-device", default="auto", dest="serve_device",
+                   choices=["cpu", "default", "auto"],
+                   help="backend for the gate/verify reference engines — "
+                        "must match the FLEET's serve device for the "
+                        "bit-exact serving check: 'cpu', 'default' (the "
+                        "card), or auto (default): --device")
+    p.add_argument("--verify-serving",
+                   action=argparse.BooleanOptionalAction, default=True,
+                   dest="verify_serving",
+                   help="post-cycle bit-exact check of the fleet default "
+                        "vs the journal's incumbent (disable on "
+                        "mixed-backend fleets)")
+    p.add_argument("--auth-secret-file", dest="auth_secret_file",
+                   help="fleet secret: mint the operator wildcard toward "
+                        "the replicas")
+    p.add_argument("--retry-attempts", type=int, default=5,
+                   dest="retry_attempts")
+    p.add_argument("--retry-deadline-s", type=float, default=15.0,
+                   dest="retry_deadline_s")
+    p.add_argument("--probe-interval-s", type=float, default=0.5,
+                   dest="probe_interval_s")
+    p.add_argument("--cost-margin", type=float, default=0.0,
+                   dest="cost_margin")
+    p.add_argument("--max-reward-drop", type=float, default=0.5,
+                   dest="max_reward_drop")
+    p.add_argument("--slo-p95-ms", type=float, default=250.0,
+                   dest="slo_p95_ms")
+    p.add_argument("--slo-p99-ms", type=float, default=500.0,
+                   dest="slo_p99_ms")
+    p.add_argument("--max-cost-regression", type=float, default=0.05,
+                   dest="max_cost_regression")
+    p.add_argument("--canary-p95-ms", type=float, default=2000.0,
+                   dest="canary_p95_ms")
+    p.add_argument("--canary-min-requests", type=int, default=8,
+                   dest="canary_min_requests")
+    p.set_defaults(fn=cmd_autopilot)
+
+    p = sub.add_parser(
+        "serve-router",
+        help="run the fleet router as a standalone proxy process: TLS + "
+             "per-household auth terminate here; replicas are reached "
+             "over the persistent multiplexed wire with retry/failover",
+    )
+    p.add_argument("--replica", action="append",
+                   help="replica address host:port[/muxport]; repeat per "
+                        "replica (port = HTTP endpoint, muxport = its "
+                        "persistent framed listener)")
+    p.add_argument("--host", default="127.0.0.1",
+                   help="bind address (default 127.0.0.1)")
+    p.add_argument("--port", type=_nonneg_int, default=8378,
+                   help="bind port; 0 picks an ephemeral port, printed in "
+                        "the router_listening line (default 8378)")
+    p.add_argument("--mux-port", type=_nonneg_int, default=None,
+                   dest="mux_port",
+                   help="also serve the framed mux wire to clients on "
+                        "this port (0 = ephemeral; omitted = HTTP only)")
+    p.add_argument("--tls-cert", dest="tls_cert",
+                   help="front TLS certificate PEM (pair with --tls-key)")
+    p.add_argument("--tls-key", dest="tls_key",
+                   help="front TLS private-key PEM")
+    p.add_argument("--backend-cafile", dest="backend_cafile",
+                   help="CA/cert PEM to verify TLS replicas with")
+    p.add_argument("--auth-secret-file", dest="auth_secret_file",
+                   help="fleet secret: verify household tokens at the "
+                        "proxy and mint the router's wildcard credential "
+                        "toward the replicas")
+    p.add_argument("--results-db", dest="results_db",
+                   help="bind router telemetry (fleet_stats events, "
+                        "router counters) to this SQLite warehouse")
+    p.add_argument("--shard-id", dest="shard_id",
+                   help="warehouse shard identity for the router's own "
+                        "telemetry rows (default 'router'); under a "
+                        "sharded fleet, point --results-db at the "
+                        "router's OWN shard file so the proxy never "
+                        "contends with replica writers")
+    p.add_argument("--retry-attempts", type=int, default=5,
+                   dest="retry_attempts",
+                   help="router retry policy: max attempts per request "
+                        "(default 5)")
+    p.add_argument("--retry-deadline-s", type=float, default=15.0,
+                   dest="retry_deadline_s",
+                   help="router retry policy: per-request deadline, "
+                        "seconds (default 15)")
+    p.add_argument("--probe-interval-s", type=float, default=0.5,
+                   dest="probe_interval_s",
+                   help="/readyz health-probe sweep interval, seconds "
+                        "(default 0.5)")
+    p.add_argument("--serve-seconds", type=float, default=0.0,
+                   dest="serve_seconds",
+                   help="serve this long then exit (0 = until Ctrl-C)")
+    p.add_argument("--stats-out", dest="stats_out",
+                   help="write the final fleet-stats snapshot JSON here "
+                        "on exit")
+    p.set_defaults(fn=cmd_serve_router)
 
     p = sub.add_parser(
         "telemetry-query",

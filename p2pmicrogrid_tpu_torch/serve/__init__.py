@@ -19,11 +19,20 @@ observation:
                  admission control and drain-before-close.
 * ``wire``       the persistent multiplexed transport.
 * ``auth``       HMAC-signed per-household bearer tokens and TLS helpers.
+* ``router``     the fleet tier: consistent-hash routing of households over
+                 N gateway replicas (probes, retry, failover, pins, the
+                 two-phase fleet swap), ``LocalFleet`` (in-process
+                 replicas) and the fleet bench.
+* ``faults``     deterministic, seed-driven fault injection (kill/restart,
+                 stall, 500s, drops, corruption).
+* ``procfleet``  ``serve-gateway`` subprocess replicas under a relaunch
+                 supervisor.
+* ``proxy``      the router as a standalone proxy process
+                 (``serve-router``).
 
-``loadgen`` (open-loop arrivals, the SLO bench) and ``promotion`` (the
-gate and the canary) are imported from their modules. Not ported yet
-(ROADMAP.md, Queue 1, item 14): the fleet: the router, fault injection,
-process fleets and the proxy.
+``loadgen`` (open-loop arrivals, the SLO bench), ``promotion`` (the gate
+and the canary) and ``autopilot`` (unattended retrain, gate and canary
+cycles over a fleet) are imported from their modules.
 """
 
 from p2pmicrogrid_tpu_torch.serve.auth import (
@@ -63,7 +72,27 @@ from p2pmicrogrid_tpu_torch.serve.gateway import (
     build_registry,
     make_bundle_factory,
 )
+from p2pmicrogrid_tpu_torch.serve.faults import (
+    FaultEvent,
+    FaultInjector,
+    FaultPlan,
+    FaultSchedule,
+    kill_restart_plan,
+)
+from p2pmicrogrid_tpu_torch.serve.procfleet import ProcessFleet
+from p2pmicrogrid_tpu_torch.serve.proxy import ProxyServer, RouterProxy
 from p2pmicrogrid_tpu_torch.serve.registry import BundleRegistry, ServingBundle
+from p2pmicrogrid_tpu_torch.serve.router import (
+    ConsistentHashRing,
+    FleetRouter,
+    FleetSwapError,
+    LocalFleet,
+    NoHealthyReplicas,
+    Replica,
+    RouterResult,
+    run_fleet_loadgen,
+    serve_bench_fleet,
+)
 from p2pmicrogrid_tpu_torch.serve.wire import (
     MuxConnection,
     MuxPool,
@@ -78,13 +107,27 @@ __all__ = [
     "AuthError",
     "BUNDLE_FORMAT_VERSION",
     "BundleRegistry",
+    "ConsistentHashRing",
     "ContinuousBatcher",
     "EXPORT_DTYPES",
+    "FaultEvent",
+    "FaultInjector",
+    "FaultPlan",
+    "FaultSchedule",
+    "FleetRouter",
+    "FleetSwapError",
     "GatewayServer",
+    "LocalFleet",
     "MicroBatchQueue",
     "MuxConnection",
     "MuxPool",
+    "NoHealthyReplicas",
     "PolicyEngine",
+    "ProcessFleet",
+    "ProxyServer",
+    "Replica",
+    "RouterProxy",
+    "RouterResult",
     "ServeGateway",
     "ServingBundle",
     "Sessions",
@@ -102,6 +145,7 @@ __all__ = [
     "export_policy_bundle",
     "generate_secret",
     "greedy_params",
+    "kill_restart_plan",
     "load_policy_bundle",
     "load_secret",
     "load_secret_chain",
@@ -109,6 +153,8 @@ __all__ = [
     "mint_token",
     "read_frame",
     "rotate_secret",
+    "run_fleet_loadgen",
+    "serve_bench_fleet",
     "server_ssl_context",
     "verify_token",
 ]

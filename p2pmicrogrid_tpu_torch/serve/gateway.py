@@ -4,9 +4,11 @@ The port of the JAX package's ``serve/gateway.py``, over the port's engine
 (one CUDA graph per padding bucket on the card, ``serve/engine.py``). The
 routes, status codes, admission shedding, drain and auth checks are the JAX
 package's; ``results_db=`` streams each bundle's telemetry into the results
-store's warehouse (``telemetry.SqliteSink``). Not ported yet: the fleet's
-fault injector (``serve/faults.py``, ROADMAP.md, Queue 1, item 14), which
-``fault_injector=`` takes duck-typed.
+store's warehouse (``telemetry.SqliteSink``); ``fault_injector=`` takes the
+fleet's ``serve/faults.py::FaultInjector``. ``stop`` closes the
+connections left after the drain before it waits for the listeners to
+close, since Python 3.12's ``wait_closed`` also waits for every client
+connection.
 
 The engine + microbatch queue (serve/engine.py) serve in-process callers;
 real households are remote. This module is the wire between them — a
@@ -420,6 +422,18 @@ class ServeGateway:
                 server = getattr(self, attr)
                 if server is not None:
                     server.close()
+            # Since Python 3.12 wait_closed() also waits for every open
+            # client connection. After the drain the ones left carry no
+            # admitted act request: idle keep-alive and persistent mux
+            # clients, and requests held by an injected stall. Close them
+            # (a response already written still flushes), or stop() would
+            # wait out the stall, the read timeout or a client that never
+            # hangs up.
+            for writer in list(self._conns):
+                writer.close()
+            for attr in ("_server", "_mux_server"):
+                server = getattr(self, attr)
+                if server is not None:
                     await server.wait_closed()
                     setattr(self, attr, None)
             if self.own_bundles:

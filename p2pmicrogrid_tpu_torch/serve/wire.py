@@ -234,11 +234,23 @@ class MuxConnection:
         self._pending[rid] = fut
         try:
             async with self._write_lock:
+                # Re-checked under the lock: a request queued behind a
+                # writer parked in drain() can wake on a connection that
+                # was lost and closed meanwhile. Writing to it would not
+                # fail as a transport error: a TLS transport closed after
+                # its connection_lost raises AttributeError from write().
+                if self.closed or self._writer.transport.is_closing():
+                    raise ConnectionResetError("mux connection is closed")
                 self._writer.write(encoded)
                 await self._writer.drain()
             doc = await asyncio.wait_for(fut, timeout_s)
         finally:
             self._pending.pop(rid, None)
+            if fut.done() and not fut.cancelled():
+                # The read loop fails every pending future when the
+                # stream breaks, this one too while its write was still
+                # in flight: mark that error seen.
+                fut.exception()
         status = doc.get("status")
         if not isinstance(status, int):
             raise WireProtocolError("response frame carries no status")
@@ -261,7 +273,9 @@ class MuxConnection:
             await self._reader_task
         except (asyncio.CancelledError, Exception):  # noqa: BLE001
             pass
-        self._writer.close()
+        if not self._writer.transport.is_closing():
+            # A second close() of a TLS transport drops its protocol.
+            self._writer.close()
         try:
             await self._writer.wait_closed()
         except (ConnectionError, OSError):
@@ -585,6 +599,8 @@ async def serve_mux_connection(
         # read loop sees the EOF and winds the connection down.
         try:
             async with write_lock:
+                if writer.transport.is_closing():
+                    return  # a TLS transport closed twice raises from write()
                 writer.write(encode_frame(doc))
                 await writer.drain()
         except (ConnectionError, OSError):

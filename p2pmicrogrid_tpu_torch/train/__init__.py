@@ -1,8 +1,9 @@
 """Policy adapters, the single community's training loops, checkpoints.
 
 The JAX package's names for what is ported; ``checkpoint.py``,
-``faults.py``, ``resilience.py`` and ``health.py`` are imported by module
-(``continual.py`` and ``placement.py`` are not ported, ROADMAP.md, Queue 1).
+``faults.py``, ``resilience.py``, ``health.py``, ``recurrent.py`` and
+``continual.py`` are imported by module (``placement.py`` is not ported,
+ROADMAP.md, Queue 1, item 8).
 """
 
 from p2pmicrogrid_tpu_torch.train.checkpoint import (

@@ -135,11 +135,15 @@ def _fsync_file(path: str) -> None:
         os.close(fd)
 
 
+def _fsync_dir(path: str) -> None:
+    _fsync_file(path)
+
+
 def _fsync_tree(root: str) -> None:
     for dirpath, _dirnames, filenames in os.walk(root):
         for f in filenames:
             _fsync_file(os.path.join(dirpath, f))
-        _fsync_file(dirpath)
+        _fsync_dir(dirpath)
 
 
 # --- payload files -------------------------------------------------------------

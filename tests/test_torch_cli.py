@@ -38,10 +38,15 @@ from p2pmicrogrid_tpu_torch import cli as tcli
 PORTED = {
     "train", "single", "multi", "eval", "baseline", "sweep", "forecast", "export-bundle",
     "train-recurrent", "serve-gateway", "serve-token", "telemetry-report", "telemetry-query",
-    "continual", "promote", "regime-bench",
+    "continual", "promote", "regime-bench", "serve-bench", "serve-router", "autopilot",
 }
-NOT_PORTED = {"bench", "serve-bench", "serve-router", "autopilot", "analyse"}
+NOT_PORTED = {"bench", "analyse"}
 PORT_ONLY_OPTIONS = {"--device"}
+# Defaults the port sets apart: the autopilot's engines default to the card
+# (``auto`` follows ``--device``) where the JAX package defaults to the CPU.
+PORT_DEFAULTS = {("autopilot", ("--serve-device",)): "auto"}
+# Subcommands that run no model and so take no ``--device``.
+NO_DEVICE = ("serve-token", "telemetry-report", "telemetry-query", "serve-router")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(p2pmicrogrid_tpu_torch.__file__)))
 
 _parse_args = argparse.ArgumentParser.parse_args
@@ -95,10 +100,10 @@ def _options(sub):
     return out, {k: v for k, v in sub._defaults.items() if k != "fn"}
 
 
-def test_the_thirteen_ported_subcommands():
+def test_the_ported_subcommands():
     jax_parser, port_parser = _parsers()
     port_subs, jax_subs = set(_subparsers(port_parser)), set(_subparsers(jax_parser))
-    assert port_subs == PORTED and len(port_subs) == 16
+    assert port_subs == PORTED and len(port_subs) == 19
     assert jax_subs - port_subs == NOT_PORTED
 
 
@@ -107,9 +112,12 @@ def test_options_are_the_jax_command_lines(name):
     jax_parser, port_parser = _parsers()
     ref = _options(_subparsers(jax_parser)[name])
     got = _options(_subparsers(port_parser)[name])
+    for (sub, option), default in PORT_DEFAULTS.items():
+        if sub == name:
+            ref[0][option]["default"] = default
     assert got == ref
     has_device = any("--device" in a.option_strings for a in _subparsers(port_parser)[name]._actions)
-    assert has_device == (name not in ("serve-token", "telemetry-report", "telemetry-query"))
+    assert has_device == (name not in NO_DEVICE)
 
 
 ARGVS = [

@@ -1168,3 +1168,49 @@ def test_trace_rewards_and_gate_on_the_card_match_cpu(cuda_generator, tmp_path):
         verdicts[dev] = (v.passed, v.candidate_cost)
     assert verdicts["cuda"][0] is verdicts["cpu"][0] is True
     np.testing.assert_allclose(verdicts["cuda"][1], verdicts["cpu"][1], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_local_fleet_on_the_card_answers_as_its_engine(cuda_generator, tmp_path):
+    """A two-replica ``LocalFleet`` on the card over a discrete (per-agent
+    DQN) bundle: every answer through the router equals its reference
+    engine's act bit for bit, a kill fails over with no request lost, and
+    the restart captures nothing (each engine's ``aot_compiles`` as before)."""
+    import asyncio
+
+    import numpy as np
+
+    from p2pmicrogrid_tpu_torch.serve import FleetRouter, LocalFleet, calibration_obs
+    from p2pmicrogrid_tpu_torch.serve.gateway import AdmissionConfig
+    from p2pmicrogrid_tpu_torch.serve.loadgen import RetryPolicy
+
+    path = _serving_bundle(tmp_path, "dqn", 16)
+    fleet = LocalFleet([path], n_replicas=2, max_batch=8,
+                       admission=AdmissionConfig(max_queue_depth=100_000, wait_budget_ms=1e5))
+    fleet.start()
+    try:
+        engine = fleet.reference_engine()
+        assert engine.device.type == "cuda"
+        router = FleetRouter(fleet.replicas, retry=RetryPolicy(max_attempts=5, deadline_s=30.0),
+                             fail_threshold=2, ok_threshold=1)
+        obs = calibration_obs(12, 16, seed=5)
+
+        def act_all(offset):
+            return [asyncio.run(router.act(f"house-{i}", obs[i])) for i in range(offset, offset + 6)]
+
+        first = act_all(0)
+        assert all(r.status == 200 for r in first)
+        victim = first[0].replica_id
+        reg = fleet.entry(victim)["registry"]
+        captures = reg.get(reg.default_hash).engine.stats["aot_compiles"]
+        fleet.kill(victim)
+        second = act_all(6)
+        assert all(r.status == 200 for r in second)
+        got = np.asarray([r.actions for r in first + second], dtype=np.float32)
+        assert np.array_equal(got, engine.act(obs))
+        fleet.restart(victim)
+        router.probe_once()
+        assert router.is_healthy(victim)
+        assert reg.get(reg.default_hash).engine.stats["aot_compiles"] == captures
+    finally:
+        fleet.stop_all()

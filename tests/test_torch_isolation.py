@@ -38,7 +38,10 @@ from p2pmicrogrid_tpu_torch.train.policies import init_policy_state
 from p2pmicrogrid_tpu_torch.data import trace_export as ttrace
 from p2pmicrogrid_tpu_torch.regimes import bench as tregbench
 from p2pmicrogrid_tpu_torch.serve import continuous as tcontinuous
+from p2pmicrogrid_tpu_torch.serve import autopilot as tautopilot
+from p2pmicrogrid_tpu_torch.serve import procfleet as tprocfleet
 from p2pmicrogrid_tpu_torch.serve import promotion as tpromo
+from p2pmicrogrid_tpu_torch.serve import router as trouter
 from p2pmicrogrid_tpu_torch.serve.registry import BundleRegistry
 from p2pmicrogrid_tpu_torch.train import continual as tcont
 
@@ -100,7 +103,12 @@ def test_every_module_imports_without_jax():
                 "p2pmicrogrid_tpu_torch.serve.promotion",
                 "p2pmicrogrid_tpu_torch.data.trace_export",
                 "p2pmicrogrid_tpu_torch.train.continual",
-                "p2pmicrogrid_tpu_torch.regimes.bench"} <= set(names), names
+                "p2pmicrogrid_tpu_torch.regimes.bench",
+                "p2pmicrogrid_tpu_torch.serve.faults",
+                "p2pmicrogrid_tpu_torch.serve.router",
+                "p2pmicrogrid_tpu_torch.serve.procfleet",
+                "p2pmicrogrid_tpu_torch.serve.proxy",
+                "p2pmicrogrid_tpu_torch.serve.autopilot"} <= set(names), names
         leaked = sorted(
             n for n, m in sys.modules.items()
             if m is not None and (n == "jax" or n.startswith(("jax.", "jaxlib", "flax", "optax"))
@@ -235,6 +243,10 @@ def _cfg(impl="tabular"):
         lambda cfg: tpromo.run_promotion_pipeline(cfg, "unused", "unused"),
         lambda cfg: tpromo.promotion_bench(cfg, "unused"),
         lambda cfg: tcontinuous.serve_bench_continuous_compare("unused"),
+        lambda cfg: trouter.LocalFleet(["unused"]),
+        lambda cfg: tprocfleet.ProcessFleet(["unused"]),
+        lambda cfg: tautopilot.Autopilot(cfg, None, "unused", "unused", "unused"),
+        lambda cfg: tautopilot.autopilot_bench(cfg, "unused"),
     ],
     ids=["init_shared_state", "init_policy_state", "tabular_init", "init_physical",
          "ratings_to", "stack_scenario_arrays", "init_shared_state_dqn", "dqn_init",
@@ -254,7 +266,8 @@ def _cfg(impl="tabular"):
          "settlement_reward_fn", "to_replay_state", "state_from_bundle", "make_trace_update_fn",
          "offpolicy_pretrain", "train_continual", "evaluate_bundle_cost", "run_promotion_gate",
          "CanaryController", "make_crafted_bundle", "run_promotion_pipeline", "promotion_bench",
-         "serve_bench_continuous_compare"],
+         "serve_bench_continuous_compare", "LocalFleet", "ProcessFleet", "Autopilot",
+         "autopilot_bench"],
 )
 def test_entry_points_default_to_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -279,8 +292,15 @@ def test_entry_points_default_to_cuda(monkeypatch, call):
         ["serve-gateway", "--port", "0"],
         ["continual", "--results-db", "unused.db", "--bundle", "unused"],
         ["promote", "--candidate", "unused", "--incumbent", "unused"],
+        ["serve-bench", "--requests", "4"],
+        ["serve-bench", "--fleet", "--process", "--chaos"],
+        ["autopilot", "--bench"],
+        ["autopilot", "--replica", "127.0.0.1:1", "--state-dir", "unused",
+         "--results-db", "unused.db"],
     ],
-    ids=lambda a: a[0] if a[1:2] != ["--scenarios"] else "train-chunked",
+    ids=lambda a: a[0] if a[1:2] not in (["--scenarios"], ["--fleet"], ["--replica"])
+    else {"--scenarios": "train-chunked", "--fleet": "serve-bench-fleet",
+          "--replica": "autopilot-daemon"}[a[1]],
 )
 def test_command_line_exits_non_zero_without_a_card(monkeypatch, tmp_path, argv):
     """``cli.main`` without ``--device cpu`` on a machine without a card:

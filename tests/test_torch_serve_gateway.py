@@ -348,6 +348,55 @@ def test_wire_frames_round_trip_and_mux_acts(server):
     assert gateway.stats["mux_requests"] == 2
 
 
+def test_mux_request_on_a_lost_tls_connection_is_a_transport_error():
+    """A request queued behind the write lock when its TLS connection is
+    lost and closed fails with ConnectionResetError, the error the pool and
+    the router fail over on; writing to the closed TLS transport would
+    raise AttributeError out of the router's act instead."""
+    from p2pmicrogrid_tpu_torch.serve.auth import (
+        client_ssl_context,
+        ensure_test_certs,
+        server_ssl_context,
+    )
+
+    cert, key = ensure_test_certs()
+
+    async def scenario():
+        accepted: list = []
+
+        async def hold(reader, writer):
+            accepted.append(writer)
+            await reader.read()
+
+        server = await asyncio.start_server(
+            hold, "127.0.0.1", 0, ssl=server_ssl_context(cert, key)
+        )
+        port = server.sockets[0].getsockname()[1]
+        conn = await MuxConnection.open(
+            "127.0.0.1", port, ssl=client_ssl_context(cert)
+        )
+        try:
+            while not accepted:
+                await asyncio.sleep(0.01)
+            async with conn._write_lock:
+                queued = asyncio.ensure_future(
+                    conn.request("/v1/act", {"obs": [0.0]}, timeout_s=TIMEOUT)
+                )
+                await asyncio.sleep(0)  # past its closed check, at the lock
+                accepted[0].transport.abort()
+                while not conn.closed:  # the read loop saw the loss
+                    await asyncio.sleep(0.01)
+                await conn.close()
+            with pytest.raises(ConnectionResetError):
+                await queued
+        finally:
+            await conn.close()
+            server.close()
+            await server.wait_closed()
+
+    asyncio.run(asyncio.wait_for(scenario(), TIMEOUT))
+
+
 def test_results_db_streams_serve_requests(bundles, tmp_path):
     """With ``results_db`` every answered request lands in the warehouse as
     one ``serve_request`` point under the serving bundle's config_hash."""
